@@ -1,0 +1,171 @@
+"""Build and bind the port's CUDA kernels.
+
+``library()`` compiles every ``sponge_tpu_torch/csrc/*.cu`` with nvcc into
+one shared library with a plain C interface, the first time a kernel is
+launched, and loads it with ctypes.  The library lives in
+``build/sponge_tpu_torch/`` at the repository root, named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+reused.  Importing this module builds nothing: CPU-only machines never need
+nvcc.
+
+Each kernel is instantiated for fixed (t, L) pairs; ``INSTANTIATIONS`` lists
+them and ``check_instantiated`` raises for any other shape.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "sponge_tpu_torch"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# (t, L) pairs compiled into both kernels: rate 2 over the 255/254-bit fields
+# (L = 11) and over the 35-bit test field (L = 2).
+INSTANTIATIONS = frozenset({(3, 11), (3, 2)})
+
+# C signature shared by both kernels (see csrc/poseidon_dense.cu).
+_ARGTYPES = [
+    ctypes.c_void_p,  # state in  (t, L, B) int32
+    ctypes.c_void_p,  # state out (t, L, B) int32
+    ctypes.c_longlong,  # B
+    ctypes.c_int,  # t
+    ctypes.c_int,  # L
+    ctypes.c_int,  # alpha
+    ctypes.c_int,  # full rounds
+    ctypes.c_int,  # partial rounds
+    ctypes.c_void_p,  # constant buffer (int32)
+    ctypes.c_uint,  # n0inv
+    ctypes.c_void_p,  # cudaStream_t
+]
+KERNEL_SYMBOLS = ("sponge_poseidon_dense", "sponge_poseidon_opt")
+
+
+def check_instantiated(t: int, L: int) -> None:
+    if (t, L) not in INSTANTIATIONS:
+        raise NotImplementedError(
+            f"no CUDA kernel instantiation for t={t}, L={L}; "
+            f"compiled: {sorted(INSTANTIATIONS)}"
+        )
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = pathlib.Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    cus, cuhs = _sources()
+    for path in cus + cuhs:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> pathlib.Path:
+    return BUILD_DIR / f"libsponge_kernels_{_digest()}.so"
+
+
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    return proc.stdout + proc.stderr
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library of the current sources exists:
+    each ``.cu`` to an object (in parallel), then one shared library.  Raises
+    with nvcc's output on failure.  The ptxas report (registers and spills per
+    kernel) is kept beside the library as ``<name>.ptxas.txt``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    stem = out.with_suffix("")
+    objs = [pathlib.Path(f"{stem}.{cu.stem}.{os.getpid()}.o") for cu in cus]
+    cmds = [
+        [_nvcc(), *NVCC_FLAGS, "-c", f"-I{CSRC}", "-o", str(obj), str(cu)]
+        for cu, obj in zip(cus, objs)
+    ]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        with ThreadPoolExecutor(len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        logs.append(_run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    out.with_suffix(".ptxas.txt").write_text(
+        f"# {' '.join(NVCC_FLAGS)}\n# {time.perf_counter() - t0:.1f} s\n" + "".join(logs)
+    )
+    os.replace(tmp, out)
+    return out
+
+
+def ptxas_report() -> str:
+    """The ptxas report of the current library (build() first)."""
+    return library_path().with_suffix(".ptxas.txt").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for name in KERNEL_SYMBOLS:
+        fn = getattr(lib, name)
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def launch(symbol: str, cfg, consts, state, out) -> None:
+    """Launch one permutation kernel on the current CUDA stream of
+    ``state``'s device; raises if the launch is refused."""
+    import torch
+
+    fs = cfg.field
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        rc = getattr(library(), symbol)(
+            state.data_ptr(),
+            out.data_ptr(),
+            state.shape[-1],
+            cfg.t,
+            fs.nlimbs,
+            cfg.alpha,
+            cfg.full_rounds,
+            cfg.partial_rounds,
+            consts.data_ptr(),
+            fs.n0inv,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")

@@ -1,0 +1,84 @@
+"""Kernel 1: the dense Poseidon permutation, and its plain PyTorch version.
+
+Counterpart of ``sponge_tpu/ops/pallas_permute.py`` (``pallas_permute_fn``):
+every round is ARK, x^alpha (all elements in full rounds, element 0 in
+partial rounds) and the dense t x t MDS, each output row's t products summed
+lazily with one Montgomery reduction.  The CUDA kernel is
+``csrc/poseidon_dense.cu``; ``permute_dense_plain`` computes the same
+function with tensor ops.
+
+``permute_dense`` takes the plain version only for a tensor on the CPU; for
+a CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..poseidon.config import PoseidonConfig, constants_size, unpack_constants
+from . import _build
+from . import montgomery as mont
+from .bounds import check_kernel_bounds
+
+
+def check_state(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> None:
+    """Validate a (t, L, B) int32 state plane and its constant buffer."""
+    shape = (cfg.t, cfg.field.nlimbs)
+    if state.dim() != 3 or tuple(state.shape[:2]) != shape:
+        raise ValueError(f"state must be (t, L, B) = {shape + ('B',)}, got {tuple(state.shape)}")
+    if state.dtype != torch.int32 or consts.dtype != torch.int32:
+        raise TypeError("state and constants must be int32")
+    if not state.is_contiguous():
+        raise ValueError("state must be contiguous")
+    if tuple(consts.shape) != (constants_size(cfg),) or not consts.is_contiguous():
+        raise ValueError(f"constants must be kernel_constants(cfg): {constants_size(cfg)} words")
+    if consts.device != state.device:
+        raise ValueError(f"constants on {consts.device}, state on {state.device}")
+
+
+def full_round(cfg, x, ark_r, mds):
+    fs = cfg.field
+    x = mont.mont_pow(fs, mont.mont_add(fs, x, ark_r), cfg.alpha)
+    return mont.mont_dot(fs, mds, x)
+
+
+def partial_round(cfg, x, ark_r, mds):
+    fs = cfg.field
+    x = mont.mont_add(fs, x, ark_r)
+    x = torch.cat([mont.mont_pow(fs, x[:1], cfg.alpha), x[1:]])
+    return mont.mont_dot(fs, mds, x)
+
+
+def permute_dense_plain(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """The dense permutation with int64 tensor ops (canonical in and out)."""
+    c = unpack_constants(cfg, consts)
+    ark, mds = c["ark"].long(), c["mds"].long()
+    half = cfg.full_rounds // 2
+    x = state.long()
+    for r in range(cfg.rounds):
+        if r < half or r >= half + cfg.partial_rounds:
+            x = full_round(cfg, x, ark[r], mds)
+        else:
+            x = partial_round(cfg, x, ark[r], mds)
+    return x.int()
+
+
+def permute_dense(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """Dense permutation of a (t, L, B) int32 canonical Montgomery plane.
+
+    ``consts`` is ``kernel_constants(cfg)`` on the state's device."""
+    check_state(cfg, consts, state)
+    if state.device.type == "cpu":
+        return permute_dense_plain(cfg, consts, state)
+    if state.device.type != "cuda":
+        raise ValueError(f"no kernel for device {state.device}")
+    _build.check_instantiated(cfg.t, cfg.field.nlimbs)
+    check_kernel_bounds(cfg, optimized=False)
+    out = torch.empty_like(state)
+    if state.shape[-1]:
+        _build.launch("sponge_poseidon_dense", cfg, consts, state, out)
+        permute_dense.launches += 1
+    return out
+
+
+permute_dense.launches = 0

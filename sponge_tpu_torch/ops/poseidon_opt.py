@@ -1,0 +1,70 @@
+"""Kernel 2: the Poseidon permutation with sparse partial rounds, and its
+plain PyTorch version.
+
+Counterpart of ``sponge_tpu/ops/pallas_cios.py`` (``cios_permute_fn``, the
+production kernel): full rounds as in kernel 1; partial rounds 2..R_P
+through the sparse factorization of ``poseidon/optimized.py`` (row0 dot for
+element 0, col0 * x0 added into elements 1..t-1), then the accumulated dense
+matrix D once, as ``pallas_cios.py:1171-1228`` does.  The CUDA kernel is
+``csrc/poseidon_opt.cu``; ``permute_opt_plain`` computes the same function
+with tensor ops.  ``batched_permute(backend="auto")`` launches this kernel for
+a CUDA tensor.
+
+``permute_opt`` takes the plain version only for a tensor on the CPU; for a
+CUDA tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..poseidon.config import PoseidonConfig, unpack_constants
+from . import _build
+from . import montgomery as mont
+from .bounds import check_kernel_bounds
+from .poseidon_dense import check_state, full_round
+
+
+def permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """The sparse-factorized permutation with int64 tensor ops."""
+    fs = cfg.field
+    c = {k: v.long() for k, v in unpack_constants(cfg, consts).items()}
+    half = cfg.full_rounds // 2
+    x = state.long()
+    for r in range(half):
+        x = full_round(cfg, x, c["ark"][r], c["mds"])
+    # First partial round: ark and the element-0 S-box only.
+    x = mont.mont_add(fs, x, c["ark"][half])
+    x = torch.cat([mont.mont_pow(fs, x[:1], cfg.alpha), x[1:]])
+    for r in range(cfg.partial_rounds - 1):
+        x = mont.mont_add(fs, x, c["chat"][r])
+        out0 = mont.mont_dot(fs, c["row0"][r][None], x)
+        rest = mont.mont_add(fs, mont.mont_mul(fs, c["col0"][r], x[:1]), x[1:])
+        x = torch.cat([mont.mont_pow(fs, out0, cfg.alpha), rest])
+    x = mont.mont_dot(fs, c["dense"], x)
+    for r in range(half + cfg.partial_rounds, cfg.rounds):
+        x = full_round(cfg, x, c["ark"][r], c["mds"])
+    return x.int()
+
+
+def permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """Sparse-factorized permutation of a (t, L, B) int32 canonical
+    Montgomery plane.  ``consts`` is ``kernel_constants(cfg)`` on the state's
+    device."""
+    check_state(cfg, consts, state)
+    if cfg.partial_rounds < 2:
+        raise ValueError("the sparse-factorized kernel needs >= 2 partial rounds")
+    if state.device.type == "cpu":
+        return permute_opt_plain(cfg, consts, state)
+    if state.device.type != "cuda":
+        raise ValueError(f"no kernel for device {state.device}")
+    _build.check_instantiated(cfg.t, cfg.field.nlimbs)
+    check_kernel_bounds(cfg, optimized=True)
+    out = torch.empty_like(state)
+    if state.shape[-1]:
+        _build.launch("sponge_poseidon_opt", cfg, consts, state, out)
+        permute_opt.launches += 1
+    return out
+
+
+permute_opt.launches = 0

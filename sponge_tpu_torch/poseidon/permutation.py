@@ -1,0 +1,80 @@
+"""Batched Poseidon permutation over (t, L, B) limb planes.
+
+Counterpart of ``sponge_tpu/poseidon/permutation.py``.  The state of B
+independent sponges is a ``(t, L, B)`` int32 plane of canonical Montgomery
+limbs; a permutation maps it to a new plane of the same shape.
+
+``PoseidonPermutation`` is an ``nn.Module`` whose constant buffer (round
+constants, MDS, sparse factorization; ``kernel_constants``) is a registered
+buffer, so ``.to("cuda")`` moves it.  ``batched_permute`` keeps one module
+per (config, device).  Backends:
+
+* ``"auto"``: the sparse-factorized kernel (``ops/poseidon_opt.py``) for a
+  CUDA tensor, its plain version for a CPU tensor;
+* ``"opt"`` / ``"dense"``: that CUDA kernel; a CPU tensor raises;
+* ``"plain"``: the dense plain PyTorch permutation (``permute``), on any
+  device.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch import nn
+
+from ..ops.poseidon_dense import permute_dense, permute_dense_plain
+from ..ops.poseidon_opt import permute_opt
+from .config import PoseidonConfig, kernel_constants
+
+BACKENDS = ("auto", "opt", "dense", "plain")
+
+
+class PoseidonPermutation(nn.Module):
+    """The Poseidon permutation of one config as a module (no parameters,
+    no gradient: one int32 constant buffer)."""
+
+    def __init__(self, cfg: PoseidonConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        consts = torch.from_numpy(kernel_constants(cfg))
+        self.register_buffer("consts", consts.to(device), persistent=False)
+
+    @torch.no_grad()
+    def forward(self, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+        if backend == "plain":
+            return permute_dense_plain(self.cfg, self.consts, state)
+        if backend in ("opt", "dense") and state.device.type != "cuda":
+            raise ValueError(
+                f"backend={backend!r} runs a CUDA kernel; the state is on {state.device}"
+            )
+        if backend == "dense" or (backend == "auto" and self.cfg.partial_rounds < 2):
+            return permute_dense(self.cfg, self.consts, state)
+        if backend in ("auto", "opt"):
+            return permute_opt(self.cfg, self.consts, state)
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+
+
+@functools.lru_cache(maxsize=None)
+def permutation_for(cfg: PoseidonConfig, device: torch.device) -> PoseidonPermutation:
+    """The cached permutation module of ``cfg`` with its buffer on ``device``."""
+    return PoseidonPermutation(cfg, device)
+
+
+def batched_permute(cfg: PoseidonConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Backend-dispatched batched permutation (see module docstring)."""
+    if not isinstance(cfg, PoseidonConfig):
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: only the Poseidon family is ported to PyTorch so far"
+        )
+    return permutation_for(cfg, state.device)(state, backend)
+
+
+def permute(cfg: PoseidonConfig, state: torch.Tensor) -> torch.Tensor:
+    """The plain dense permutation (the JAX package's ``permute`` tier)."""
+    return batched_permute(cfg, state, "plain")
+
+
+def zero_state(cfg: PoseidonConfig, batch: int, device) -> torch.Tensor:
+    """Zero-initialized sponge states; zero is 0 in Montgomery form."""
+    return torch.zeros((cfg.t, cfg.field.nlimbs, batch), dtype=torch.int32, device=device)

@@ -1,0 +1,231 @@
+"""The port's permutations against the JAX package's tiers and the oracle.
+
+Both plain versions (``permute_dense_plain``: kernel 1's function;
+``permute_opt_plain``: kernel 2's) are held against ``permute_jit``, the
+Pallas kernel ``pallas_permute_fn`` in interpret mode and the CIOS kernel
+body, on the 35-bit test field where the JAX tiers compile in seconds, and
+against the scalar oracle on full-width BLS12-381 Fr lanes including the
+values 0, 1, p-1, p-2.  Exact equality throughout.  The CUDA kernels
+themselves run only on the card (``chip_smoke.py``); here the dispatch
+rules and the static value-bound check are tested.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from conftest import TINY_FR, tiny_poseidon_config
+
+import sponge_tpu
+import sponge_tpu_torch as st
+from sponge_tpu.ops import pallas_cios as pc
+from sponge_tpu.ops.pallas_permute import pallas_permute_fn
+from sponge_tpu.poseidon.config import device_constants as jax_device_constants
+from sponge_tpu.poseidon.optimized import optimized_partial_layers as jax_layers
+from sponge_tpu.poseidon.oracle import OraclePoseidonSponge as JaxOracle
+from sponge_tpu.poseidon.permutation import permute_jit
+from sponge_tpu_torch import interop
+from sponge_tpu_torch.fields import FieldSpec, ints_to_mont_tensor, mont_tensor_to_ints
+from sponge_tpu_torch.ops import _build
+from sponge_tpu_torch.ops.bounds import check_kernel_bounds
+from sponge_tpu_torch.ops.poseidon_dense import permute_dense, permute_dense_plain
+from sponge_tpu_torch.ops.poseidon_opt import permute_opt, permute_opt_plain
+from sponge_tpu_torch.poseidon.config import PoseidonConfig
+from sponge_tpu_torch.poseidon.oracle import OraclePoseidonSponge
+
+TINY = {
+    "alpha5": dict(),
+    "alpha17": dict(full_rounds=8, partial_rounds=8, alpha=17, seed=11),
+}
+
+
+def lanes(p, t, B, seed):
+    """[t][B] values: random residues, with 0, 1, p-1, p-2 in every element
+    position across the first lanes."""
+    rng = np.random.default_rng(seed)
+    vals = [[int(rng.integers(0, 2**63)) ** 4 % p for _ in range(B)] for _ in range(t)]
+    edge = [0, 1, p - 1, p - 2]
+    for b in range(16):
+        for e in range(t):
+            vals[e][b] = edge[(b + e) % 4] if b < 8 else edge[(b // 4 + e) % 4]
+    return vals
+
+
+def both_plains(cfg, vals):
+    """(dense plain output, opt plain output) as [t][B] canonical ints."""
+    perm = st.PoseidonPermutation(cfg, "cpu")
+    state = ints_to_mont_tensor(cfg.field, vals, "cpu")
+    dense = permute_dense_plain(cfg, perm.consts, state)
+    opt = permute_opt_plain(cfg, perm.consts, state)
+    assert dense.dtype == opt.dtype == torch.int32
+    assert torch.equal(dense, opt)  # both canonical
+    return mont_tensor_to_ints(cfg.field, dense)
+
+
+def jax_ints(plane):
+    return [TINY_FR.mont_plane_to_ints(row) for row in np.asarray(plane)]
+
+
+@pytest.mark.parametrize("name", list(TINY))
+def test_plain_matches_permute_jit(name):
+    jcfg = tiny_poseidon_config(**TINY[name])
+    vals = lanes(TINY_FR.modulus, jcfg.t, 64, 0)
+    jstate = jnp.asarray(np.stack([TINY_FR.ints_to_mont_plane(r) for r in vals]))
+    assert both_plains(interop.config_from_jax(jcfg), vals) == jax_ints(permute_jit(jcfg)(jstate))
+
+
+@pytest.mark.parametrize("name", list(TINY))
+def test_plain_matches_pallas_permute_interpret(name):
+    jcfg = tiny_poseidon_config(**TINY[name])
+    vals = lanes(TINY_FR.modulus, jcfg.t, 128, 1)
+    jstate = jnp.asarray(np.stack([TINY_FR.ints_to_mont_plane(r) for r in vals]))
+    ref = pallas_permute_fn(jcfg, tile=128, interpret=True)(jstate)
+    assert both_plains(interop.config_from_jax(jcfg), vals) == jax_ints(ref)
+
+
+class _FakeRef:
+    """Stand-in for a Pallas ref, so the CIOS kernel body runs as plain jnp
+    (as tests/test_pallas_kernels.py runs it)."""
+
+    def __init__(self, arr):
+        self.arr = jnp.asarray(arr)
+
+    def __getitem__(self, idx):
+        return self.arr[idx]
+
+    def __setitem__(self, idx, value):
+        self.arr = self.arr.at[idx].set(value)
+
+
+@pytest.mark.parametrize("optimized", [False, True], ids=["dense", "sparse-opt"])
+def test_plain_matches_cios_kernel_body(optimized):
+    jcfg = tiny_poseidon_config()
+    fs, L, t, B = TINY_FR, TINY_FR.nlimbs, jcfg.t, 128
+    vals = lanes(fs.modulus, t, B, 2)
+    st4 = np.stack([fs.ints_to_mont_plane(r) for r in vals]).reshape(t, L, 1, 128)
+    ark = np.stack(
+        [np.concatenate([fs.int_to_mont_limbs(c) for c in row]) for row in jcfg.ark]
+    ).astype(np.int32)
+    if optimized:
+        layers = jax_layers(jcfg)
+        popt = np.stack(
+            [
+                np.concatenate(
+                    [fs.int_to_mont_limbs(v) for v in c]
+                    + [fs.int_to_mont_limbs(v) for v in sp.row0]
+                    + [fs.int_to_mont_limbs(v) for v in sp.col0]
+                )
+                for c, sp in zip(layers.constants, layers.sparse)
+            ]
+        ).astype(np.int32)
+    else:
+        popt = np.zeros((1, 1), dtype=np.int32)
+
+    @jax.jit
+    def run(a, o, s):
+        out = _FakeRef(jnp.zeros_like(s))
+        pc._permute_kernel(_FakeRef(a), _FakeRef(o), _FakeRef(s), out, cfg=jcfg, optimized=optimized)
+        return out.arr
+
+    ref = np.asarray(run(ark, popt, st4)).reshape(t, L, B)
+    assert both_plains(interop.config_from_jax(jcfg), vals) == jax_ints(ref)
+
+
+def test_plain_matches_oracle_bls_adversarial():
+    cfg = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
+    vals = lanes(cfg.field.modulus, cfg.t, 16, 3)
+    got = both_plains(cfg, vals)
+    jcfg = sponge_tpu.get_default_poseidon_parameters(sponge_tpu.BLS12_381_FR, 2)
+    for b in range(16):
+        o, j = OraclePoseidonSponge(cfg), JaxOracle(jcfg)
+        o.state = j.state = [vals[e][b] for e in range(cfg.t)]
+        o.permute()
+        j.permute()
+        assert o.state == j.state == [got[e][b] for e in range(cfg.t)], b
+    # The public entry points: auto (kernel 2's path) and plain.
+    state = ints_to_mont_tensor(cfg.field, vals, "cpu")
+    assert torch.equal(st.batched_permute(cfg, state), st.permute(cfg, state))
+
+
+def test_interop_built_permutation_matches():
+    """A permutation built from the JAX package's device constants gives the
+    same output as one built from the port's own config."""
+    jcfg = tiny_poseidon_config(**TINY["alpha17"])
+    consts = jax_device_constants(jcfg)
+    cfg = interop.config_from_device_constants(
+        consts["ark"], consts["mds"], modulus=TINY_FR.modulus, limb_bits=TINY_FR.limb_bits,
+        full_rounds=jcfg.full_rounds, partial_rounds=jcfg.partial_rounds,
+        alpha=jcfg.alpha, rate=jcfg.rate,
+    )
+    assert cfg == interop.config_from_jax(jcfg)
+    vals = lanes(TINY_FR.modulus, 3, 32, 4)
+    jstate = np.stack([TINY_FR.ints_to_mont_plane(r) for r in vals])
+    state = interop.plane_from_jax(jstate, cfg.field, TINY_FR.limb_bits, "cpu")
+    out = st.batched_permute(cfg, state)
+    back = interop.plane_to_jax(out, cfg.field, TINY_FR.limb_bits, TINY_FR.nlimbs)
+    assert jax_ints(back) == jax_ints(permute_jit(jcfg)(jnp.asarray(jstate)))
+
+
+def test_kernel_backends_refuse_cpu_tensors():
+    cfg = interop.config_from_jax(tiny_poseidon_config())
+    state = st.zero_state(cfg, 8, "cpu")
+    for backend in ("opt", "dense"):
+        with pytest.raises(ValueError, match="CUDA kernel"):
+            st.batched_permute(cfg, state, backend)
+    with pytest.raises(ValueError, match="unknown backend"):
+        st.batched_permute(cfg, state, "cios")
+    perm = st.PoseidonPermutation(cfg, "cpu")
+    for wrapper in (permute_dense, permute_opt):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            wrapper(cfg, perm.consts.to("meta"), state.to("meta"))
+        with pytest.raises(TypeError):
+            wrapper(cfg, perm.consts, state.long())
+        with pytest.raises(ValueError):
+            wrapper(cfg, perm.consts, st.zero_state(cfg, 8, "cpu")[:2])
+    with pytest.raises(NotImplementedError):
+        st.batched_permute(tiny_poseidon_config(), state)  # a JAX config
+    with pytest.raises(NotImplementedError):
+        _build.check_instantiated(5, 11)
+    for t, L in _build.INSTANTIATIONS:
+        _build.check_instantiated(t, L)
+
+
+def _kernel_configs():
+    out = {
+        f"{fs.name}-r2": st.get_default_poseidon_parameters(fs, 2)
+        for fs in (st.BLS12_381_FR, st.BN254_FR, st.BLS12_377_FR)
+    }
+    out["bls-weights"] = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2, True)
+    out["fixture"] = st.poseidon_test_fixture()
+    for name, kw in TINY.items():
+        out[f"tiny-{name}"] = interop.config_from_jax(tiny_poseidon_config(**kw))
+    return out
+
+
+@pytest.mark.parametrize("optimized", [False, True], ids=["dense", "opt"])
+def test_value_bounds_clear_every_instantiated_config(optimized):
+    for name, cfg in _kernel_configs().items():
+        assert (cfg.t, cfg.field.nlimbs) in _build.INSTANTIATIONS, name
+        vmax = check_kernel_bounds(cfg, optimized)
+        assert vmax <= cfg.field.r, name
+    bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
+    if optimized:  # the sparse phase grows elements 1..t-1 by ~2p per round
+        assert 40 * bls.field.modulus < check_kernel_bounds(bls, True) < bls.field.r // 4
+
+
+def test_value_bounds_refuse_overflowing_config():
+    """R = 16p with a long sparse phase: the unreduced elements would pass R."""
+    fs = FieldSpec(name="headroom16", modulus=(1 << 44) - 21, generator=3)
+    rng = np.random.default_rng(0)
+    draw = lambda: int(rng.integers(1, fs.modulus))
+    rounds = 8 + 40
+    cfg = PoseidonConfig(
+        field=fs, full_rounds=8, partial_rounds=40, alpha=5,
+        ark=tuple(tuple(draw() for _ in range(3)) for _ in range(rounds)),
+        mds=tuple(tuple(draw() for _ in range(3)) for _ in range(3)),
+        rate=2,
+    )
+    check_kernel_bounds(cfg, False)
+    with pytest.raises(ValueError, match="reach R"):
+        check_kernel_bounds(cfg, True)
