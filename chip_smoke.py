@@ -4,19 +4,31 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds both CUDA kernels from sponge_tpu_torch/csrc with nvcc, holds each
-against its plain PyTorch version and the scalar oracle, drives the main
-path at full size (the batched BLS12-381 Fr rate-2 permutation at B = 2^20,
-the lazy sponge, a 2^20-leaf Merkle root), and times the kernels beside the
-plain versions with CUDA events.  Each phase prints one line; any failure
-raises and exits non-zero.  The line before the last is a JSON summary of
-the kernels; the last line is {"ok": true, "device": {...}}.  Without a
-CUDA device it exits non-zero and prints no result.  It imports nothing of
-JAX or sponge_tpu.
+It builds every CUDA kernel from sponge_tpu_torch/csrc with nvcc (one nvcc
+per source, in parallel): Poseidon (kernels 1 and 2), Poseidon2 (kernel 3)
+and Rescue-Prime (kernel 5).  It holds each kernel against its plain PyTorch
+version (torch.equal, with 0, 1, p-1, p-2 in every element position) and
+the scalar oracle, checks the golden vectors through the sponge on the card,
+drives two paths at full size with the launch counters zeroed just before
+each and read just after (Poseidon: the batched BLS12-381 Fr rate-2
+permutation at B = 2^20, the lazy sponge, a 2^20-leaf Merkle root; Poseidon2
+and Rescue: the BLS12-381 and BabyBear permutations at B = 2^20, a 2^20-leaf
+Poseidon2 Merkle root, a lazy Rescue sponge), and times each kernel beside
+its plain version with CUDA events.  The plain version's timed run takes the
+path's own 2^20-lane input (for Rescue BLS12-381, 2^14 lanes from both ends
+of it) and must equal the path's output there.  Each kernel's bound is the
+larger of the limb products the function needs (``limb_products``) over
+the card's 32-bit integer multiply-add rate and its state bytes over the
+memory rate.  Each phase prints one line; any
+failure raises and exits non-zero.  Before the last line come a JSON summary
+of the kernels and the card's name and power limit; the last line is
+{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
+prints no result.  It imports nothing of JAX or sponge_tpu.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -28,6 +40,13 @@ import torch
 SEED = 20260516
 B_MAIN = 1 << 20
 B_CHECK = 1 << 16
+B_RESCUE_PLAIN = 1 << 14  # the 14-round BLS12-381 plain Rescue is ~10^4 tensor-op products
+
+# H100 rates for the bound: 132 SMs x 64 32-bit integer multiply-adds per
+# clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) at the card's maximum SM clock, and
+# 3.35 TB/s of HBM3.
+SMS, IMAD_PER_CLOCK, HBM_BYTES_PER_S = 132, 64, 3.35e12
 
 
 class SmokeFailure(RuntimeError):
@@ -70,13 +89,15 @@ def random_plane(fs, shape, rng, device):
 
 
 def with_edges(fs, plane):
-    """Put 0, 1, p-1, p-2 in every element position: lanes 0..63 run all 4^3
-    combinations over the three elements."""
+    """Put 0, 1, p-1, p-2 in every element position: over lanes 0..63 the
+    first three elements run all 4^3 combinations, element e >= 3 cycles
+    through the four values."""
     edges = [fs.ints_to_mont_plane([v])[:, 0] for v in (0, 1, fs.modulus - 1, fs.modulus - 2)]
     plane = plane.clone()
     for b in range(64):
         for e in range(plane.shape[0]):
-            plane[e, :, b] = torch.from_numpy(edges[(b >> (2 * e)) & 3])
+            k = (b >> (2 * e)) & 3 if e < 3 else (b + e) & 3
+            plane[e, :, b] = torch.from_numpy(edges[k])
     return plane
 
 
@@ -84,32 +105,112 @@ def lane_ints(fs, plane, b):
     return [fs.mont_plane_to_ints(plane[e, :, b : b + 1].cpu().numpy())[0] for e in range(plane.shape[0])]
 
 
-def oracle_permute(st, cfg, vals):
-    o = st.OraclePoseidonSponge(cfg)
+def oracle_for(cfg):
+    """A fresh scalar oracle sponge of the config's family."""
+    import sponge_tpu_torch as st
+
+    if isinstance(cfg, (st.Poseidon2Config, st.RescueConfig)):
+        return cfg.oracle_sponge()
+    return st.OraclePoseidonSponge(cfg)
+
+
+def oracle_permute(cfg, vals):
+    o = oracle_for(cfg)
     o.state = list(vals)
     o.permute()
     return o.state
 
 
-def check_lanes_vs_oracle(st, cfg, state_in, state_out, lanes, what):
+def check_lanes_vs_oracle(cfg, state_in, state_out, lanes, what):
     for b in lanes:
-        want = oracle_permute(st, cfg, lane_ints(cfg.field, state_in, b))
+        want = oracle_permute(cfg, lane_ints(cfg.field, state_in, b))
         check(lane_ints(cfg.field, state_out, b) == want, f"{what}: lane {b} differs from the oracle")
 
 
 def time_ms(fn, reps=3):
-    """CUDA-event time of fn(): one warm call, then the best of ``reps``."""
+    """(CUDA-event time of fn(): one warm call, then the best of ``reps``;
+    the last call's result)."""
     fn()
     torch.cuda.synchronize()
     best = float("inf")
     for _ in range(reps):
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn()
+        out = fn()
         e1.record()
         torch.cuda.synchronize()
         best = min(best, e0.elapsed_time(e1))
+    return best, out
+
+
+def value_bound_text(cfg, vmax):
+    fs = cfg.field
+    return f"value bound {vmax / fs.modulus:.1f}p of R = {fs.r / fs.modulus:.1f}p"
+
+
+def chain_products(e, sq, mul):
+    """Fewest limb products of x^e over left-to-right sliding-window chains
+    (windows of 1 to 8 bits), a squaring costing ``sq`` and a multiply
+    ``mul``: the table x^2, x^3, x^5, ... up to the largest window used, then
+    one squaring per bit after the first window and one multiply per further
+    window.  Window 1 is square-and-multiply."""
+    bits, best = bin(e)[2:], None
+    for w in range(1, 9):
+        n_sq = n_mul = top = 0
+        i, first = 0, True
+        while i < len(bits):
+            if bits[i] == "0":
+                n_sq, i = n_sq + 1, i + 1
+                continue
+            j = min(i + w, len(bits))
+            while bits[j - 1] == "0":
+                j -= 1
+            top = max(top, int(bits[i:j], 2))
+            if not first:
+                n_sq, n_mul = n_sq + j - i, n_mul + 1
+            first, i = False, j
+        if top > 1:
+            n_sq, n_mul = n_sq + 1, n_mul + (top - 1) // 2
+        cost = n_sq * sq + n_mul * mul
+        best = cost if best is None else min(best, cost)
     return best
+
+
+def limb_products(name, cfg):
+    """Integer multiplies one permutation needs on limbs (the bound's work,
+    not any kernel's schedule): a Montgomery product is 2 L^2 limb products
+    (a * b and the REDC's q * p), a squaring L (L + 1) / 2 + L^2, a lazily
+    summed row dot (t + 1) L^2; each power x^e takes its cheapest window
+    chain (``chain_products``).  Poseidon2's small-integer matrix entries
+    and diagonal scalings are one 32-bit multiply per limb, and it takes only
+    the rho-folds its values need (``P2Plan.min_folds``), L each."""
+    from sponge_tpu_torch.ops.bounds import p2_plan
+
+    t, L = cfg.t, cfg.field.nlimbs
+    mm, sq, row = 2 * L * L, L * (L + 1) // 2 + L * L, (t + 1) * L * L
+    sb = chain_products(cfg.alpha, sq, mm)
+    if name in ("poseidon_permute_opt", "poseidon_permute_dense"):
+        full = cfg.full_rounds * (t * sb + t * row)
+        if name == "poseidon_permute_dense":
+            return full + cfg.partial_rounds * (sb + t * row)
+        sparse = (cfg.partial_rounds - 1) * (row + (t - 1) * mm + sb)
+        return full + sb + sparse + t * row
+    if name == "poseidon2_permute":
+        ext = t * sb + t * t * L
+        internal = sb + (t * L if cfg.small_diag else t * mm)
+        folds = p2_plan(cfg).min_folds * L
+        return t * t * L + cfg.full_rounds * ext + cfg.partial_rounds * internal + folds + t * mm
+    if name == "rescue_permute":
+        per_round = t * (sb + chain_products(cfg.inv_alpha, sq, mm)) + 2 * t * row
+        return cfg.rounds * per_round + t * mm
+    raise ValueError(name)
+
+
+def bound(name, cfg, batch, sm_clock_hz):
+    """(bound_ms, bound_by) of one call at ``batch`` lanes."""
+    ops_ms = limb_products(name, cfg) * batch / (SMS * IMAD_PER_CLOCK * sm_clock_hz) * 1e3
+    bytes_ms = 2 * cfg.t * cfg.field.nlimbs * 4 * batch / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def main():
@@ -121,9 +222,12 @@ def main():
     from sponge_tpu_torch.fields import mont_tensor_to_ints
     from sponge_tpu_torch.hash import compress_pairs, merkle_root
     from sponge_tpu_torch.ops import _build
-    from sponge_tpu_torch.ops.bounds import check_kernel_bounds
+    from sponge_tpu_torch.ops.bounds import check_kernel_bounds, check_rescue_bounds, p2_plan
+    from sponge_tpu_torch.ops.poseidon2 import permute_p2, permute_p2_plain
     from sponge_tpu_torch.ops.poseidon_dense import permute_dense, permute_dense_plain
     from sponge_tpu_torch.ops.poseidon_opt import permute_opt, permute_opt_plain
+    from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
+    from sponge_tpu_torch.family import permutation_for as family_permutation_for
     from sponge_tpu_torch.poseidon.permutation import permutation_for
 
     dev = torch.device("cuda", 0)
@@ -131,9 +235,11 @@ def main():
 
     # ---- 1. environment and build ----
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    sm_mhz = run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
+    sm_clock_hz = float(sm_mhz.splitlines()[0]) * 1e6
     say("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     say("env", "nvcc: " + run([_build._nvcc(), "--version"]).splitlines()[-1])
-    say("env", f"card: {gpu}")
+    say("env", f"card: {gpu}; max SM clock {sm_mhz} MHz")
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.library()
@@ -145,14 +251,36 @@ def main():
     bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
     bn = st.get_default_poseidon_parameters(st.BN254_FR, 2)
     tiny = tiny_config(st)
+    tiny_fs = tiny.field
+    low_fs = st.FieldSpec(name="low_headroom_44", modulus=(1 << 44) - 17, generator=3)
+    fr25 = st.FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
+    p2_bls = st.get_default_poseidon2_parameters(st.BLS12_381_FR, 2)
+    p2_bn = st.get_default_poseidon2_parameters(st.BN254_FR, 2)
+    p2_bb = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    p2_tiny = st.generate_poseidon2_parameters(tiny_fs, 2, 5, 4, 8)
+    p2_low = st.generate_poseidon2_parameters(low_fs, 7, 5, 4, 4)
+    r_bls = st.get_default_rescue_parameters(st.BLS12_381_FR, 2)
+    r_bb = st.get_default_rescue_parameters(st.BABYBEAR_FR, 8)
+    r_25 = st.generate_rescue_parameters(fr25, 2, rounds=4)
 
-    # ---- 2. golden vector and the reference test fixture ----
-    s = st.PoseidonSponge(bls, batch_size=4, device=dev)
-    s.absorb([st.Fp(v, st.BLS12_381_FR) for v in (0, 1, 2)])
-    got = s.squeeze_native_field_elements(3)
-    golden = 40442793463571304028337753002242186710310163897048962278675457993207843616876
-    check(all(lane[0] == golden for lane in got), f"golden vector: got {got[0][0]}")
-    say("golden", f"sponge squeeze[0] == {golden} on all 4 lanes")
+    # ---- 2. golden vectors through the sponge on the card ----
+    goldens = [
+        ("Poseidon", bls, [0, 1, 2], 3,
+         [40442793463571304028337753002242186710310163897048962278675457993207843616876]),
+        ("Poseidon2", p2_bls, [0, 1, 2], 3,
+         [52083961829638530329803873513984423317950149524710559639711710544245016843101,
+          46550625866894159897150880606355238520431023163927606006962896442099973167881,
+          42226209967555737499361210161376034319861506751659560949906643713058884560743]),
+        ("Rescue-Prime", r_bls, [0, 1], 2,
+         [45302786381541930325162575638737089225573393886344434601026979521681543727945,
+          26952253882373158469686854567157364530461338720960972120602142787680627985088]),
+    ]
+    for family, cfg, absorbed, n, golden in goldens:
+        s = st.PoseidonSponge(cfg, batch_size=4, device=dev)
+        s.absorb([st.Fp(v, cfg.field) for v in absorbed])
+        got = s.squeeze_native_field_elements(n)
+        check(all(lane[: len(golden)] == golden for lane in got), f"{family} golden vector: got {got[0]}")
+        say("golden", f"{family} {cfg.field.name} rate 2: sponge squeeze == {golden[0]}... on all 4 lanes")
     fix = st.poseidon_test_fixture()
     left, right = random_plane(fix.field, (2, fix.field.nlimbs, 64), rng, dev)
     out = mont_tensor_to_ints(fix.field, compress_pairs(fix, left, right))
@@ -166,37 +294,63 @@ def main():
     # ---- 3. each kernel against its plain version ----
     kernels = {
         "poseidon_permute_opt": dict(
-            wrapper=permute_opt, plain=permute_opt_plain, optimized=True,
+            wrapper=permute_opt, plain=permute_opt_plain, perm=permutation_for,
+            bound=lambda cfg: value_bound_text(cfg, check_kernel_bounds(cfg, True)),
+            configs=[bls, bn, tiny],
             source="sponge_tpu_torch/csrc/poseidon_opt.cu",
-            replaces="sponge_tpu/ops/pallas_cios.py:1248", max_abs_err=0,
+            replaces="sponge_tpu/ops/pallas_cios.py:1248",
         ),
         "poseidon_permute_dense": dict(
-            wrapper=permute_dense, plain=permute_dense_plain, optimized=False,
+            wrapper=permute_dense, plain=permute_dense_plain, perm=permutation_for,
+            bound=lambda cfg: value_bound_text(cfg, check_kernel_bounds(cfg, False)),
+            configs=[bls, bn, tiny],
             source="sponge_tpu_torch/csrc/poseidon_dense.cu",
-            replaces="sponge_tpu/ops/pallas_permute.py:96", max_abs_err=0,
+            replaces="sponge_tpu/ops/pallas_permute.py:96",
+        ),
+        "poseidon2_permute": dict(
+            wrapper=permute_p2, plain=permute_p2_plain,
+            perm=functools.partial(family_permutation_for, st.Poseidon2Permutation),
+            bound=lambda cfg: (
+                f"folds per site {p2_plan(cfg).folds}, largest value before a fold "
+                f"{p2_plan(cfg).vmax / cfg.field.r:.1f}R, largest limb word "
+                f"{p2_plan(cfg).wmax / 2**24:.1f} x 2^24"
+            ),
+            configs=[p2_bls, p2_bn, p2_bb, p2_tiny, p2_low],
+            source="sponge_tpu_torch/csrc/poseidon2.cu",
+            replaces="sponge_tpu/ops/pallas_p2.py:314",
+        ),
+        "rescue_permute": dict(
+            wrapper=rescue_permute, plain=rescue_permute_plain,
+            perm=functools.partial(family_permutation_for, st.RescuePermutation),
+            bound=lambda cfg: value_bound_text(cfg, check_rescue_bounds(cfg)),
+            configs=[r_bls, r_bb, r_25],
+            source="sponge_tpu_torch/csrc/rescue.cu",
+            replaces="sponge_tpu/ops/pallas_rescue.py:438",
         ),
     }
-    sample = list(range(0, 64, 2)) + sorted(rng.choice(np.arange(64, B_CHECK), 32, replace=False).tolist())
-    for cfg in (bls, bn, tiny):
-        perm = permutation_for(cfg, dev)
-        state = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_CHECK), rng, dev))
-        for name, k in kernels.items():
-            vmax = check_kernel_bounds(cfg, k["optimized"])
+    for k in kernels.values():
+        k["max_abs_err"] = 0
+    for name, k in kernels.items():
+        for cfg in k["configs"]:
+            B = B_RESCUE_PLAIN if cfg is r_bls else B_CHECK
+            perm = k["perm"](cfg, dev)
+            state = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B), rng, dev))
+            bound_text = k["bound"](cfg)
             out_k = k["wrapper"](cfg, perm.consts, state)
             torch.cuda.synchronize()
             out_p = k["plain"](cfg, perm.consts, state)
             err = int((out_k.long() - out_p.long()).abs().max())
             k["max_abs_err"] = max(k["max_abs_err"], err)
-            check(torch.equal(out_k, out_p), f"{name} != plain on {cfg.field.name} (max err {err})")
-            check_lanes_vs_oracle(st, cfg, state, out_k, sample, f"{name} {cfg.field.name}")
+            check(torch.equal(out_k, out_p), f"{name} != plain on {cfg.field.name} t={cfg.t} (max err {err})")
+            sample = list(range(0, 64, 2)) + sorted(rng.choice(np.arange(64, B), 32, replace=False).tolist())
+            check_lanes_vs_oracle(cfg, state, out_k, sample, f"{name} {cfg.field.name}")
             say(
                 "kernel",
                 f"{name} {cfg.field.name} t={cfg.t} L={cfg.field.nlimbs}: torch.equal(kernel, plain) "
-                f"at B={B_CHECK} incl. 64 edge lanes; 64 lanes == oracle; value bound "
-                f"{vmax / cfg.field.modulus:.1f}p of R = {cfg.field.r / cfg.field.modulus:.1f}p",
+                f"at B={B} incl. 64 edge lanes; 64 lanes == oracle; {bound_text}",
             )
 
-    # ---- 4+5. the main path, launches counted ----
+    # ---- 4. the Poseidon path (kernels 1 and 2), launches counted ----
     fs = bls.field
     perm = permutation_for(bls, dev)
     state = with_edges(fs, random_plane(fs, (bls.t, fs.nlimbs, B_MAIN), rng, dev))
@@ -204,8 +358,8 @@ def main():
     lane_vals = random_plane(fs, (2, fs.nlimbs, B_CHECK), rng, dev)
     for k in kernels.values():
         k["wrapper"].launches = 0
-    out = st.batched_permute(bls, state)  # kernel 2
-    parity = st.batched_permute(bls, state, backend="dense")  # kernel 1: the second parity tier
+    out = st.batched_permute(bls, state)  # kernel 1
+    parity = st.batched_permute(bls, state, backend="dense")  # kernel 2: the second parity tier
     sponge = st.PoseidonSponge(bls, batch_size=B_CHECK, device=dev)
     sponge.absorb(b"chip smoke transcript")
     sponge.absorb(st.U64(7))
@@ -217,14 +371,14 @@ def main():
     root = merkle_root(bls, leaves)
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
-    say("launches", json.dumps(launches))
+    for name in ("poseidon_permute_opt", "poseidon_permute_dense"):
+        check(launches[name] > 0, f"{name} was not launched on the Poseidon path")
+    say("launches", "Poseidon path: " + json.dumps(launches))
 
-    check(out.shape == state.shape and torch.equal(out, parity), "kernel 2 != kernel 1 at B = 2^20")
+    check(out.shape == state.shape and torch.equal(out, parity), "kernel 1 != kernel 2 at B = 2^20")
     main_sample = list(range(0, 64, 2)) + sorted(rng.choice(np.arange(64, B_MAIN), 32, replace=False).tolist())
-    check_lanes_vs_oracle(st, bls, state, out, main_sample, "batched_permute B=2^20")
-    say("main", f"batched_permute {fs.name} rate 2 at B=2^20: kernel 2 == kernel 1; 64 lanes == oracle")
+    check_lanes_vs_oracle(bls, state, out, main_sample, "batched_permute B=2^20")
+    say("main", f"batched_permute {fs.name} rate 2 at B=2^20: kernel 1 == kernel 2; 64 lanes == oracle")
 
     vals = [mont_tensor_to_ints(fs, lane_vals[i]) for i in range(2)]
     for b in list(range(4)) + [B_CHECK // 2, B_CHECK - 3, B_CHECK - 2, B_CHECK - 1]:
@@ -238,29 +392,96 @@ def main():
         check(sq_bits[b] == o.squeeze_bits(300), f"sponge lane {b}: squeeze_bits")
     say("sponge", f"lazy PoseidonSponge B={B_CHECK}: native/bytes/bits squeezes == oracle on 8 lanes")
 
-    plain_root = merkle_root(bls, leaves, backend="plain")
-    check(torch.equal(root, plain_root), "Merkle root over 2^20 leaves: kernel != plain")
-    small = leaves[:, :1024]
-    level = mont_tensor_to_ints(fs, small)
-    while len(level) > 1:
-        nxt = []
-        for i in range(0, len(level), 2):
-            o = st.OraclePoseidonSponge(bls)
-            o.absorb_field_elements(level[i : i + 2])
-            nxt.append(o.squeeze_native_field_elements(1)[0])
-        level = nxt
-    check(mont_tensor_to_ints(fs, merkle_root(bls, small)[:, None]) == level, "2^10 Merkle root != oracle")
-    say("merkle", "root over 2^20 leaves: kernel == plain; root over 2^10 leaves == oracle")
+    check_merkle(bls, leaves, root, "Poseidon")
 
-    # ---- timing at the main path's shape ----
-    for name, k in kernels.items():
-        k["ms"] = time_ms(lambda: k["wrapper"](bls, perm.consts, state))
-        k["plain_ms"] = time_ms(lambda: k["plain"](bls, perm.consts, state))
+    # ---- 5. the Poseidon2 and Rescue-Prime path (kernels 3 and 5), launches counted ----
+    p2_states = {
+        cfg.field.name: with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
+        for cfg in (p2_bls, p2_bb)
+    }
+    r_state = with_edges(fs, random_plane(fs, (r_bls.t, fs.nlimbs, B_MAIN), rng, dev))
+    p2_leaves = random_plane(fs, (fs.nlimbs, B_MAIN), rng, dev)
+    r_lane_vals = random_plane(fs, (2, fs.nlimbs, B_CHECK), rng, dev)
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    p2_out = {cfg.field.name: st.batched_permute(cfg, p2_states[cfg.field.name]) for cfg in (p2_bls, p2_bb)}
+    p2_root = merkle_root(p2_bls, p2_leaves)
+    r_out = st.batched_permute(r_bls, r_state)
+    r_sponge = st.LazyPoseidonSponge(r_bls, batch_size=B_CHECK, device=dev)
+    r_sponge.absorb(b"rescue transcript")
+    r_sponge.absorb([st.Fp(5, fs), st.Fp(fs.modulus - 2, fs), st.Fp(0, fs)])
+    r_sponge.absorb_element_plane(r_lane_vals)
+    r_squeezed = r_sponge.squeeze_native_field_elements(3)
+    r_bytes = r_sponge.squeeze_bytes(50)
+    r_bits = r_sponge.squeeze_bits(260)
+    torch.cuda.synchronize()
+    launches2 = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for name in ("poseidon2_permute", "rescue_permute"):
+        check(launches2[name] > 0, f"{name} was not launched on the Poseidon2/Rescue path")
+        launches[name] = launches2[name]
+    say("launches", "Poseidon2/Rescue path: " + json.dumps(launches2))
+
+    for cfg in (p2_bls, p2_bb):
+        name = cfg.field.name
+        check(p2_out[name].shape == p2_states[name].shape, f"Poseidon2 {name}: output shape")
+        check_lanes_vs_oracle(cfg, p2_states[name], p2_out[name], main_sample, f"Poseidon2 {name} B=2^20")
+        say("main", f"batched_permute Poseidon2 {name} t={cfg.t} at B=2^20 (kernel 3): 64 lanes == oracle")
+    check_merkle(p2_bls, p2_leaves, p2_root, "Poseidon2")
+    check(r_out.shape == r_state.shape, "Rescue: output shape")
+    check_lanes_vs_oracle(r_bls, r_state, r_out, main_sample[::2], "Rescue B=2^20")
+    say("main", f"batched_permute Rescue-Prime {fs.name} rate 2 at B=2^20 (kernel 5): 32 lanes == oracle")
+    r_vals = [mont_tensor_to_ints(fs, r_lane_vals[i]) for i in range(2)]
+    for b in list(range(4)) + [B_CHECK // 3, B_CHECK - 3, B_CHECK - 2, B_CHECK - 1]:
+        o = st.OracleRescueSponge(r_bls)
+        o.absorb(b"rescue transcript")
+        o.absorb([st.Fp(5, fs), st.Fp(fs.modulus - 2, fs), st.Fp(0, fs)])
+        o.absorb_field_elements([r_vals[0][b], r_vals[1][b]])
+        check(r_squeezed[b] == o.squeeze_native_field_elements(3), f"Rescue sponge lane {b}: native squeeze")
+        check(r_bytes[b] == o.squeeze_bytes(50), f"Rescue sponge lane {b}: squeeze_bytes")
+        check(r_bits[b] == o.squeeze_bits(260), f"Rescue sponge lane {b}: squeeze_bits")
+    say("sponge", f"lazy Rescue-Prime sponge B={B_CHECK}: native/bytes/bits squeezes == oracle on 8 lanes")
+
+    # ---- 6. timing at the paths' shapes, beside each kernel's bound; the plain
+    # version's timed run is on the path's own input lanes and must equal the
+    # path's output there ----
+    def time_kernel(name, cfg, big, lanes, path_out=None):
+        k = kernels[name]
+        consts = k["perm"](cfg, dev).consts
+        small = big[..., lanes]
+        ms, _ = time_ms(lambda: k["wrapper"](cfg, consts, big))
+        plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small))
+        n = small.shape[-1]
+        if path_out is not None:
+            check(
+                torch.equal(path_out[..., lanes], plain_out),
+                f"{name} {cfg.field.name}: the path's output at B={big.shape[-1]} != plain on {n} lanes",
+            )
+            say("main", f"{name} {cfg.field.name} t={cfg.t}: path output at B={big.shape[-1]} "
+                f"== plain on {n} lanes")
+        out = dict(ms=ms, plain_ms=plain_ms, plain_batch=n)
+        out["bound_ms"], out["bound_by"] = bound(name, cfg, big.shape[-1], sm_clock_hz)
         say(
             "time",
-            f"{name} B=2^20: kernel {k['ms']:.3f} ms = {B_MAIN / k['ms'] * 1e3:,.0f} perms/s; "
-            f"plain torch {k['plain_ms']:.1f} ms = {B_MAIN / k['plain_ms'] * 1e3:,.0f} perms/s [{gpu}]",
+            f"{name} {cfg.field.name} t={cfg.t} B={big.shape[-1]}: kernel {ms:.3f} ms = "
+            f"{big.shape[-1] / ms * 1e3:,.0f} perms/s; bound {out['bound_ms']:.3f} ms "
+            f"({out['bound_by']}, {limb_products(name, cfg):,} limb products per "
+            f"permutation); plain torch {plain_ms:.1f} ms at B={n} = "
+            f"{n / plain_ms * 1e3:,.0f} perms/s [{gpu}]",
         )
+        return out
+
+    every = slice(None)
+    half = B_RESCUE_PLAIN // 2  # Rescue's plain lanes: both ends of the 2^20 plane
+    ends = torch.cat([torch.arange(half), torch.arange(B_MAIN - half, B_MAIN)]).to(dev)
+    kernels["poseidon_permute_opt"].update(time_kernel("poseidon_permute_opt", bls, state, every, out))
+    kernels["poseidon_permute_dense"].update(time_kernel("poseidon_permute_dense", bls, state, every, parity))
+    for cfg in (p2_bls, p2_bb):
+        name = cfg.field.name
+        timed = time_kernel("poseidon2_permute", cfg, p2_states[name], every, p2_out[name])
+        if cfg is p2_bls:  # BabyBear t = 16 is the path's other width, not in the summary line
+            kernels["poseidon2_permute"].update(timed)
+    kernels["rescue_permute"].update(time_kernel("rescue_permute", r_bls, r_state, ends, r_out))
+    time_kernel("rescue_permute", r_bb, p2_states[p2_bb.field.name], slice(0, B_CHECK))
 
     summary = [
         {
@@ -272,6 +493,10 @@ def main():
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"],
             "plain_ms": k["plain_ms"],
+            "plain_batch": k["plain_batch"],
+            "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes a permutation
         }
         for name, k in kernels.items()
     ]
@@ -286,6 +511,28 @@ def main():
         },
     }))
     return 0
+
+
+def check_merkle(cfg, leaves, root, family):
+    """The 2^20-leaf root through the kernel equals the plain version's; a
+    2^10-leaf root equals the oracle's."""
+    from sponge_tpu_torch.fields import mont_tensor_to_ints
+    from sponge_tpu_torch.hash import merkle_root
+
+    fs = cfg.field
+    plain_root = merkle_root(cfg, leaves, backend="plain")
+    check(torch.equal(root, plain_root), f"{family} Merkle root over 2^20 leaves: kernel != plain")
+    small = leaves[:, :1024]
+    level = mont_tensor_to_ints(fs, small)
+    while len(level) > 1:
+        nxt = []
+        for i in range(0, len(level), 2):
+            o = oracle_for(cfg)
+            o.absorb_field_elements(level[i : i + 2])
+            nxt.append(o.squeeze_native_field_elements(1)[0])
+        level = nxt
+    check(mont_tensor_to_ints(fs, merkle_root(cfg, small)[:, None]) == level, f"{family} 2^10 Merkle root != oracle")
+    say("merkle", f"{family} root over 2^20 leaves: kernel == plain; root over 2^10 leaves == oracle")
 
 
 if __name__ == "__main__":

@@ -2,9 +2,12 @@
 
 The PyTorch port of ``sponge_tpu``, module for module: the same sponge,
 transcript and hashing surface over ``(t, L, B)`` int32 Montgomery planes of
-24-bit limbs, with the permutation in two hand-written CUDA kernels
-(``csrc/poseidon_opt.cu``, ``csrc/poseidon_dense.cu``) and a plain PyTorch
-version of each for CPU tensors.  It imports neither JAX nor ``sponge_tpu``.
+24-bit limbs.  The permutations run in hand-written CUDA kernels: Poseidon
+(``csrc/poseidon_opt.cu``, ``csrc/poseidon_dense.cu``), Poseidon2
+(``csrc/poseidon2.cu``) and Rescue-Prime (``csrc/rescue.cu``), each with a
+plain PyTorch version for CPU tensors.  A ``Poseidon2Config`` or
+``RescueConfig`` drives every entry point a ``PoseidonConfig`` does.  It
+imports neither JAX nor ``sponge_tpu``.
 """
 
 from .absorb import (
@@ -63,6 +66,19 @@ from .poseidon.permutation import (
     permute,
     zero_state,
 )
+from .poseidon2.config import Poseidon2Config
+from .poseidon2.oracle import OraclePoseidon2Sponge
+from .poseidon2.params import generate_poseidon2_parameters, get_default_poseidon2_parameters
+from .poseidon2.permutation import Poseidon2Permutation, batched_permute2
+from .rescue.config import RescueConfig
+from .rescue.oracle import OracleRescueSponge
+from .rescue.params import (
+    generate_rescue_parameters,
+    get_default_rescue_parameters,
+    rescue_round_count,
+    smallest_alpha,
+)
+from .rescue.permutation import RescuePermutation, batched_rescue_permute
 from .sponge import Batched, PoseidonSponge
 from .transcript import Absorb as TranscriptAbsorb
 from .transcript import SqueezeNative as TranscriptSqueeze
@@ -71,53 +87,67 @@ from .transcript import compile_transcript
 __all__ = [
     "ABSORBING",
     "BABYBEAR_FR",
+    "Batched",
+    "batched_permute",
+    "batched_permute2",
+    "batched_rescue_permute",
     "BLS12_377_FR",
     "BLS12_381_FR",
     "BLS12_381_FR_L13",
     "BN254_FR",
-    "Batched",
-    "FULL",
+    "compile_transcript",
+    "field_cast",
     "FieldSpec",
+    "find_poseidon_ark_and_mds",
     "Fp",
+    "FULL",
+    "generate_poseidon2_parameters",
+    "generate_rescue_parameters",
+    "get_default_poseidon2_parameters",
+    "get_default_poseidon_parameters",
+    "get_default_rescue_parameters",
+    "get_field",
     "GOLDILOCKS_FR",
-    "I8",
+    "I128",
     "I16",
     "I32",
     "I64",
-    "I128",
+    "I8",
     "Isize",
     "KOALABEAR_FR",
     "LazyPoseidonSponge",
     "MERSENNE31_FR",
     "NONE",
+    "OraclePoseidon2Sponge",
     "OraclePoseidonSponge",
+    "OracleRescueSponge",
+    "permute",
+    "Poseidon2Config",
+    "Poseidon2Permutation",
+    "poseidon_test_fixture",
     "PoseidonConfig",
     "PoseidonPermutation",
     "PoseidonSponge",
-    "SQUEEZING",
-    "SWPoint",
+    "rescue_round_count",
+    "RescueConfig",
+    "RescuePermutation",
+    "smallest_alpha",
     "Some",
     "SpongeState",
+    "SQUEEZING",
+    "SWPoint",
     "TEPoint",
+    "to_sponge_bytes",
+    "to_sponge_field_elements",
     "TranscriptAbsorb",
     "TranscriptSqueeze",
     "Truncated",
-    "U8",
+    "U128",
     "U16",
     "U32",
     "U64",
-    "U128",
+    "U8",
     "Usize",
     "WithLength",
-    "batched_permute",
-    "compile_transcript",
-    "field_cast",
-    "find_poseidon_ark_and_mds",
-    "get_default_poseidon_parameters",
-    "get_field",
-    "permute",
-    "poseidon_test_fixture",
-    "to_sponge_bytes",
-    "to_sponge_field_elements",
     "zero_state",
 ]

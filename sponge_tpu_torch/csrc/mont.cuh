@@ -1,5 +1,6 @@
 // Montgomery arithmetic on 24-bit limbs in 32-bit words, one field element per
-// thread, shared by poseidon_dense.cu and poseidon_opt.cu.
+// thread, shared by the port's kernels (poseidon_opt.cu, poseidon_dense.cu,
+// poseidon2.cu, rescue.cu).
 //
 // An element is L little-endian limbs below 2^24 in Montgomery form with
 // R = 2^(24 L).  A product or a row dot product is accumulated in L 64-bit
@@ -162,6 +163,60 @@ __device__ __forceinline__ void add_const(uint32_t (&x)[L], const int32_t* __res
   add_lazy(x, y);
 }
 
+// One carry pass over deferred limb words (each below 2^32 minus a carry):
+// limbs 0..L-2 below 2^24, the whole excess in the top word.
+template <int L>
+__device__ __forceinline__ void carry_pass(uint32_t (&x)[L]) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int k = 0; k < L - 1; ++k) {
+    const uint32_t v = x[k] + c;
+    x[k] = v & kLimbMask;
+    c = v >> kLimbBits;
+  }
+  x[L - 1] += c;
+}
+
+// n top-carry rho-folds of a carried value: c = value / R leaves as
+// c * (rho - R) with rho = R mod p (plain limbs), which keeps the value mod p
+// and brings it toward R.  ops/bounds.py p2_plan counts the folds each site
+// needs and bounds c * rho_k below 2^32.
+template <int L>
+__device__ __forceinline__ void fold(uint32_t (&x)[L], const int32_t* __restrict__ rho, int n) {
+#pragma unroll 1
+  for (int f = 0; f < n; ++f) {
+    const uint32_t c = x[L - 1] >> kLimbBits;
+    x[L - 1] &= kLimbMask;
+    uint32_t y[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) y[k] = c * ldc(rho + k);
+    add_lazy(x, y);
+  }
+}
+
+// x = E x for a t x t matrix of small non-negative integers (plain int32 in
+// the constant buffer), limb by limb in 32-bit words: no carry, no REDC.
+template <int T, int L>
+__device__ __forceinline__ void small_mat_apply(uint32_t (&x)[T][L],
+                                                const int32_t* __restrict__ mat) {
+  uint32_t y[T][L];
+#pragma unroll
+  for (int i = 0; i < T; ++i) {
+#pragma unroll
+    for (int k = 0; k < L; ++k) y[i][k] = 0;
+#pragma unroll
+    for (int j = 0; j < T; ++j) {
+      const uint32_t e = ldc(mat + i * T + j);
+#pragma unroll
+      for (int k = 0; k < L; ++k) y[i][k] += e * x[j][k];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int k = 0; k < L; ++k) x[i][k] = y[i][k];
+}
+
 // x^alpha by MSB-first square-and-multiply over the bits of alpha.
 template <int L>
 __device__ __forceinline__ void mont_pow(uint32_t (&x)[L], uint32_t alpha, const Modulus<L>& m) {
@@ -172,6 +227,43 @@ __device__ __forceinline__ void mont_pow(uint32_t (&x)[L], uint32_t alpha, const
   for (int bit = 30 - __clz(static_cast<int>(alpha)); bit >= 0; --bit) {
     mont_mul(x, x, x, m);
     if ((alpha >> bit) & 1u) mont_mul(x, x, base, m);
+  }
+}
+
+// x^e by the run-length ladder (ops/montgomery.py ladder_schedule) on N
+// elements in lockstep: entry g > 0 of the schedule is g squarings and one
+// multiply by the element's input, g < 0 is -g squarings.  The schedule is
+// read by loop index (a warp-uniform broadcast) and both loops stay rolled,
+// so a 254-bit exponent costs one inlined squaring and one multiply body per
+// element.  Each product is followed by ``folds`` rho-folds (see fold()).
+template <int N, int L>
+__device__ __forceinline__ void pow_ladder(uint32_t (&x)[N][L], const int32_t* __restrict__ runs,
+                                           int n_runs, const Modulus<L>& m,
+                                           const int32_t* __restrict__ rho, int folds) {
+  uint32_t base[N][L];
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+#pragma unroll
+    for (int k = 0; k < L; ++k) base[e][k] = x[e][k];
+#pragma unroll 1
+  for (int i = 0; i < n_runs; ++i) {
+    const int g = __ldg(runs + i);
+    const int squarings = g < 0 ? -g : g;
+#pragma unroll 1
+    for (int s = 0; s < squarings; ++s) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        mont_mul(x[e], x[e], x[e], m);
+        fold(x[e], rho, folds);
+      }
+    }
+    if (g > 0) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        mont_mul(x[e], x[e], base[e], m);
+        fold(x[e], rho, folds);
+      }
+    }
   }
 }
 

@@ -1,4 +1,4 @@
-// Kernel 1: the dense Poseidon permutation over a (t, L, B) int32 plane.
+// Kernel 2: the dense Poseidon permutation over a (t, L, B) int32 plane.
 //
 // Replaces sponge_tpu/ops/pallas_permute.py (pallas_permute_fn, body
 // _permute_kernel): every round is ARK, x^alpha (every element in full

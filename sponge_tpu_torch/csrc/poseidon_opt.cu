@@ -1,8 +1,8 @@
-// Kernel 2: the Poseidon permutation with sparse partial rounds over a
+// Kernel 1: the Poseidon permutation with sparse partial rounds over a
 // (t, L, B) int32 plane; what batched_permute(backend="auto") launches.
 //
 // Replaces sponge_tpu/ops/pallas_cios.py (cios_permute_fn, bodies
-// _permute_kernel / _permute_kernel_streams): full rounds as in kernel 1;
+// _permute_kernel / _permute_kernel_streams): full rounds as in kernel 2;
 // the first partial round is ARK + x0^alpha; partial rounds 2..R_P go
 // through the sparse factorization of poseidon/optimized.py
 //     x += c_r;  x0' = row0_r . x  (one REDC);  x_i += col0_r[i] * x0  (i >= 1);
@@ -15,7 +15,7 @@
 // wide_interleave, mds_mxu, lane_streams) have no counterpart: this kernel
 // has one schedule.
 //
-// What bounds it on the H100: integer multiply-add issue, as kernel 1; the
+// What bounds it on the H100: integer multiply-add issue, as kernel 2; the
 // sparse phase cuts a partial round's linear layer from t^2 = 9 to
 // 2t - 1 = 5 products.  Design: one thread per lane, state in registers,
 // coalesced (t, L, B) loads and stores, warp-uniform constants from a device
@@ -50,7 +50,7 @@ __global__ void __launch_bounds__(kThreads)
 
   uint32_t x[T][L];
   load_state<T, L>(x, in, B, b);
-  // One loop over all rounds, as in kernel 1: a second inlined copy of the
+  // One loop over all rounds, as in kernel 2: a second inlined copy of the
   // full-round body (a separate loop for the last full rounds) measured 9%
   // slower on the H100.
 #pragma unroll 1

@@ -10,13 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from .poseidon.config import PoseidonConfig
-from .poseidon.permutation import batched_permute, zero_state
+from .poseidon.permutation import SpongeConfig, batched_permute, zero_state
 from .transcript import add_rows
 
 
 def compress_pairs(
-    cfg: PoseidonConfig, left: torch.Tensor, right: torch.Tensor, backend: str = "auto"
+    cfg: SpongeConfig, left: torch.Tensor, right: torch.Tensor, backend: str = "auto"
 ) -> torch.Tensor:
     """(L, B) x (L, B) Montgomery planes -> (L, B): a fresh sponge absorbs
     [l, r] and squeezes one native element; the one permutation is the
@@ -31,7 +30,7 @@ def compress_pairs(
 
 
 def hash_elements(
-    cfg: PoseidonConfig, elems: torch.Tensor, num_outputs: int = 1, backend: str = "auto"
+    cfg: SpongeConfig, elems: torch.Tensor, num_outputs: int = 1, backend: str = "auto"
 ) -> torch.Tensor:
     """(k, L, B) Montgomery element plane -> (num_outputs, L, B): fresh
     sponge, absorb k elements, squeeze ``num_outputs`` (Montgomery form)."""
@@ -61,7 +60,7 @@ def hash_elements(
     return torch.cat(outs)
 
 
-def merkle_root(cfg: PoseidonConfig, leaves: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+def merkle_root(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """(L, N) Montgomery leaf plane -> (L,) root; N a power of two.  Each
     level compresses contiguous pairs with one batched permutation."""
     L, N = leaves.shape

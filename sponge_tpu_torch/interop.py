@@ -5,7 +5,9 @@ The JAX package stores field elements as Montgomery limb planes of 12 (or
 own R.  Every conversion here goes through canonical integers, so it serves
 any of the JAX limb plans.  Inputs are numpy arrays (this module never
 imports JAX): ``device_constants(cfg)``'s ``ark`` (R, t, L, 1) and ``mds``
-(t, t, L, 1), and ``(t, L, B)`` state planes.
+(t, t, L, 1), ``device_constants2(cfg)``'s Poseidon2 tables, the Rescue
+tier's ``_device_constants(cfg)`` ``(rc, mds)``, and ``(t, L, B)`` state
+planes.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import torch
 
 from .fields import _FIELDS, FieldSpec, ints_to_mont_tensor, mont_tensor_to_ints
 from .poseidon.config import PoseidonConfig
+from .poseidon2.config import Poseidon2Config
+from .rescue.config import RescueConfig
 
 
 def jax_limbs_to_ints(arr, modulus: int, limb_bits: int) -> np.ndarray:
@@ -49,6 +53,19 @@ def field_for_modulus(modulus: int) -> FieldSpec:
     return FieldSpec(name=f"fp_{modulus:x}", modulus=modulus, generator=0)
 
 
+def _field(modulus: int, field: FieldSpec = None) -> FieldSpec:
+    fs = field if field is not None else field_for_modulus(modulus)
+    if fs.modulus != modulus:
+        raise ValueError("field modulus does not match the constants' modulus")
+    return fs
+
+
+def _rows(arr, modulus: int, limb_bits: int) -> tuple:
+    """(n, m, L, 1) JAX Montgomery constants -> n rows of m canonical ints."""
+    vals = jax_limbs_to_ints(arr, modulus, limb_bits)[..., 0]
+    return tuple(tuple(int(v) for v in row) for row in vals)
+
+
 def config_from_device_constants(
     ark,
     mds,
@@ -64,39 +81,100 @@ def config_from_device_constants(
 ) -> PoseidonConfig:
     """The port's ``PoseidonConfig`` from the JAX package's device constants
     (ark (R, t, L, 1), mds (t, t, L, 1), 12- or 13-bit Montgomery limbs)."""
-    fs = field if field is not None else field_for_modulus(modulus)
-    if fs.modulus != modulus:
-        raise ValueError("field modulus does not match the constants' modulus")
-
-    def rows(arr):
-        vals = jax_limbs_to_ints(arr, modulus, limb_bits)[..., 0]
-        return tuple(tuple(int(v) for v in row) for row in vals)
-
     return PoseidonConfig(
-        field=fs,
+        field=_field(modulus, field),
         full_rounds=full_rounds,
         partial_rounds=partial_rounds,
         alpha=alpha,
-        ark=rows(ark),
-        mds=rows(mds),
+        ark=_rows(ark, modulus, limb_bits),
+        mds=_rows(mds, modulus, limb_bits),
         rate=rate,
         capacity=capacity,
     )
 
 
-def config_from_jax(cfg) -> PoseidonConfig:
-    """The port's config of a JAX-package ``PoseidonConfig`` (read through its
-    attributes, which are Python ints), over the port's field of the same
-    modulus."""
+def poseidon2_config_from_device_constants(
+    ext,
+    internal,
+    mat_e,
+    diag_m1,
+    *,
+    modulus: int,
+    limb_bits: int,
+    alpha: int,
+    rate: int,
+    capacity: int = 1,
+    field: FieldSpec = None,
+) -> Poseidon2Config:
+    """The port's ``Poseidon2Config`` from the JAX package's
+    ``device_constants2(cfg)``: ext (R_F, t, L, 1), internal (R_P, L, 1) and
+    diag_m1 (t, L, 1) as Montgomery limbs, mat_e (t, t) small ints."""
+    internal = np.asarray(internal)
+    diag_m1 = _rows(np.asarray(diag_m1)[None], modulus, limb_bits)[0]
+    return Poseidon2Config(
+        field=_field(modulus, field),
+        full_rounds=np.asarray(ext).shape[0],
+        partial_rounds=internal.shape[0],
+        alpha=alpha,
+        external_rc=_rows(ext, modulus, limb_bits),
+        internal_rc=_rows(internal[None], modulus, limb_bits)[0] if internal.shape[0] else (),
+        mat_e=tuple(tuple(int(v) for v in row) for row in np.asarray(mat_e)),
+        mat_i_diag=tuple((v + 1) % modulus for v in diag_m1),
+        rate=rate,
+        capacity=capacity,
+    )
+
+
+def rescue_config_from_device_constants(
+    rc,
+    mds,
+    *,
+    modulus: int,
+    limb_bits: int,
+    alpha: int,
+    rate: int,
+    capacity: int = 1,
+    field: FieldSpec = None,
+) -> RescueConfig:
+    """The port's ``RescueConfig`` from the JAX Rescue tier's
+    ``_device_constants(cfg)``: rc (2N, t, L, 1) and mds (t, t, L, 1)."""
+    rc_rows = _rows(rc, modulus, limb_bits)
+    return RescueConfig(
+        field=_field(modulus, field),
+        rounds=len(rc_rows) // 2,
+        alpha=alpha,
+        mds=_rows(mds, modulus, limb_bits),
+        rc=rc_rows,
+        rate=rate,
+        capacity=capacity,
+    )
+
+
+def config_from_jax(cfg):
+    """The port's config of a JAX-package ``PoseidonConfig``,
+    ``Poseidon2Config`` or ``RescueConfig`` (read through their attributes,
+    which are Python ints), over the port's field of the same modulus."""
+    ints = lambda rows: tuple(tuple(int(v) for v in row) for row in rows)  # noqa: E731
+    common = dict(field=field_for_modulus(cfg.field.modulus), alpha=cfg.alpha, rate=cfg.rate,
+                  capacity=cfg.capacity)
+    if hasattr(cfg, "external_rc"):
+        return Poseidon2Config(
+            full_rounds=cfg.full_rounds,
+            partial_rounds=cfg.partial_rounds,
+            external_rc=ints(cfg.external_rc),
+            internal_rc=tuple(int(v) for v in cfg.internal_rc),
+            mat_e=ints(cfg.mat_e),
+            mat_i_diag=tuple(int(v) for v in cfg.mat_i_diag),
+            **common,
+        )
+    if hasattr(cfg, "inv_alpha"):
+        return RescueConfig(rounds=cfg.rounds, mds=ints(cfg.mds), rc=ints(cfg.rc), **common)
     return PoseidonConfig(
-        field=field_for_modulus(cfg.field.modulus),
         full_rounds=cfg.full_rounds,
         partial_rounds=cfg.partial_rounds,
-        alpha=cfg.alpha,
-        ark=tuple(tuple(int(v) for v in row) for row in cfg.ark),
-        mds=tuple(tuple(int(v) for v in row) for row in cfg.mds),
-        rate=cfg.rate,
-        capacity=cfg.capacity,
+        ark=ints(cfg.ark),
+        mds=ints(cfg.mds),
+        **common,
     )
 
 

@@ -8,12 +8,12 @@ nothing to compile, so there is no segment cache here.
 
 from __future__ import annotations
 
-from .poseidon.config import PoseidonConfig
+from .poseidon.permutation import SpongeConfig
 from .sponge import PoseidonSponge
 
 
 class LazyPoseidonSponge(PoseidonSponge):
     """``PoseidonSponge`` with ``lazy=True``."""
 
-    def __init__(self, cfg: PoseidonConfig, batch_size: int = 1, backend: str = "auto", *, device):
+    def __init__(self, cfg: SpongeConfig, batch_size: int = 1, backend: str = "auto", *, device):
         super().__init__(cfg, batch_size, lazy=True, backend=backend, device=device)

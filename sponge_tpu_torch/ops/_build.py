@@ -8,8 +8,10 @@ sources and flags, so an edited source is rebuilt and an unchanged one is
 reused.  Importing this module builds nothing: CPU-only machines never need
 nvcc.
 
-Each kernel is instantiated for fixed (t, L) pairs; ``INSTANTIATIONS`` lists
-them and ``check_instantiated`` raises for any other shape.
+Each kernel symbol has its own C signature (``SIGNATURES``) and its own
+instantiated (t, L) pairs (``INSTANTIATIONS``); ``check_instantiated`` raises
+for any other shape.  Every signature starts ``(in, out, B, t, L, ...)`` and
+ends with the CUDA stream; ``launch`` fills both ends.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
+from ctypes import POINTER, c_int, c_longlong, c_uint, c_void_p
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "sponge_tpu_torch"
@@ -32,32 +35,36 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# (t, L) pairs compiled into both kernels: rate 2 over the 255/254-bit fields
-# (L = 11) and over the 35-bit test field (L = 2).
-INSTANTIATIONS = frozenset({(3, 11), (3, 2)})
+# (t, L) pairs compiled into each kernel: rate 2 over the 255/254-bit fields
+# (3, 11); the 31-bit fields at capacity 8, rate 8 (16, 2); the 35-bit and
+# 25-bit test fields (3, 2); the 44-bit low-headroom test field at t = 8.
+INSTANTIATIONS = {
+    "sponge_poseidon_opt": frozenset({(3, 11), (3, 2)}),
+    "sponge_poseidon_dense": frozenset({(3, 11), (3, 2)}),
+    "sponge_poseidon2": frozenset({(3, 11), (16, 2), (8, 2), (3, 2)}),
+    "sponge_rescue": frozenset({(3, 11), (16, 2), (3, 2)}),
+}
 
-# C signature shared by both kernels (see csrc/poseidon_dense.cu).
-_ARGTYPES = [
-    ctypes.c_void_p,  # state in  (t, L, B) int32
-    ctypes.c_void_p,  # state out (t, L, B) int32
-    ctypes.c_longlong,  # B
-    ctypes.c_int,  # t
-    ctypes.c_int,  # L
-    ctypes.c_int,  # alpha
-    ctypes.c_int,  # full rounds
-    ctypes.c_int,  # partial rounds
-    ctypes.c_void_p,  # constant buffer (int32)
-    ctypes.c_uint,  # n0inv
-    ctypes.c_void_p,  # cudaStream_t
-]
-KERNEL_SYMBOLS = ("sponge_poseidon_dense", "sponge_poseidon_opt")
+# Arguments between (in, out, B, t, L) and the stream, per symbol (the C
+# functions in csrc/*.cu).
+SIGNATURES = {
+    # alpha, full rounds, partial rounds, constants, n0inv
+    "sponge_poseidon_opt": [c_int, c_int, c_int, c_void_p, c_uint],
+    "sponge_poseidon_dense": [c_int, c_int, c_int, c_void_p, c_uint],
+    # full rounds, partial rounds, alpha ladder length, small diagonal,
+    # fold counts (host int[5]), constants, n0inv
+    "sponge_poseidon2": [c_int, c_int, c_int, c_int, POINTER(c_int), c_void_p, c_uint],
+    # rounds, alpha and inverse-alpha ladder lengths, constants, n0inv
+    "sponge_rescue": [c_int, c_int, c_int, c_void_p, c_uint],
+}
+_HEAD = [c_void_p, c_void_p, c_longlong, c_int, c_int]  # in, out, B, t, L
 
 
-def check_instantiated(t: int, L: int) -> None:
-    if (t, L) not in INSTANTIATIONS:
+def check_instantiated(symbol: str, t: int, L: int) -> None:
+    if (t, L) not in INSTANTIATIONS[symbol]:
         raise NotImplementedError(
-            f"no CUDA kernel instantiation for t={t}, L={L}; "
-            f"compiled: {sorted(INSTANTIATIONS)}"
+            f"no CUDA kernel instantiation of {symbol} for t={t}, L={L}; "
+            f"compiled: {sorted(INSTANTIATIONS[symbol])}"
         )
 
 
@@ -139,33 +146,22 @@ def ptxas_report() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = ctypes.CDLL(str(build()))
-    for name in KERNEL_SYMBOLS:
+    for name, args in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        fn.argtypes = _HEAD + args + [c_void_p]  # ... stream
+        fn.restype = c_int
     return lib
 
 
-def launch(symbol: str, cfg, consts, state, out) -> None:
-    """Launch one permutation kernel on the current CUDA stream of
-    ``state``'s device; raises if the launch is refused."""
+def launch(symbol: str, state, out, *args) -> None:
+    """Launch ``symbol`` on the current CUDA stream of ``state``'s device with
+    the symbol's own arguments ``args`` (``SIGNATURES``); raises if the launch
+    is refused."""
     import torch
 
-    fs = cfg.field
+    t, L, B = state.shape
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        rc = getattr(library(), symbol)(
-            state.data_ptr(),
-            out.data_ptr(),
-            state.shape[-1],
-            cfg.t,
-            fs.nlimbs,
-            cfg.alpha,
-            cfg.full_rounds,
-            cfg.partial_rounds,
-            consts.data_ptr(),
-            fs.n0inv,
-            stream,
-        )
+        rc = getattr(library(), symbol)(state.data_ptr(), out.data_ptr(), B, t, L, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")

@@ -1,23 +1,35 @@
-"""Static worst-case value simulation of the two kernels' schedules.
+"""Static worst-case value simulation of the CUDA kernels' schedules.
 
-Counterpart of ``_sparse_value_bound`` (``sponge_tpu/ops/pallas_cios.py:509-556``).
+Counterpart of ``_sparse_value_bound`` (``sponge_tpu/ops/pallas_cios.py:509-556``),
+``_fold_count`` (``pallas_p2.py:70-88``) and ``_check_kernel_value_bounds``
+(``pallas_rescue.py:259-307``), derived for the port's 24-bit limbs.
 The kernels keep field values lazily reduced: a Montgomery product leaves a
 value below ``a * b / R + p``, an addition is carried but not reduced, and in
 the sparse partial phase elements 1..t-1 grow by about 2p per round.  A value
 is held exactly as long as it stays below R (limbs carried, top limb below
 2^24); the single conditional subtraction at the end makes the output
 canonical only if the last value is below 2p.  ``check_kernel_bounds``
-replays each kernel's schedule on exclusive integer bounds and raises when
-either condition could fail, so a config that could overflow never launches.
-It also bounds the 64-bit REDC column accumulators.
+replays each Poseidon kernel's schedule on exclusive integer bounds and
+raises when either condition could fail, so a config that could overflow
+never launches.  It also bounds the 64-bit REDC column accumulators.
+
+Poseidon2 (kernel 3) never reduces in its linear layers: limb words hold
+small-integer combinations of 24-bit limbs and values grow past R.  Its
+simulation (``p2_plan``) tracks each element's value bound and limb-word
+bound through the kernel's exact schedule, derives how many top-carry
+rho-folds each static site needs to bring values back under R, and checks
+that every 32-bit word stays below 2^32.  Rescue (kernel 5) is a Poseidon-like
+chain of Montgomery products (``check_rescue_bounds``).
 """
 
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 from ..fields import LIMB_BITS
 from ..poseidon.config import PoseidonConfig
+from .montgomery import fold_bound, fold_count, ladder_schedule
 
 
 class _Sim:
@@ -91,12 +103,11 @@ def simulate(cfg: PoseidonConfig, optimized: bool):
     return sim.vmax, max(xs)
 
 
-def column_bound(cfg: PoseidonConfig) -> int:
+def column_bound(t: int, L: int) -> int:
     """Largest REDC column: t products per limb of a row dot plus the REDC
     products (each below 2^48), plus the carry from the column below."""
-    L = cfg.field.nlimbs
     limb = (1 << LIMB_BITS) - 1
-    return (cfg.t + 1) * L * limb * limb + (1 << (64 - LIMB_BITS))
+    return (t + 1) * L * limb * limb + (1 << (64 - LIMB_BITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +123,189 @@ def check_kernel_bounds(cfg: PoseidonConfig, optimized: bool) -> int:
         )
     if vout > 2 * fs.modulus:
         raise ValueError(f"{fs.name} t={cfg.t}: output bound {vout / fs.modulus:.2f}p >= 2p")
-    if column_bound(cfg) >= 1 << 63:
+    if column_bound(cfg.t, fs.nlimbs) >= 1 << 63:
         raise ValueError(f"{fs.name} t={cfg.t}: REDC columns can overflow 63 bits")
+    return vmax
+
+
+# ---------------------------------------------------------------------------
+# Poseidon2 (csrc/poseidon2.cu)
+# ---------------------------------------------------------------------------
+
+_W24 = 1 << LIMB_BITS  # exclusive bound of a carried limb
+_W32 = 1 << 32
+
+FOLD_SITES = ("ext", "int", "sbox_ext", "sbox_int", "exit")
+
+
+@dataclass(frozen=True)
+class P2Plan:
+    """Fold counts per static site of the Poseidon2 kernel, in
+    ``FOLD_SITES`` order, and the largest value and limb word reached.
+    ``min_folds`` is the number of folds one permutation takes when every
+    value is folded only as often as it needs (the kernel applies each
+    site's count at every instance of the site)."""
+
+    folds: tuple
+    vmax: int
+    wmax: int
+    min_folds: int
+
+
+class _P2Sim:
+    """Exclusive (value, limb word) bounds of each element through kernel 3's
+    schedule.  With ``folds=None`` each site's count grows to what its
+    instances need; with fixed counts every constraint is checked; with
+    ``folds="minimal"`` each instance folds as often as its own value needs.
+    ``instances`` counts the folds taken."""
+
+    def __init__(self, cfg, folds=None):
+        fs = cfg.field
+        self.cfg = cfg
+        self.p, self.R, self.rho, self.L = fs.modulus, fs.r, fs.r_mod_p, fs.nlimbs
+        self.derive, self.minimal = folds is None, folds == "minimal"
+        fixed = folds if isinstance(folds, tuple) else (0,) * len(FOLD_SITES)
+        self.folds = dict(zip(FOLD_SITES, fixed))
+        self.vmax = self.wmax = self.instances = 0
+
+    def _fail(self, msg):
+        fs = self.cfg.field
+        raise ValueError(f"Poseidon2 kernel, {fs.name} t={self.cfg.t}: {msg}")
+
+    def _see(self, v, w):
+        self.vmax, self.wmax = max(self.vmax, v), max(self.wmax, w)
+        if w > _W32:
+            self._fail(f"a limb word can reach 2^{(w - 1).bit_length()} (>= 2^32)")
+        return v, w
+
+    def carried(self, v):
+        """A carried value: low limbs below 2^24, the rest in the top word."""
+        top = ((v - 1) >> (LIMB_BITS * (self.L - 1))) + 1
+        return self._see(v, max(_W24, top))
+
+    def carry_add(self, x, addend):
+        """``add_const``/``norm``: one carry pass adding limbs below 2^24."""
+        v, w = x
+        self._see(v, w + _W24 + ((w + _W24) >> LIMB_BITS))
+        return self.carried(v + addend - 1)
+
+    def fold(self, x, site):
+        v, _ = x
+        need = fold_count(self.R, self.rho, v)
+        if self.derive:
+            self.folds[site] = max(self.folds[site], need)
+        n = need if self.minimal else self.folds[site]
+        self.instances += n
+        for _ in range(n):
+            cm = (v - 1) // self.R
+            self._see(v, (cm + 1) * _W24 + 1)  # low limb + c * rho limb + carry
+            v = fold_bound(self.R, self.rho, v)
+        return self.carried(v)
+
+    def mul(self, a, b):
+        if a[0] > self.R or b[0] > self.R:
+            self._fail("a Montgomery product input can reach R")
+        return self.carried((a[0] - 1) * (b[0] - 1) // self.R + self.p + 1)
+
+    def sbox(self, x, site):
+        acc = x
+        for g in ladder_schedule(self.cfg.alpha):
+            for _ in range(abs(g)):
+                acc = self.fold(self.mul(acc, acc), site)
+            if g > 0:
+                acc = self.fold(self.mul(acc, x), site)
+        return acc
+
+    def lin(self, coeffs, xs):
+        if any(c < 0 for c in coeffs):
+            self._fail("linear-layer coefficients must be non-negative")
+        v = sum(c * (x[0] - 1) for c, x in zip(coeffs, xs)) + 1
+        w = sum(c * (x[1] - 1) for c, x in zip(coeffs, xs)) + 1
+        return self._see(v, w)
+
+    def external(self, xs):
+        return [self.lin(row, xs) for row in self.cfg.mat_e]
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        t, half = cfg.t, cfg.full_rounds // 2
+        xs = self.external([self.carried(p)] * t)
+        for r in range(cfg.full_rounds + cfg.partial_rounds):
+            if r < half or r >= half + cfg.partial_rounds:
+                xs = [self.fold(self.carry_add(x, p), "ext") for x in xs]
+                xs = self.external([self.sbox(x, "sbox_ext") for x in xs])
+                continue
+            xs = [self.fold(self.carry_add(x, p if e == 0 else 1), "int") for e, x in enumerate(xs)]
+            xs[0] = self.sbox(xs[0], "sbox_int")
+            sigma = self.lin([1] * t, xs)
+            if cfg.small_diag:
+                xs = [self.lin([1, d], [sigma, x]) for d, x in zip(cfg.diag_m1, xs)]
+            else:
+                xs = [self.lin([1, 1], [sigma, self.mul(x, (p, _W24))]) for x in xs]
+        xs = [self.fold(self.carry_add(x, 1), "exit") for x in xs]
+        out = max(self.mul(x, (p, _W24))[0] for x in xs)  # Montgomery product by 1
+        if out > 2 * p:
+            self._fail(f"output bound {out / p:.2f}p >= 2p")
+        return tuple(self.folds[s] for s in FOLD_SITES)
+
+
+@functools.lru_cache(maxsize=None)
+def p2_plan(cfg) -> P2Plan:
+    """Fold counts of kernel 3 for ``cfg``, derived and then verified by a
+    second replay with those counts fixed; raises ValueError if no plan is
+    exact (a limb word could reach 2^32 or a product input R)."""
+    folds = _P2Sim(cfg).run()
+    sim = _P2Sim(cfg, folds)
+    sim.run()
+    if column_bound(1, cfg.field.nlimbs) >= 1 << 63:
+        raise ValueError(f"{cfg.field.name}: REDC columns can overflow 63 bits")
+    minimal = _P2Sim(cfg, "minimal")
+    minimal.run()
+    return P2Plan(folds=folds, vmax=sim.vmax, wmax=sim.wmax, min_folds=minimal.instances)
+
+
+# ---------------------------------------------------------------------------
+# Rescue-Prime (csrc/rescue.cu)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def check_rescue_bounds(cfg) -> int:
+    """Replay kernel 5's schedule on exclusive value bounds: both ladders
+    product by product, the MDS row dots (one REDC each), the constant adds
+    and the exit product by the Montgomery form of 1.  Raises ValueError if
+    a product input could reach R, the output 2p, or a column 2^63; returns
+    the largest value bound."""
+    fs = cfg.field
+    p, R, t = fs.modulus, fs.r, cfg.t
+    vmax = 0
+
+    def see(v):
+        nonlocal vmax
+        vmax = max(vmax, v)
+        if v > R:
+            raise ValueError(
+                f"Rescue kernel, {fs.name} t={t}: a Montgomery product input can "
+                f"reach R ({v / p:.1f}p vs R = {R / p:.1f}p)"
+            )
+        return v
+
+    def mul(a, b):
+        return (see(a) - 1) * (see(b) - 1) // R + p + 1
+
+    schedules = (ladder_schedule(cfg.alpha), ladder_schedule(cfg.inv_alpha))
+    v = p
+    for h in range(2 * cfg.rounds):
+        acc = v
+        for g in schedules[h % 2]:
+            for _ in range(abs(g)):
+                acc = mul(acc, acc)
+            if g > 0:
+                acc = mul(acc, v)
+        row = t * (see(acc) - 1) * (p - 1) // R + p + 1
+        v = row + p - 1
+    if mul(v, p) > 2 * p:
+        raise ValueError(f"Rescue kernel, {fs.name} t={t}: output bound >= 2p")
+    if column_bound(t, fs.nlimbs) >= 1 << 63:
+        raise ValueError(f"Rescue kernel, {fs.name} t={t}: REDC columns can overflow 63 bits")
     return vmax

@@ -103,16 +103,80 @@ def mont_add(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return reduce_once(fs, carry(a.long() + b.long()))
 
 
-def mont_pow(fs: FieldSpec, x: torch.Tensor, alpha: int) -> torch.Tensor:
-    """x^alpha by MSB-first square-and-multiply."""
-    if alpha < 1:
-        raise ValueError("alpha must be >= 1")
-    acc = x.long()
-    for bit in bin(alpha)[3:]:
-        acc = mont_mul(fs, acc, acc)
-        if bit == "1":
-            acc = mont_mul(fs, acc, x)
+def mont_pow(fs: FieldSpec, x: torch.Tensor, exponent: int) -> torch.Tensor:
+    """x^exponent by MSB-first square-and-multiply, run by run
+    (``ladder_schedule``), as the CUDA kernels' ``pow_ladder``."""
+    base = x.long()
+    acc = base
+    for g in ladder_schedule(exponent):
+        for _ in range(abs(g)):
+            acc = mont_mul(fs, acc, acc)
+        if g > 0:
+            acc = mont_mul(fs, acc, base)
     return acc
+
+
+def _exponent_runs(exponent: int) -> tuple[list[int], int]:
+    """Run-length schedule of an MSB-first square-and-multiply ladder
+    (``sponge_tpu/ops/pallas_rescue.py:240``): after seeding ``acc = x`` from
+    the leading 1-bit, each entry ``g`` of ``runs`` is ``g`` squarings and
+    one multiply by x; ``trailing`` squarings end it (0 for odd exponents)."""
+    bits = bin(exponent)[2:]
+    runs: list[int] = []
+    gap = 0
+    for b in bits[1:]:
+        gap += 1
+        if b == "1":
+            runs.append(gap)
+            gap = 0
+    return runs, gap
+
+
+def ladder_schedule(exponent: int) -> list[int]:
+    """``_exponent_runs`` as the one int list the CUDA kernels read: ``g > 0``
+    is g squarings then a multiply by the base, ``g < 0`` is -g squarings
+    alone (the trailing run).  Exactly nbits - 1 squarings and
+    popcount - 1 multiplies."""
+    if exponent < 1:
+        raise ValueError("exponent must be >= 1")
+    runs, trailing = _exponent_runs(exponent)
+    return runs + ([-trailing] if trailing else [])
+
+
+def fold_count(R: int, rho: int, vmax: int) -> int:
+    """Top-carry folds that bring every value below the exclusive bound
+    ``vmax`` under R (``sponge_tpu/ops/pallas_p2.py:70``).  One fold maps
+    V = c R + lo (lo < R) to c rho + lo with rho = R mod p, which is V mod p;
+    over V < vmax its worst result is max(cm rho + (vmax-1 - cm R),
+    (cm-1) rho + R-1) with cm = (vmax-1) // R."""
+    folds = 0
+    while vmax > R:
+        vmax = fold_bound(R, rho, vmax)
+        folds += 1
+        if folds > 16:
+            raise ValueError("rho-folding does not converge for this field")
+    return folds
+
+
+def fold_bound(R: int, rho: int, vmax: int) -> int:
+    """Exclusive bound after one fold of values below ``vmax``."""
+    if vmax <= R:
+        return vmax
+    cm = (vmax - 1) // R
+    return max(cm * rho + (vmax - 1 - cm * R), (cm - 1) * rho + R - 1) + 1
+
+
+def reduce_small(fs: FieldSpec, x: torch.Tensor, vmax: int) -> torch.Tensor:
+    """Limbs (not necessarily carried) of values below ``vmax`` -> canonical:
+    exact carry, ``fold_count`` top-carry rho-folds to get below R, then one
+    Montgomery product by R mod p (the Montgomery form of 1), below 2p."""
+    rho = limb_col(fs, fs.r_mod_p, x.device)
+    x = carry(x.long())
+    for _ in range(fold_count(fs.r, fs.r_mod_p, vmax)):
+        c = x[..., -1:, :] >> LIMB_BITS
+        x[..., -1:, :] &= LIMB_MASK
+        x = carry(x + c * rho)
+    return mont_mul(fs, x, rho)
 
 
 def to_mont(fs: FieldSpec, x_plain: torch.Tensor) -> torch.Tensor:

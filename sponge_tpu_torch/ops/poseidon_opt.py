@@ -1,8 +1,8 @@
-"""Kernel 2: the Poseidon permutation with sparse partial rounds, and its
+"""Kernel 1: the Poseidon permutation with sparse partial rounds, and its
 plain PyTorch version.
 
 Counterpart of ``sponge_tpu/ops/pallas_cios.py`` (``cios_permute_fn``, the
-production kernel): full rounds as in kernel 1; partial rounds 2..R_P
+production kernel): full rounds as in kernel 2; partial rounds 2..R_P
 through the sparse factorization of ``poseidon/optimized.py`` (row0 dot for
 element 0, col0 * x0 added into elements 1..t-1), then the accumulated dense
 matrix D once, as ``pallas_cios.py:1171-1228`` does.  The CUDA kernel is
@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import torch
 
-from ..poseidon.config import PoseidonConfig, unpack_constants
+from ..poseidon.config import PoseidonConfig, constants_size, unpack_constants
 from . import _build
 from . import montgomery as mont
 from .bounds import check_kernel_bounds
-from .poseidon_dense import check_state, full_round
+from .poseidon_dense import _launch_args, check_state, full_round
 
 
 def permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -51,18 +51,18 @@ def permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) 
     """Sparse-factorized permutation of a (t, L, B) int32 canonical
     Montgomery plane.  ``consts`` is ``kernel_constants(cfg)`` on the state's
     device."""
-    check_state(cfg, consts, state)
+    check_state(cfg, consts, state, constants_size(cfg))
     if cfg.partial_rounds < 2:
         raise ValueError("the sparse-factorized kernel needs >= 2 partial rounds")
     if state.device.type == "cpu":
         return permute_opt_plain(cfg, consts, state)
     if state.device.type != "cuda":
         raise ValueError(f"no kernel for device {state.device}")
-    _build.check_instantiated(cfg.t, cfg.field.nlimbs)
+    _build.check_instantiated("sponge_poseidon_opt", cfg.t, cfg.field.nlimbs)
     check_kernel_bounds(cfg, optimized=True)
     out = torch.empty_like(state)
     if state.shape[-1]:
-        _build.launch("sponge_poseidon_opt", cfg, consts, state, out)
+        _build.launch("sponge_poseidon_opt", state, out, *_launch_args(cfg, consts))
         permute_opt.launches += 1
     return out
 

@@ -119,15 +119,20 @@ def kernel_constants(cfg: PoseidonConfig) -> np.ndarray:
     return np.concatenate([a.reshape(-1) for a in parts]).astype(np.int32)
 
 
-def unpack_constants(cfg: PoseidonConfig, buf):
-    """Views of a (device) constant buffer by section, each with a trailing
-    batch axis of 1 so it broadcasts over (.., L, B) planes."""
-    need = constants_size(cfg)
+def unpack_layout(layout, buf):
+    """Views of a flat (device) buffer by the sections of ``layout``, each
+    with a trailing batch axis of 1 so it broadcasts over (.., L, B) planes."""
+    need = sum(int(np.prod(shape)) for _, shape in layout)
     if tuple(buf.shape) != (need,):
         raise ValueError(f"constant buffer has shape {tuple(buf.shape)}, layout needs ({need},)")
     out, off = {}, 0
-    for name, shape in constant_layout(cfg):
+    for name, shape in layout:
         n = int(np.prod(shape))
         out[name] = buf[off : off + n].reshape(shape + (1,))
         off += n
     return out
+
+
+def unpack_constants(cfg: PoseidonConfig, buf):
+    """Views of a (device) constant buffer by section (``unpack_layout``)."""
+    return unpack_layout(constant_layout(cfg), buf)

@@ -1,4 +1,5 @@
-"""Batched Poseidon permutation over (t, L, B) limb planes.
+"""Batched Poseidon permutation over (t, L, B) limb planes, and the
+permutation dispatch of every family.
 
 Counterpart of ``sponge_tpu/poseidon/permutation.py``.  The state of B
 independent sponges is a ``(t, L, B)`` int32 plane of canonical Montgomery
@@ -19,15 +20,21 @@ per (config, device).  Backends:
 from __future__ import annotations
 
 import functools
+from typing import Union
 
 import torch
 from torch import nn
 
+from ..fields import FieldSpec
 from ..ops.poseidon_dense import permute_dense, permute_dense_plain
 from ..ops.poseidon_opt import permute_opt
+from ..poseidon2.config import Poseidon2Config
+from ..rescue.config import RescueConfig
 from .config import PoseidonConfig, kernel_constants
 
 BACKENDS = ("auto", "opt", "dense", "plain")
+
+SpongeConfig = Union[PoseidonConfig, Poseidon2Config, RescueConfig]
 
 
 class PoseidonPermutation(nn.Module):
@@ -61,20 +68,23 @@ def permutation_for(cfg: PoseidonConfig, device: torch.device) -> PoseidonPermut
     return PoseidonPermutation(cfg, device)
 
 
-def batched_permute(cfg: PoseidonConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Backend-dispatched batched permutation (see module docstring)."""
-    if not isinstance(cfg, PoseidonConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: only the Poseidon family is ported to PyTorch so far"
-        )
-    return permutation_for(cfg, state.device)(state, backend)
+def batched_permute(cfg: SpongeConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Backend-dispatched batched permutation (see module docstring).  Any
+    other config of the port (Poseidon2, Rescue-Prime) goes to its family's
+    hook, ``cfg.batched_permute(state, backend)``, with backends "auto",
+    "kernel" and "plain"."""
+    if not isinstance(getattr(cfg, "field", None), FieldSpec):
+        raise NotImplementedError(f"{type(cfg).__name__}: not a config of the PyTorch port")
+    if isinstance(cfg, PoseidonConfig):
+        return permutation_for(cfg, state.device)(state, backend)
+    return cfg.batched_permute(state, backend)
 
 
-def permute(cfg: PoseidonConfig, state: torch.Tensor) -> torch.Tensor:
-    """The plain dense permutation (the JAX package's ``permute`` tier)."""
+def permute(cfg: SpongeConfig, state: torch.Tensor) -> torch.Tensor:
+    """The plain permutation (the JAX package's ``permute`` tier)."""
     return batched_permute(cfg, state, "plain")
 
 
-def zero_state(cfg: PoseidonConfig, batch: int, device) -> torch.Tensor:
+def zero_state(cfg: SpongeConfig, batch: int, device) -> torch.Tensor:
     """Zero-initialized sponge states; zero is 0 in Montgomery form."""
     return torch.zeros((cfg.t, cfg.field.nlimbs, batch), dtype=torch.int32, device=device)

@@ -29,9 +29,8 @@ import torch
 from . import absorb as absorb_codec
 from .fields import LIMB_BITS, FieldSpec, ints_to_mont_tensor, limbs_to_ints
 from .ops import montgomery as mont
-from .poseidon.config import PoseidonConfig
 from .poseidon.oracle import ABSORBING, FULL, SpongeState, field_element_size_num_bits
-from .poseidon.permutation import zero_state
+from .poseidon.permutation import SpongeConfig, zero_state
 from .transcript import Absorb, SqueezeNative, _replay, segment_bookkeeping
 
 
@@ -60,7 +59,7 @@ class PoseidonSponge:
 
     def __init__(
         self,
-        cfg: PoseidonConfig,
+        cfg: SpongeConfig,
         batch_size: int = 1,
         lazy: bool = True,
         backend: str = "auto",
@@ -261,7 +260,7 @@ class PoseidonSponge:
         )
 
     @classmethod
-    def from_state(cls, state: SpongeState, cfg: PoseidonConfig, *, device) -> "PoseidonSponge":
+    def from_state(cls, state: SpongeState, cfg: SpongeConfig, *, device) -> "PoseidonSponge":
         rows = state.state  # [t][B] ints
         new = cls(cfg, len(rows[0]), device=device)
         new.plane = ints_to_mont_tensor(cfg.field, rows, new.device)

@@ -22,8 +22,7 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from .ops import montgomery as mont
-from .poseidon.config import PoseidonConfig
-from .poseidon.permutation import batched_permute, zero_state
+from .poseidon.permutation import SpongeConfig, batched_permute, zero_state
 
 
 @dataclass(frozen=True)
@@ -43,7 +42,7 @@ class SqueezeNative:
 Step = Union[Absorb, SqueezeNative]
 
 
-def add_rows(cfg: PoseidonConfig, state: torch.Tensor, start: int, chunk: torch.Tensor):
+def add_rows(cfg: SpongeConfig, state: torch.Tensor, start: int, chunk: torch.Tensor):
     """``state[capacity+start : +k] += chunk`` as a NEW tensor: sponges share
     planes between clones, so a plane is never written in place."""
     lo = cfg.capacity + start
@@ -53,7 +52,7 @@ def add_rows(cfg: PoseidonConfig, state: torch.Tensor, start: int, chunk: torch.
 
 
 def _replay(
-    cfg: PoseidonConfig,
+    cfg: SpongeConfig,
     steps: Sequence[Step],
     elems: torch.Tensor,
     backend: str,
@@ -139,7 +138,7 @@ def _replay(
 
 
 def segment_bookkeeping(
-    cfg: PoseidonConfig, steps: Sequence[Step], mode: str, index: int
+    cfg: SpongeConfig, steps: Sequence[Step], mode: str, index: int
 ) -> Tuple[str, int]:
     """Final (mode, index) after replaying ``steps`` from (mode, index),
     without touching device values."""
@@ -170,7 +169,7 @@ def transcript_shape(steps: Sequence[Step]) -> Tuple[int, int]:
     return a, q
 
 
-def compile_transcript(cfg: PoseidonConfig, steps: Sequence[Step], backend: str = "auto"):
+def compile_transcript(cfg: SpongeConfig, steps: Sequence[Step], backend: str = "auto"):
     """``fn(elems)``: a ``(total_absorbed, L, B)`` Montgomery element plane
     (all absorbed values in schedule order) -> ``(total_squeezed, L, B)``
     canonical output plane."""

@@ -19,6 +19,8 @@ REPO = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_out():
     code = (
         "import sys, sponge_tpu_torch, sponge_tpu_torch.hash, sponge_tpu_torch.interop\n"
+        "import sponge_tpu_torch.ops.poseidon2, sponge_tpu_torch.ops.rescue\n"
+        "import sponge_tpu_torch.poseidon2.permutation, sponge_tpu_torch.rescue.permutation\n"
         "from sponge_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sponge_tpu'))\n"
         "assert not bad, bad\n"
@@ -37,6 +39,9 @@ def test_public_names_mirror_jax_package():
         "compile_transcript", "TranscriptAbsorb", "TranscriptSqueeze", "Batched", "FieldSpec",
         "BLS12_381_FR", "BLS12_381_FR_L13", "BN254_FR", "BLS12_377_FR", "GOLDILOCKS_FR",
         "BABYBEAR_FR", "MERSENNE31_FR", "KOALABEAR_FR", "Fp", "U64", "Usize", "WithLength",
+        "Poseidon2Config", "OraclePoseidon2Sponge", "get_default_poseidon2_parameters",
+        "generate_poseidon2_parameters", "RescueConfig", "OracleRescueSponge",
+        "get_default_rescue_parameters", "generate_rescue_parameters",
     }
     for name in ported:
         assert hasattr(sponge_tpu, name) and hasattr(sponge_tpu_torch, name), name

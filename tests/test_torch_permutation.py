@@ -1,7 +1,7 @@
 """The port's permutations against the JAX package's tiers and the oracle.
 
-Both plain versions (``permute_dense_plain``: kernel 1's function;
-``permute_opt_plain``: kernel 2's) are held against ``permute_jit``, the
+Both plain versions (``permute_dense_plain``: kernel 2's function;
+``permute_opt_plain``: kernel 1's) are held against ``permute_jit``, the
 Pallas kernel ``pallas_permute_fn`` in interpret mode and the CIOS kernel
 body, on the 35-bit test field where the JAX tiers compile in seconds, and
 against the scalar oracle on full-width BLS12-381 Fr lanes including the
@@ -143,7 +143,7 @@ def test_plain_matches_oracle_bls_adversarial():
         o.permute()
         j.permute()
         assert o.state == j.state == [got[e][b] for e in range(cfg.t)], b
-    # The public entry points: auto (kernel 2's path) and plain.
+    # The public entry points: auto (kernel 1's path) and plain.
     state = ints_to_mont_tensor(cfg.field, vals, "cpu")
     assert torch.equal(st.batched_permute(cfg, state), st.permute(cfg, state))
 
@@ -186,9 +186,10 @@ def test_kernel_backends_refuse_cpu_tensors():
     with pytest.raises(NotImplementedError):
         st.batched_permute(tiny_poseidon_config(), state)  # a JAX config
     with pytest.raises(NotImplementedError):
-        _build.check_instantiated(5, 11)
-    for t, L in _build.INSTANTIATIONS:
-        _build.check_instantiated(t, L)
+        _build.check_instantiated("sponge_poseidon_opt", 5, 11)
+    for symbol in ("sponge_poseidon_opt", "sponge_poseidon_dense"):
+        for t, L in _build.INSTANTIATIONS[symbol]:
+            _build.check_instantiated(symbol, t, L)
 
 
 def _kernel_configs():
@@ -206,7 +207,8 @@ def _kernel_configs():
 @pytest.mark.parametrize("optimized", [False, True], ids=["dense", "opt"])
 def test_value_bounds_clear_every_instantiated_config(optimized):
     for name, cfg in _kernel_configs().items():
-        assert (cfg.t, cfg.field.nlimbs) in _build.INSTANTIATIONS, name
+        symbol = "sponge_poseidon_opt" if optimized else "sponge_poseidon_dense"
+        assert (cfg.t, cfg.field.nlimbs) in _build.INSTANTIATIONS[symbol], name
         vmax = check_kernel_bounds(cfg, optimized)
         assert vmax <= cfg.field.r, name
     bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
