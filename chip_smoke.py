@@ -5,18 +5,22 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every CUDA kernel from sponge_tpu_torch/csrc with nvcc (one nvcc
-per source, in parallel): Poseidon (kernels 1 and 2), Poseidon2 (kernel 3)
-and Rescue-Prime (kernel 5).  It holds each kernel against its plain PyTorch
+per source, in parallel): Poseidon (kernels 1 and 2), Poseidon2 (kernel 3),
+Rescue-Prime (kernel 5), Griffin-pi (kernel 6), Anemoi (kernel 7) and
+GMiMC-erf (kernel 8).  It holds each kernel against its plain PyTorch
 version (torch.equal, with 0, 1, p-1, p-2 in every element position) and
 the scalar oracle, checks the golden vectors through the sponge on the card,
-drives two paths at full size with the launch counters zeroed just before
+drives three paths at full size with the launch counters zeroed just before
 each and read just after (Poseidon: the batched BLS12-381 Fr rate-2
 permutation at B = 2^20, the lazy sponge, a 2^20-leaf Merkle root; Poseidon2
 and Rescue: the BLS12-381 and BabyBear permutations at B = 2^20, a 2^20-leaf
-Poseidon2 Merkle root, a lazy Rescue sponge), and times each kernel beside
-its plain version with CUDA events.  The plain version's timed run takes the
-path's own 2^20-lane input (for Rescue BLS12-381, 2^14 lanes from both ends
-of it) and must equal the path's output there.  Each kernel's bound is the
+Poseidon2 Merkle root, a lazy Rescue sponge; GMiMC, Griffin and Anemoi: the
+BLS12-381 and Goldilocks permutations at B = 2^20, a lazy GMiMC sponge, a
+2^14-leaf Griffin Merkle root), and times each kernel beside its plain
+version with CUDA events.  The plain version's timed run takes the path's
+own 2^20-lane input (for the BLS12-381 inverse-S-box families, Rescue,
+Griffin and Anemoi, 2^14 lanes from both ends of it) and must equal the
+path's output there.  Each kernel's bound is the
 larger of the limb products the function needs (``limb_products``) over
 the card's 32-bit integer multiply-add rate and its state bytes over the
 memory rate.  Each phase prints one line; any
@@ -40,7 +44,9 @@ import torch
 SEED = 20260516
 B_MAIN = 1 << 20
 B_CHECK = 1 << 16
-B_RESCUE_PLAIN = 1 << 14  # the 14-round BLS12-381 plain Rescue is ~10^4 tensor-op products
+# BLS12-381 configs with a 254-bit inverse S-box run some 10^4 Montgomery
+# products per plain permutation, each tens of small tensor ops: launch-bound
+B_LADDER_PLAIN = 1 << 14
 
 # H100 rates for the bound: 132 SMs x 64 32-bit integer multiply-adds per
 # clock per SM (CUDA C++ Programming Guide, arithmetic instruction
@@ -109,9 +115,9 @@ def oracle_for(cfg):
     """A fresh scalar oracle sponge of the config's family."""
     import sponge_tpu_torch as st
 
-    if isinstance(cfg, (st.Poseidon2Config, st.RescueConfig)):
-        return cfg.oracle_sponge()
-    return st.OraclePoseidonSponge(cfg)
+    if isinstance(cfg, st.PoseidonConfig):
+        return st.OraclePoseidonSponge(cfg)
+    return cfg.oracle_sponge()
 
 
 def oracle_permute(cfg, vals):
@@ -146,6 +152,12 @@ def time_ms(fn, reps=3):
 def value_bound_text(cfg, vmax):
     fs = cfg.field
     return f"value bound {vmax / fs.modulus:.1f}p of R = {fs.r / fs.modulus:.1f}p"
+
+
+def plan_text(cfg, plan):
+    """A family kernel's replay (``ops/bounds.py`` ``KernelPlan``)."""
+    return (f"{value_bound_text(cfg, plan.vmax)}, largest limb word {plan.wmax / 2**24:.1f} x 2^24, "
+            f"reduction {'on' if plan.reduce else 'off'}")
 
 
 def chain_products(e, sq, mul):
@@ -184,7 +196,7 @@ def limb_products(name, cfg):
     chain (``chain_products``).  Poseidon2's small-integer matrix entries
     and diagonal scalings are one 32-bit multiply per limb, and it takes only
     the rho-folds its values need (``P2Plan.min_folds``), L each."""
-    from sponge_tpu_torch.ops.bounds import p2_plan
+    from sponge_tpu_torch.ops.bounds import check_anemoi_bounds, check_griffin_bounds, p2_plan
 
     t, L = cfg.t, cfg.field.nlimbs
     mm, sq, row = 2 * L * L, L * (L + 1) // 2 + L * L, (t + 1) * L * L
@@ -203,6 +215,25 @@ def limb_products(name, cfg):
     if name == "rescue_permute":
         per_round = t * (sb + chain_products(cfg.inv_alpha, sq, mm)) + 2 * t * row
         return cfg.rounds * per_round + t * mm
+    if name == "gmimc_permute":  # the deferred adds are not products
+        return cfg.rounds * sb + t * mm
+    if name == "griffin_permute":
+        # gates: (i-1) y0 scaled limb by limb, L_i^2, alpha_i L_i, x_i quad;
+        # the post-linear reduction only where the plan needs it
+        gates = sum((L if i >= 3 else 0) + sq + 2 * mm for i in range(2, t))
+        linear = t * t * L + (t * mm if check_griffin_bounds(cfg).reduce else 0)
+        per_round = chain_products(cfg.inv_alpha, sq, mm) + sb + gates
+        return (cfg.rounds + 1) * linear + cfg.rounds * per_round + t * mm
+    if name == "anemoi_permute":
+        # per pair: y^2, g y^2, u^(1/alpha), v^2, g v^2 (subtractions are
+        # additions); M_x rows lazily summed where l > 1; the post-PHT
+        # reduction only where the plan needs it
+        lc = cfg.l
+        diffusion = (2 * lc * (lc + 1) * L * L if lc > 1 else 0) + (
+            t * mm if check_anemoi_bounds(cfg).reduce else 0
+        )
+        per_round = lc * (2 * sq + 2 * mm + chain_products(cfg.inv_alpha, sq, mm)) + diffusion
+        return cfg.rounds * per_round + diffusion + t * mm
     raise ValueError(name)
 
 
@@ -222,7 +253,17 @@ def main():
     from sponge_tpu_torch.fields import mont_tensor_to_ints
     from sponge_tpu_torch.hash import compress_pairs, merkle_root
     from sponge_tpu_torch.ops import _build
-    from sponge_tpu_torch.ops.bounds import check_kernel_bounds, check_rescue_bounds, p2_plan
+    from sponge_tpu_torch.ops.anemoi import anemoi_permute, anemoi_permute_plain
+    from sponge_tpu_torch.ops.bounds import (
+        check_anemoi_bounds,
+        check_gmimc_bounds,
+        check_griffin_bounds,
+        check_kernel_bounds,
+        check_rescue_bounds,
+        p2_plan,
+    )
+    from sponge_tpu_torch.ops.gmimc import gmimc_permute, gmimc_permute_plain
+    from sponge_tpu_torch.ops.griffin import griffin_permute, griffin_permute_plain
     from sponge_tpu_torch.ops.poseidon2 import permute_p2, permute_p2_plain
     from sponge_tpu_torch.ops.poseidon_dense import permute_dense, permute_dense_plain
     from sponge_tpu_torch.ops.poseidon_opt import permute_opt, permute_opt_plain
@@ -262,6 +303,18 @@ def main():
     r_bls = st.get_default_rescue_parameters(st.BLS12_381_FR, 2)
     r_bb = st.get_default_rescue_parameters(st.BABYBEAR_FR, 8)
     r_25 = st.generate_rescue_parameters(fr25, 2, rounds=4)
+    gl = st.GOLDILOCKS_FR
+    m_bls = st.get_default_gmimc_parameters(st.BLS12_381_FR, 2)
+    m_gl = st.get_default_gmimc_parameters(gl, 4)
+    m_25 = st.generate_gmimc_parameters(fr25, 2, rounds=31)
+    g_bls = st.get_default_griffin_parameters(st.BLS12_381_FR, 2)
+    g_gl = st.get_default_griffin_parameters(gl, 4)
+    g_25 = st.generate_griffin_parameters(fr25, 2, rounds=5)
+    a_bls = st.get_default_anemoi_parameters(st.BLS12_381_FR, 3)
+    a_bls1 = st.get_default_anemoi_parameters(st.BLS12_381_FR, 1)
+    a_gl = st.get_default_anemoi_parameters(gl, 4)
+    a_25 = st.generate_anemoi_parameters(fr25, 3, rounds=5)
+    ladder_plain = {id(c) for c in (r_bls, g_bls, a_bls, a_bls1)}  # plain runs at B_LADDER_PLAIN
 
     # ---- 2. golden vectors through the sponge on the card ----
     goldens = [
@@ -274,13 +327,25 @@ def main():
         ("Rescue-Prime", r_bls, [0, 1], 2,
          [45302786381541930325162575638737089225573393886344434601026979521681543727945,
           26952253882373158469686854567157364530461338720960972120602142787680627985088]),
+        ("GMiMC", m_bls, [0, 1], 2,
+         [37046578519137793905068004997922276005969922553874139160809393105572205846096,
+          36927340725794352549314907498009288447328445793911509161713498516543876008544]),
+        ("Griffin", g_bls, [0, 1], 2,
+         [17568489372357836836505885331655087491470577238226034896877593231157640869808,
+          14593224294559100415741393686604387315592950665506024215387915292647432429441]),
+        ("Anemoi", a_bls1, [0], 2,
+         [35675714314881219429352217523578393221143023524104408084397769653631559795453,
+          29250560957318018735580408678162621932017287796996990149206325536109642299737]),
+        ("GMiMC", m_gl, [0, 1, 2, 3], 2, [2530300686986820728, 5710632959018033549]),
+        ("Griffin", g_gl, [0, 1, 2, 3], 2, [5142094782954152270, 13580507934772854974]),
+        ("Anemoi", a_gl, [0, 1, 2, 3], 2, [8816711172724677702, 3319201661018352774]),
     ]
     for family, cfg, absorbed, n, golden in goldens:
         s = st.PoseidonSponge(cfg, batch_size=4, device=dev)
         s.absorb([st.Fp(v, cfg.field) for v in absorbed])
         got = s.squeeze_native_field_elements(n)
         check(all(lane[: len(golden)] == golden for lane in got), f"{family} golden vector: got {got[0]}")
-        say("golden", f"{family} {cfg.field.name} rate 2: sponge squeeze == {golden[0]}... on all 4 lanes")
+        say("golden", f"{family} {cfg.field.name} rate {cfg.rate}: sponge squeeze == {golden[0]}... on all 4 lanes")
     fix = st.poseidon_test_fixture()
     left, right = random_plane(fix.field, (2, fix.field.nlimbs, 64), rng, dev)
     out = mont_tensor_to_ints(fix.field, compress_pairs(fix, left, right))
@@ -327,12 +392,36 @@ def main():
             source="sponge_tpu_torch/csrc/rescue.cu",
             replaces="sponge_tpu/ops/pallas_rescue.py:438",
         ),
+        "griffin_permute": dict(
+            wrapper=griffin_permute, plain=griffin_permute_plain,
+            perm=functools.partial(family_permutation_for, st.GriffinPermutation),
+            bound=lambda cfg: plan_text(cfg, check_griffin_bounds(cfg)),
+            configs=[g_bls, g_gl, g_25],
+            source="sponge_tpu_torch/csrc/griffin.cu",
+            replaces="sponge_tpu/ops/pallas_griffin.py:334",
+        ),
+        "anemoi_permute": dict(
+            wrapper=anemoi_permute, plain=anemoi_permute_plain,
+            perm=functools.partial(family_permutation_for, st.AnemoiPermutation),
+            bound=lambda cfg: plan_text(cfg, check_anemoi_bounds(cfg)),
+            configs=[a_bls, a_bls1, a_gl, a_25],
+            source="sponge_tpu_torch/csrc/anemoi.cu",
+            replaces="sponge_tpu/ops/pallas_anemoi.py:372",
+        ),
+        "gmimc_permute": dict(
+            wrapper=gmimc_permute, plain=gmimc_permute_plain,
+            perm=functools.partial(family_permutation_for, st.GmimcPermutation),
+            bound=lambda cfg: plan_text(cfg, check_gmimc_bounds(cfg)),
+            configs=[m_bls, m_gl, m_25],
+            source="sponge_tpu_torch/csrc/gmimc.cu",
+            replaces="sponge_tpu/ops/pallas_gmimc.py:150",
+        ),
     }
     for k in kernels.values():
         k["max_abs_err"] = 0
     for name, k in kernels.items():
         for cfg in k["configs"]:
-            B = B_RESCUE_PLAIN if cfg is r_bls else B_CHECK
+            B = B_LADDER_PLAIN if id(cfg) in ladder_plain else B_CHECK
             perm = k["perm"](cfg, dev)
             state = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B), rng, dev))
             bound_text = k["bound"](cfg)
@@ -441,7 +530,50 @@ def main():
         check(r_bits[b] == o.squeeze_bits(260), f"Rescue sponge lane {b}: squeeze_bits")
     say("sponge", f"lazy Rescue-Prime sponge B={B_CHECK}: native/bytes/bits squeezes == oracle on 8 lanes")
 
-    # ---- 6. timing at the paths' shapes, beside each kernel's bound; the plain
+    # ---- 6. the GMiMC, Griffin and Anemoi path (kernels 8, 6 and 7), launches counted ----
+    fam_cfgs = (m_bls, g_bls, a_bls, m_gl, g_gl, a_gl)
+    fam_states = {
+        id(cfg): with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
+        for cfg in fam_cfgs
+    }
+    g_leaves = random_plane(gl, (gl.nlimbs, B_LADDER_PLAIN), rng, dev)
+    m_lane_vals = random_plane(fs, (2, fs.nlimbs, B_CHECK), rng, dev)
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    fam_out = {id(cfg): st.batched_permute(cfg, fam_states[id(cfg)]) for cfg in fam_cfgs}
+    m_sponge = st.LazyPoseidonSponge(m_bls, batch_size=B_CHECK, device=dev)
+    m_sponge.absorb(b"gmimc transcript")
+    m_sponge.absorb([st.Fp(3, fs), st.Fp(fs.modulus - 1, fs)])
+    m_sponge.absorb_element_plane(m_lane_vals)
+    m_squeezed = m_sponge.squeeze_native_field_elements(3)
+    m_bytes = m_sponge.squeeze_bytes(45)
+    m_bits = m_sponge.squeeze_bits(270)
+    g_root = merkle_root(g_gl, g_leaves)
+    torch.cuda.synchronize()
+    launches3 = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for name in ("gmimc_permute", "griffin_permute", "anemoi_permute"):
+        check(launches3[name] > 0, f"{name} was not launched on the GMiMC/Griffin/Anemoi path")
+        launches[name] = launches3[name]
+    say("launches", "GMiMC/Griffin/Anemoi path: " + json.dumps(launches3))
+
+    for cfg, family in zip(fam_cfgs, ("GMiMC", "Griffin", "Anemoi") * 2):
+        what = f"{family} {cfg.field.name} t={cfg.t}"
+        check(fam_out[id(cfg)].shape == fam_states[id(cfg)].shape, f"{what}: output shape")
+        check_lanes_vs_oracle(cfg, fam_states[id(cfg)], fam_out[id(cfg)], main_sample[::2], f"{what} B=2^20")
+        say("main", f"batched_permute {what} at B=2^20: 32 lanes == oracle")
+    m_vals = [mont_tensor_to_ints(fs, m_lane_vals[i]) for i in range(2)]
+    for b in list(range(4)) + [B_CHECK // 5, B_CHECK - 3, B_CHECK - 2, B_CHECK - 1]:
+        o = st.OracleGmimcSponge(m_bls)
+        o.absorb(b"gmimc transcript")
+        o.absorb([st.Fp(3, fs), st.Fp(fs.modulus - 1, fs)])
+        o.absorb_field_elements([m_vals[0][b], m_vals[1][b]])
+        check(m_squeezed[b] == o.squeeze_native_field_elements(3), f"GMiMC sponge lane {b}: native squeeze")
+        check(m_bytes[b] == o.squeeze_bytes(45), f"GMiMC sponge lane {b}: squeeze_bytes")
+        check(m_bits[b] == o.squeeze_bits(270), f"GMiMC sponge lane {b}: squeeze_bits")
+    say("sponge", f"lazy GMiMC sponge B={B_CHECK}: native/bytes/bits squeezes == oracle on 8 lanes")
+    check_merkle(g_gl, g_leaves, g_root, "Griffin")
+
+    # ---- 7. timing at the paths' shapes, beside each kernel's bound; the plain
     # version's timed run is on the path's own input lanes and must equal the
     # path's output there ----
     def time_kernel(name, cfg, big, lanes, path_out=None):
@@ -449,7 +581,9 @@ def main():
         consts = k["perm"](cfg, dev).consts
         small = big[..., lanes]
         ms, _ = time_ms(lambda: k["wrapper"](cfg, consts, big))
-        plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small))
+        # a launch-bound plain ladder: one warm call and one timed
+        reps = 1 if id(cfg) in ladder_plain else 3
+        plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small), reps)
         n = small.shape[-1]
         if path_out is not None:
             check(
@@ -471,7 +605,7 @@ def main():
         return out
 
     every = slice(None)
-    half = B_RESCUE_PLAIN // 2  # Rescue's plain lanes: both ends of the 2^20 plane
+    half = B_LADDER_PLAIN // 2  # the ladder families' plain lanes: both ends of the 2^20 plane
     ends = torch.cat([torch.arange(half), torch.arange(B_MAIN - half, B_MAIN)]).to(dev)
     kernels["poseidon_permute_opt"].update(time_kernel("poseidon_permute_opt", bls, state, every, out))
     kernels["poseidon_permute_dense"].update(time_kernel("poseidon_permute_dense", bls, state, every, parity))
@@ -482,6 +616,11 @@ def main():
             kernels["poseidon2_permute"].update(timed)
     kernels["rescue_permute"].update(time_kernel("rescue_permute", r_bls, r_state, ends, r_out))
     time_kernel("rescue_permute", r_bb, p2_states[p2_bb.field.name], slice(0, B_CHECK))
+    for name, cfg, lanes in (("gmimc_permute", m_bls, every), ("griffin_permute", g_bls, ends),
+                             ("anemoi_permute", a_bls, ends)):
+        kernels[name].update(time_kernel(name, cfg, fam_states[id(cfg)], lanes, fam_out[id(cfg)]))
+    for name, cfg in (("gmimc_permute", m_gl), ("griffin_permute", g_gl), ("anemoi_permute", a_gl)):
+        time_kernel(name, cfg, fam_states[id(cfg)], every, fam_out[id(cfg)])  # the path's other width
 
     summary = [
         {
@@ -514,14 +653,15 @@ def main():
 
 
 def check_merkle(cfg, leaves, root, family):
-    """The 2^20-leaf root through the kernel equals the plain version's; a
-    2^10-leaf root equals the oracle's."""
+    """The root of all ``leaves`` through the kernel equals the plain
+    version's; a 2^10-leaf root equals the oracle's."""
     from sponge_tpu_torch.fields import mont_tensor_to_ints
     from sponge_tpu_torch.hash import merkle_root
 
     fs = cfg.field
     plain_root = merkle_root(cfg, leaves, backend="plain")
-    check(torch.equal(root, plain_root), f"{family} Merkle root over 2^20 leaves: kernel != plain")
+    n = f"2^{leaves.shape[-1].bit_length() - 1}"
+    check(torch.equal(root, plain_root), f"{family} Merkle root over {n} leaves: kernel != plain")
     small = leaves[:, :1024]
     level = mont_tensor_to_ints(fs, small)
     while len(level) > 1:
@@ -532,7 +672,7 @@ def check_merkle(cfg, leaves, root, family):
             nxt.append(o.squeeze_native_field_elements(1)[0])
         level = nxt
     check(mont_tensor_to_ints(fs, merkle_root(cfg, small)[:, None]) == level, f"{family} 2^10 Merkle root != oracle")
-    say("merkle", f"{family} root over 2^20 leaves: kernel == plain; root over 2^10 leaves == oracle")
+    say("merkle", f"{family} {fs.name} root over {n} leaves: kernel == plain; root over 2^10 leaves == oracle")
 
 
 if __name__ == "__main__":

@@ -4,10 +4,11 @@ The PyTorch port of ``sponge_tpu``, module for module: the same sponge,
 transcript and hashing surface over ``(t, L, B)`` int32 Montgomery planes of
 24-bit limbs.  The permutations run in hand-written CUDA kernels: Poseidon
 (``csrc/poseidon_opt.cu``, ``csrc/poseidon_dense.cu``), Poseidon2
-(``csrc/poseidon2.cu``) and Rescue-Prime (``csrc/rescue.cu``), each with a
-plain PyTorch version for CPU tensors.  A ``Poseidon2Config`` or
-``RescueConfig`` drives every entry point a ``PoseidonConfig`` does.  It
-imports neither JAX nor ``sponge_tpu``.
+(``csrc/poseidon2.cu``), Rescue-Prime (``csrc/rescue.cu``), GMiMC-erf
+(``csrc/gmimc.cu``), Griffin-pi (``csrc/griffin.cu``) and Anemoi
+(``csrc/anemoi.cu``), each with a plain PyTorch version for CPU tensors.
+Every family's config drives every entry point a ``PoseidonConfig`` does.
+It imports neither JAX nor ``sponge_tpu``.
 """
 
 from .absorb import (
@@ -33,6 +34,14 @@ from .absorb import (
     to_sponge_bytes,
     to_sponge_field_elements,
 )
+from .anemoi.config import AnemoiConfig
+from .anemoi.oracle import OracleAnemoiSponge
+from .anemoi.params import (
+    anemoi_default_rounds,
+    generate_anemoi_parameters,
+    get_default_anemoi_parameters,
+)
+from .anemoi.permutation import AnemoiPermutation, batched_anemoi_permute
 from .fields import (
     BABYBEAR_FR,
     BLS12_377_FR,
@@ -45,6 +54,22 @@ from .fields import (
     FieldSpec,
     get_field,
 )
+from .gmimc.config import GmimcConfig
+from .gmimc.oracle import OracleGmimcSponge
+from .gmimc.params import (
+    generate_gmimc_parameters,
+    get_default_gmimc_parameters,
+    gmimc_default_rounds,
+)
+from .gmimc.permutation import GmimcPermutation, batched_gmimc_permute
+from .griffin.config import GriffinConfig, is_quadratic_nonresidue
+from .griffin.oracle import OracleGriffinSponge
+from .griffin.params import (
+    generate_griffin_parameters,
+    get_default_griffin_parameters,
+    griffin_default_rounds,
+)
+from .griffin.permutation import GriffinPermutation, batched_griffin_permute
 from .lazy import LazyPoseidonSponge
 from .poseidon.config import PoseidonConfig
 from .poseidon.oracle import (
@@ -86,8 +111,14 @@ from .transcript import compile_transcript
 
 __all__ = [
     "ABSORBING",
+    "anemoi_default_rounds",
+    "AnemoiConfig",
+    "AnemoiPermutation",
     "BABYBEAR_FR",
     "Batched",
+    "batched_anemoi_permute",
+    "batched_gmimc_permute",
+    "batched_griffin_permute",
     "batched_permute",
     "batched_permute2",
     "batched_rescue_permute",
@@ -101,23 +132,39 @@ __all__ = [
     "find_poseidon_ark_and_mds",
     "Fp",
     "FULL",
+    "generate_anemoi_parameters",
+    "generate_gmimc_parameters",
+    "generate_griffin_parameters",
     "generate_poseidon2_parameters",
     "generate_rescue_parameters",
+    "get_default_anemoi_parameters",
+    "get_default_gmimc_parameters",
+    "get_default_griffin_parameters",
     "get_default_poseidon2_parameters",
     "get_default_poseidon_parameters",
     "get_default_rescue_parameters",
     "get_field",
+    "gmimc_default_rounds",
+    "GmimcConfig",
+    "GmimcPermutation",
     "GOLDILOCKS_FR",
+    "griffin_default_rounds",
+    "GriffinConfig",
+    "GriffinPermutation",
     "I128",
     "I16",
     "I32",
     "I64",
     "I8",
+    "is_quadratic_nonresidue",
     "Isize",
     "KOALABEAR_FR",
     "LazyPoseidonSponge",
     "MERSENNE31_FR",
     "NONE",
+    "OracleAnemoiSponge",
+    "OracleGmimcSponge",
+    "OracleGriffinSponge",
     "OraclePoseidon2Sponge",
     "OraclePoseidonSponge",
     "OracleRescueSponge",

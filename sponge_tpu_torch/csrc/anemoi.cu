@@ -1,0 +1,230 @@
+// Kernel 7: the Anemoi permutation over a (t, L, B) int32 plane.
+//
+// Replaces sponge_tpu/ops/pallas_anemoi.py (anemoi_permute_fn, body
+// _anemoi_kernel).  The state is two columns of l = t/2 elements, X = x[0..l)
+// and Y = x[l..t).  Round r (ePrint 2022/840):
+//     X += rc_x[r];  Y += rc_y[r]
+//     diffusion: X <- M_x X;  Y <- M_x rot_left_1(Y);  Y += X;  X += Y
+//     open Flystel on every pair (x, y):
+//         u = x - (g y^2 + g^-1);  v = y - u^(1/alpha);  (x, y) <- (u + g v^2, v)
+// then a closing diffusion and the exit: one Montgomery product by 1 (values
+// below 2p) and a conditional subtraction, so the output is canonical.
+//
+// The subtractions are products by the negated constants -g and -1 plus the
+// constant -g^-1, as in the TPU kernel, so every operand stays a non-negative
+// lazily reduced value and no borrow is needed.  The M_x rows are lazily
+// summed products with one REDC each (mat_apply_rolled; M_x is the identity
+// at l = 1 and skipped); the PHT adds are carried but not reduced.  The inverse S-box
+// runs over all l pairs in lockstep through the run-length ladder (mont.cuh
+// pow_ladder), l independent chains per lane.  At l = 1 nothing reduces
+// between the PHT adds, so values grow round over round; where
+// ops/bounds.py check_anemoi_bounds finds they could reach R it asks for the
+// post-PHT reduction, one Montgomery product by 1 per element after each
+// diffusion (BLS12-381 at l = 1), and the same replay proves every product
+// input below R.
+//
+// What bounds it on the H100: integer multiply-add issue, l x (253 + 129)
+// ladder products per round at BLS12-381.  Design: one thread per lane,
+// state in registers, one rolled round loop that also runs the closing
+// diffusion, so the diffusion is inlined once.
+//
+// Constant buffer layout (int32, limb axis last; anemoi/config.py
+// constant_layout): p (L) | one = R mod p (L) | rc_x (rounds, l, L) |
+// rc_y (rounds, l, L) | M_x (l, l, L) | g, -g, -g^-1, -1 (4, L) |
+// inverse-alpha schedule.
+
+#include "mont.cuh"
+
+namespace sponge {
+
+// x = M x for an N x N matrix of Montgomery constants (row-major, L limbs
+// each): per row the N products summed lazily in the same columns, one REDC.
+// As in mont_mul_const, the loop over the constants' limbs stays rolled (they
+// are read by loop index): with it unrolled, nvcc 12.9's cicc crashed on
+// this kernel at L = 11.
+template <int N, int L>
+__device__ __forceinline__ void mat_apply_rolled(uint32_t (&x)[N][L], const int32_t* __restrict__ mat,
+                                                 const Modulus<L>& m) {
+  uint32_t y[N][L];
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    uint64_t acc[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[k] = 0;
+#pragma unroll 1
+    for (int i = 0; i < L; ++i) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const uint32_t cji = ldc(mat + (r * N + j) * L + i);
+#pragma unroll
+        for (int k = 0; k < L; ++k) acc[k] += static_cast<uint64_t>(x[j][k]) * cji;
+      }
+      redc_step(acc, m);
+    }
+    carry_out(y[r], acc);
+  }
+#pragma unroll
+  for (int r = 0; r < N; ++r)
+#pragma unroll
+    for (int k = 0; k < L; ++k) x[r][k] = y[r][k];
+}
+
+// out = a^2 / R (mod p) with a staged through this thread's slots of shared
+// memory (``stage`` = base + threadIdx.x, limbs kThreads words apart, so a
+// warp's accesses fall in distinct banks): the operand is read by loop index
+// and the loop over its limbs stays rolled, like mont_mul_const.  With the
+// Flystel's squarings unrolled as well, nvcc 12.9's cicc crashed on this
+// kernel at (t, L) = (4, 11).
+template <int L>
+__device__ __forceinline__ void mont_sqr_staged(uint32_t (&out)[L], const uint32_t (&a)[L],
+                                                uint32_t* stage, const Modulus<L>& m) {
+#pragma unroll
+  for (int k = 0; k < L; ++k) stage[k * kThreads] = a[k];
+  uint64_t acc[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) acc[k] = 0;
+#pragma unroll 1
+  for (int i = 0; i < L; ++i) {
+    const uint32_t ai = stage[i * kThreads];
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[k] += static_cast<uint64_t>(a[k]) * ai;
+    redc_step(acc, m);
+  }
+  carry_out(out, acc);
+}
+
+template <int N, int L>
+__device__ __forceinline__ void anemoi_diffusion(uint32_t (&x)[N][L], uint32_t (&y)[N][L],
+                                                 const int32_t* __restrict__ mat, int reduce,
+                                                 const int32_t* __restrict__ one,
+                                                 const Modulus<L>& m) {
+  if constexpr (N > 1) {
+    uint32_t yr[N][L];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < L; ++k) yr[i][k] = y[(i + 1) % N][k];
+    mat_apply_rolled<N, L>(x, mat, m);
+    mat_apply_rolled<N, L>(yr, mat, m);
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int k = 0; k < L; ++k) y[i][k] = yr[i][k];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    add_lazy(y[i], x[i]);
+    add_lazy(x[i], y[i]);
+    if (reduce) {
+      mont_mul_const(x[i], x[i], one, m);
+      mont_mul_const(y[i], y[i], one, m);
+    }
+  }
+}
+
+template <int T, int L>
+__global__ void __launch_bounds__(kThreads)
+    anemoi_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
+                  int rounds, int n_inv_runs, int reduce, const int32_t* __restrict__ consts,
+                  uint32_t n0inv) {
+  constexpr int N = T / 2;
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  Modulus<L> m;
+  load_modulus(m, consts, n0inv);
+  const int32_t* one = consts + L;
+  const int32_t* rc_x = one + L;
+  const int32_t* rc_y = rc_x + rounds * N * L;
+  const int32_t* mat = rc_y + rounds * N * L;
+  const int32_t* g = mat + N * N * L;
+  const int32_t* neg_g = g + L;
+  const int32_t* neg_ginv = neg_g + L;
+  const int32_t* neg_one = neg_ginv + L;
+  const int32_t* inv_runs = neg_one + L;
+  __shared__ uint32_t stage_base[L * kThreads];
+  uint32_t* stage = stage_base + threadIdx.x;
+
+  uint32_t s[T][L], x[N][L], y[N][L];
+  load_state<T, L>(s, in, B, b);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      x[j][k] = s[j][k];
+      y[j][k] = s[N + j][k];
+    }
+  // rounds + 1 passes over one inlined diffusion: the last pass is the
+  // closing diffusion alone.
+#pragma unroll 1
+  for (int r = 0;; ++r) {
+    if (r < rounds) {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        add_const(x[j], rc_x + (r * N + j) * L);
+        add_const(y[j], rc_y + (r * N + j) * L);
+      }
+    }
+    anemoi_diffusion<N, L>(x, y, mat, reduce, one, m);
+    if (r == rounds) break;
+    uint32_t u[N][L], lad[N][L];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {  // u = x + (-g) y^2 + (-g^-1)
+      uint32_t sq[L];
+      mont_sqr_staged(sq, y[j], stage, m);
+      mont_mul_const(sq, sq, neg_g, m);
+#pragma unroll
+      for (int k = 0; k < L; ++k) u[j][k] = x[j][k];
+      add_lazy(u[j], sq);
+      add_const(u[j], neg_ginv);
+#pragma unroll
+      for (int k = 0; k < L; ++k) lad[j][k] = u[j][k];
+    }
+    pow_ladder<N, L>(lad, inv_runs, n_inv_runs, m, one, 0);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      mont_mul_const(lad[j], lad[j], neg_one, m);
+      add_lazy(y[j], lad[j]);  // v = y + (-1) u^(1/alpha)
+      uint32_t sq[L];
+      mont_sqr_staged(sq, y[j], stage, m);
+      mont_mul_const(sq, sq, g, m);
+#pragma unroll
+      for (int k = 0; k < L; ++k) x[j][k] = u[j][k];
+      add_lazy(x[j], sq);  // w = u + g v^2
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mont_mul_const(s[j], x[j], one, m);
+    mont_mul_const(s[N + j], y[j], one, m);
+  }
+  store_state<T, L>(out, s, B, b, m);
+}
+
+template <int T, int L>
+int launch_anemoi(const int32_t* in, int32_t* out, long long B, int rounds, int n_inv_runs,
+                  int reduce, const int32_t* consts, unsigned n0inv, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
+  anemoi_kernel<T, L><<<blocks, kThreads, 0, stream>>>(in, out, B, rounds, n_inv_runs, reduce,
+                                                       consts, n0inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace sponge
+
+// Plain C entry point (ctypes): returns cudaGetLastError() after the launch,
+// or -1 when (t, L) has no instantiation.  Instantiations must match
+// INSTANTIATIONS in sponge_tpu_torch/ops/_build.py.
+extern "C" int sponge_anemoi(const int32_t* in, int32_t* out, long long B, int t, int L,
+                             int rounds, int n_inv_runs, int reduce, const int32_t* consts,
+                             unsigned n0inv, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t == 4 && L == 11)
+    return sponge::launch_anemoi<4, 11>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+  if (t == 2 && L == 11)
+    return sponge::launch_anemoi<2, 11>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+  if (t == 8 && L == 3)
+    return sponge::launch_anemoi<8, 3>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+  if (t == 4 && L == 2)
+    return sponge::launch_anemoi<4, 2>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+  return -1;
+}

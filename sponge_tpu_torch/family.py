@@ -1,6 +1,7 @@
 """The permutation module of every family beside Poseidon.
 
-A family (``poseidon2/``, ``rescue/``) subclasses ``FamilyPermutation`` and
+A family (``poseidon2/``, ``rescue/``, ``gmimc/``, ``griffin/``,
+``anemoi/``) subclasses ``FamilyPermutation`` and
 names three functions: its kernel wrapper and its plain version, both
 ``(cfg, consts, state) -> state`` over ``(t, L, B)`` planes, and the numpy
 constant buffer of a config.  The module holds that buffer as a registered

@@ -5,9 +5,9 @@ The JAX package stores field elements as Montgomery limb planes of 12 (or
 own R.  Every conversion here goes through canonical integers, so it serves
 any of the JAX limb plans.  Inputs are numpy arrays (this module never
 imports JAX): ``device_constants(cfg)``'s ``ark`` (R, t, L, 1) and ``mds``
-(t, t, L, 1), ``device_constants2(cfg)``'s Poseidon2 tables, the Rescue
-tier's ``_device_constants(cfg)`` ``(rc, mds)``, and ``(t, L, B)`` state
-planes.
+(t, t, L, 1), ``device_constants2(cfg)``'s Poseidon2 tables, the Rescue,
+GMiMC, Griffin and Anemoi tiers' ``_device_constants(cfg)``, and
+``(t, L, B)`` state planes.
 """
 
 from __future__ import annotations
@@ -15,7 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .anemoi.config import AnemoiConfig
 from .fields import _FIELDS, FieldSpec, ints_to_mont_tensor, mont_tensor_to_ints
+from .gmimc.config import GmimcConfig
+from .griffin.config import GriffinConfig
 from .poseidon.config import PoseidonConfig
 from .poseidon2.config import Poseidon2Config
 from .rescue.config import RescueConfig
@@ -150,14 +153,82 @@ def rescue_config_from_device_constants(
     )
 
 
+def gmimc_config_from_device_constants(
+    rc, *, modulus: int, limb_bits: int, alpha: int, rate: int, capacity: int = 1,
+    field: FieldSpec = None,
+) -> GmimcConfig:
+    """The port's ``GmimcConfig`` from the JAX GMiMC tier's
+    ``_device_constants(cfg)``: rc (rounds, L, 1)."""
+    rc = _rows(np.asarray(rc)[None], modulus, limb_bits)[0]
+    return GmimcConfig(
+        field=_field(modulus, field), rounds=len(rc), alpha=alpha, rc=rc, rate=rate,
+        capacity=capacity,
+    )
+
+
+def griffin_config_from_device_constants(
+    rc, mat_e, quads, *, modulus: int, limb_bits: int, alpha: int, rate: int,
+    capacity: int = 1, field: FieldSpec = None,
+) -> GriffinConfig:
+    """The port's ``GriffinConfig`` from the JAX Griffin tier's
+    ``_device_constants(cfg)``: rc (rounds, t, L, 1) with its zero last row,
+    mat_e (t, t) small ints, and the gates' (alpha_i, beta_i) columns
+    (L, 1), whose first pair (i = 2) is the base pair (a, b)."""
+    rc_rows = _rows(rc, modulus, limb_bits)
+    qc_alpha, qc_beta = _rows(np.stack(quads[0])[None], modulus, limb_bits)[0]
+    return GriffinConfig(
+        field=_field(modulus, field),
+        rounds=len(rc_rows),
+        alpha=alpha,
+        mat_e=tuple(tuple(int(v) for v in row) for row in np.asarray(mat_e)),
+        rc=rc_rows[:-1],
+        qc_alpha=qc_alpha,
+        qc_beta=qc_beta,
+        rate=rate,
+        capacity=capacity,
+    )
+
+
+def anemoi_config_from_device_constants(
+    consts, *, modulus: int, limb_bits: int, alpha: int, rate: int, capacity: int = 1,
+    field: FieldSpec = None,
+) -> AnemoiConfig:
+    """The port's ``AnemoiConfig`` from the JAX Anemoi tier's
+    ``_device_constants(cfg)``: rc_x and rc_y (rounds, l, L, 1), ``mat`` of
+    (L, 1) columns and ``g`` an (L, 1) column."""
+    mat = np.asarray([[np.asarray(e) for e in row] for row in consts["mat"]])
+    return AnemoiConfig(
+        field=_field(modulus, field),
+        rounds=np.asarray(consts["rc_x"]).shape[0],
+        alpha=alpha,
+        g=_rows(np.asarray(consts["g"])[None, None], modulus, limb_bits)[0][0],
+        mat_x=_rows(mat, modulus, limb_bits),
+        rc_x=_rows(consts["rc_x"], modulus, limb_bits),
+        rc_y=_rows(consts["rc_y"], modulus, limb_bits),
+        rate=rate,
+        capacity=capacity,
+    )
+
+
 def config_from_jax(cfg):
-    """The port's config of a JAX-package ``PoseidonConfig``,
-    ``Poseidon2Config`` or ``RescueConfig`` (read through their attributes,
-    which are Python ints), over the port's field of the same modulus."""
+    """The port's config of a JAX-package config, dispatched on its class
+    name (``PoseidonConfig``, ``Poseidon2Config``, ``RescueConfig``,
+    ``GmimcConfig``, ``GriffinConfig``, ``AnemoiConfig``) and read through
+    its attributes, which are Python ints, over the port's field of the same
+    modulus.  Any other class raises."""
+    kind = type(cfg).__name__
+    if kind not in ("PoseidonConfig", "Poseidon2Config", "RescueConfig", "GmimcConfig",
+                    "GriffinConfig", "AnemoiConfig"):
+        raise TypeError(f"no port counterpart of the JAX config class {kind}")
     ints = lambda rows: tuple(tuple(int(v) for v in row) for row in rows)  # noqa: E731
     common = dict(field=field_for_modulus(cfg.field.modulus), alpha=cfg.alpha, rate=cfg.rate,
                   capacity=cfg.capacity)
-    if hasattr(cfg, "external_rc"):
+    if kind == "PoseidonConfig":
+        return PoseidonConfig(
+            full_rounds=cfg.full_rounds, partial_rounds=cfg.partial_rounds, ark=ints(cfg.ark),
+            mds=ints(cfg.mds), **common,
+        )
+    if kind == "Poseidon2Config":
         return Poseidon2Config(
             full_rounds=cfg.full_rounds,
             partial_rounds=cfg.partial_rounds,
@@ -167,14 +238,18 @@ def config_from_jax(cfg):
             mat_i_diag=tuple(int(v) for v in cfg.mat_i_diag),
             **common,
         )
-    if hasattr(cfg, "inv_alpha"):
+    if kind == "RescueConfig":
         return RescueConfig(rounds=cfg.rounds, mds=ints(cfg.mds), rc=ints(cfg.rc), **common)
-    return PoseidonConfig(
-        full_rounds=cfg.full_rounds,
-        partial_rounds=cfg.partial_rounds,
-        ark=ints(cfg.ark),
-        mds=ints(cfg.mds),
-        **common,
+    if kind == "GmimcConfig":
+        return GmimcConfig(rounds=cfg.rounds, rc=tuple(int(v) for v in cfg.rc), **common)
+    if kind == "GriffinConfig":
+        return GriffinConfig(
+            rounds=cfg.rounds, mat_e=ints(cfg.mat_e), rc=ints(cfg.rc), qc_alpha=int(cfg.qc_alpha),
+            qc_beta=int(cfg.qc_beta), **common,
+        )
+    return AnemoiConfig(
+        rounds=cfg.rounds, g=int(cfg.g), mat_x=ints(cfg.mat_x), rc_x=ints(cfg.rc_x),
+        rc_y=ints(cfg.rc_y), **common,
     )
 
 

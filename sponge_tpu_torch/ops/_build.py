@@ -11,7 +11,8 @@ nvcc.
 Each kernel symbol has its own C signature (``SIGNATURES``) and its own
 instantiated (t, L) pairs (``INSTANTIATIONS``); ``check_instantiated`` raises
 for any other shape.  Every signature starts ``(in, out, B, t, L, ...)`` and
-ends with the CUDA stream; ``launch`` fills both ends.
+ends with the CUDA stream; ``launch`` fills both ends.  ``run`` is the body
+every kernel wrapper in ``ops/`` shares.
 """
 
 from __future__ import annotations
@@ -27,6 +28,10 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from ctypes import POINTER, c_int, c_longlong, c_uint, c_void_p
 
+import torch
+
+from ..poseidon.config import layout_size
+
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "sponge_tpu_torch"
 
@@ -37,12 +42,17 @@ NVCC_FLAGS = (
 
 # (t, L) pairs compiled into each kernel: rate 2 over the 255/254-bit fields
 # (3, 11); the 31-bit fields at capacity 8, rate 8 (16, 2); the 35-bit and
-# 25-bit test fields (3, 2); the 44-bit low-headroom test field at t = 8.
+# 25-bit test fields (3, 2); the 44-bit low-headroom test field at t = 8;
+# Goldilocks at capacity 4, rate 4 (8, 3); Anemoi at rates 3 and 1 over the
+# 255/254-bit fields (4, 11), (2, 11) and rate 3 over the 25-bit field (4, 2).
 INSTANTIATIONS = {
     "sponge_poseidon_opt": frozenset({(3, 11), (3, 2)}),
     "sponge_poseidon_dense": frozenset({(3, 11), (3, 2)}),
     "sponge_poseidon2": frozenset({(3, 11), (16, 2), (8, 2), (3, 2)}),
     "sponge_rescue": frozenset({(3, 11), (16, 2), (3, 2)}),
+    "sponge_gmimc": frozenset({(3, 11), (8, 3), (3, 2)}),
+    "sponge_griffin": frozenset({(3, 11), (8, 3), (3, 2)}),
+    "sponge_anemoi": frozenset({(4, 11), (2, 11), (8, 3), (4, 2)}),
 }
 
 # Arguments between (in, out, B, t, L) and the stream, per symbol (the C
@@ -56,6 +66,13 @@ SIGNATURES = {
     "sponge_poseidon2": [c_int, c_int, c_int, c_int, POINTER(c_int), c_void_p, c_uint],
     # rounds, alpha and inverse-alpha ladder lengths, constants, n0inv
     "sponge_rescue": [c_int, c_int, c_int, c_void_p, c_uint],
+    # rounds, alpha, constants, n0inv
+    "sponge_gmimc": [c_int, c_uint, c_void_p, c_uint],
+    # rounds, alpha, inverse-alpha ladder length, post-linear reduction,
+    # constants, n0inv
+    "sponge_griffin": [c_int, c_uint, c_int, c_int, c_void_p, c_uint],
+    # rounds, inverse-alpha ladder length, post-PHT reduction, constants, n0inv
+    "sponge_anemoi": [c_int, c_int, c_int, c_void_p, c_uint],
 }
 _HEAD = [c_void_p, c_void_p, c_longlong, c_int, c_int]  # in, out, B, t, L
 
@@ -157,11 +174,47 @@ def launch(symbol: str, state, out, *args) -> None:
     """Launch ``symbol`` on the current CUDA stream of ``state``'s device with
     the symbol's own arguments ``args`` (``SIGNATURES``); raises if the launch
     is refused."""
-    import torch
-
     t, L, B = state.shape
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
         rc = getattr(library(), symbol)(state.data_ptr(), out.data_ptr(), B, t, L, *args, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+
+
+def check_state(cfg, consts: torch.Tensor, state: torch.Tensor, layout) -> None:
+    """Validate a (t, L, B) int32 state plane and its constant buffer, laid
+    out by ``layout`` (the config family's ``constant_layout(cfg)``)."""
+    size = layout_size(layout)
+    shape = (cfg.t, cfg.field.nlimbs)
+    if state.dim() != 3 or tuple(state.shape[:2]) != shape:
+        raise ValueError(f"state must be (t, L, B) = {shape + ('B',)}, got {tuple(state.shape)}")
+    if state.dtype != torch.int32 or consts.dtype != torch.int32:
+        raise TypeError("state and constants must be int32")
+    if not state.is_contiguous():
+        raise ValueError("state must be contiguous")
+    if tuple(consts.shape) != (size,) or not consts.is_contiguous():
+        raise ValueError(f"constants must be kernel_constants(cfg): {size} words")
+    if consts.device != state.device:
+        raise ValueError(f"constants on {consts.device}, state on {state.device}")
+
+
+def run(wrapper, symbol: str, cfg, consts: torch.Tensor, state: torch.Tensor, layout, plain, launch_args):
+    """The body of every kernel wrapper: check the plane and its constants;
+    on a CPU tensor return ``plain(cfg, consts, state)``; on a CUDA tensor
+    check the (t, L) instantiation, take ``launch_args(cfg, consts)`` (the
+    family's bound check, then the symbol's own arguments), launch
+    ``symbol`` and add one to ``wrapper.launches``.  Any other device
+    raises."""
+    check_state(cfg, consts, state, layout)
+    if state.device.type == "cpu":
+        return plain(cfg, consts, state)
+    if state.device.type != "cuda":
+        raise ValueError(f"no kernel for device {state.device}")
+    check_instantiated(symbol, cfg.t, cfg.field.nlimbs)
+    args = launch_args(cfg, consts)
+    out = torch.empty_like(state)
+    if state.shape[-1]:
+        launch(symbol, state, out, *args)
+        wrapper.launches += 1
+    return out

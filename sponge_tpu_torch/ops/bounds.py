@@ -18,8 +18,13 @@ small-integer combinations of 24-bit limbs and values grow past R.  Its
 simulation (``p2_plan``) tracks each element's value bound and limb-word
 bound through the kernel's exact schedule, derives how many top-carry
 rho-folds each static site needs to bring values back under R, and checks
-that every 32-bit word stays below 2^32.  Rescue (kernel 5) is a Poseidon-like
-chain of Montgomery products (``check_rescue_bounds``).
+that every 32-bit word stays below 2^32.  Rescue, GMiMC, Griffin and Anemoi
+(kernels 5, 8, 6, 7) replay their schedules on (value, limb word) bounds
+through ``_Replay``: GMiMC's rest-branch adds stay uncarried for the whole
+permutation, and Griffin's and Anemoi's optional reductions are taken where
+the replay without them fails.  The TPU kernels' 12-bit fixpoints
+(``pallas_gmimc.py:67``, ``pallas_griffin.py:75``, ``pallas_anemoi.py:69``)
+do not carry over to the port's 24-bit plan.
 """
 
 from __future__ import annotations
@@ -265,8 +270,95 @@ def p2_plan(cfg) -> P2Plan:
 
 
 # ---------------------------------------------------------------------------
-# Rescue-Prime (csrc/rescue.cu)
+# Rescue-Prime, GMiMC, Griffin and Anemoi (csrc/rescue.cu, csrc/gmimc.cu,
+# csrc/griffin.cu, csrc/anemoi.cu)
 # ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class KernelPlan:
+    """What a family kernel's replay found: whether the kernel must take its
+    optional reduction (Griffin's post-linear, Anemoi's post-PHT Montgomery
+    product by 1; never for GMiMC), and the largest value and 32-bit limb
+    word bound reached."""
+
+    reduce: bool
+    vmax: int
+    wmax: int
+
+
+class _Replay:
+    """Exclusive (value, limb word) bounds of one element through a kernel's
+    schedule, as the ``mont.cuh`` routines the kernel calls leave them.
+    A carried element has limbs 0..L-2 below 2^24 and the rest of its value
+    in the top word; ``lin`` is a word-wise small-integer combination with
+    no carry (``small_mat_apply``, GMiMC's deferred adds)."""
+
+    def __init__(self, what: str, fs, terms: int = 1):
+        self.what, self.p, self.R, self.L = what, fs.modulus, fs.r, fs.nlimbs
+        self.vmax = self.wmax = 0
+        if column_bound(terms, self.L) >= 1 << 63:
+            self._fail("REDC columns can overflow 63 bits")
+        self.const = self.carried(self.p)  # a canonical constant of the buffer
+
+    def _fail(self, msg):
+        raise ValueError(f"{self.what}: {msg}")
+
+    def _see(self, v, w):
+        self.vmax, self.wmax = max(self.vmax, v), max(self.wmax, w)
+        if w > _W32:
+            self._fail(f"a limb word can reach 2^{(w - 1).bit_length()} (>= 2^32)")
+        return v, w
+
+    def carried(self, v):
+        top = ((v - 1) >> (LIMB_BITS * (self.L - 1))) + 1
+        return self._see(v, max(_W24, top))
+
+    def lin(self, coeffs, xs):
+        v = sum(c * (x[0] - 1) for c, x in zip(coeffs, xs)) + 1
+        return self._see(v, sum(c * (x[1] - 1) for c, x in zip(coeffs, xs)) + 1)
+
+    def carry_pass(self, x):
+        self._see(x[0], x[1] + 255)  # a word plus the carry from below
+        return self.carried(x[0])
+
+    def add(self, x, y):
+        """``add_lazy``: word plus word plus carry, carried as it goes."""
+        self._see(x[0], x[1] + y[1] + 255)
+        return self.carried(x[0] + y[0] - 1)
+
+    def mul(self, a, b):
+        for v, w in (a, b):
+            if v > self.R:
+                self._fail(
+                    f"a Montgomery product input can reach R ({v / self.p:.1f}p vs "
+                    f"R = {self.R / self.p:.1f}p)"
+                )
+            if w > _W24:
+                self._fail("a Montgomery product input is not carried")
+        return self.carried((a[0] - 1) * (b[0] - 1) // self.R + self.p + 1)
+
+    def row(self, xs):
+        """``mont_row``: the terms' products by canonical constants summed
+        lazily, one REDC."""
+        for x in xs:
+            self.mul(x, self.const)
+        return self.carried(sum((x[0] - 1) * (self.p - 1) for x in xs) // self.R + self.p + 1)
+
+    def pow(self, x, e):
+        """``mont_pow`` / ``pow_ladder``: the run-length schedule of e."""
+        acc = x
+        for g in ladder_schedule(e):
+            for _ in range(abs(g)):
+                acc = self.mul(acc, acc)
+            if g > 0:
+                acc = self.mul(acc, x)
+        return acc
+
+    def exit(self, x):
+        """One Montgomery product by 1, then one conditional subtraction."""
+        if self.mul(x, self.const)[0] > 2 * self.p:
+            self._fail("output bound >= 2p")
 
 
 @functools.lru_cache(maxsize=None)
@@ -276,36 +368,112 @@ def check_rescue_bounds(cfg) -> int:
     and the exit product by the Montgomery form of 1.  Raises ValueError if
     a product input could reach R, the output 2p, or a column 2^63; returns
     the largest value bound."""
-    fs = cfg.field
-    p, R, t = fs.modulus, fs.r, cfg.t
-    vmax = 0
-
-    def see(v):
-        nonlocal vmax
-        vmax = max(vmax, v)
-        if v > R:
-            raise ValueError(
-                f"Rescue kernel, {fs.name} t={t}: a Montgomery product input can "
-                f"reach R ({v / p:.1f}p vs R = {R / p:.1f}p)"
-            )
-        return v
-
-    def mul(a, b):
-        return (see(a) - 1) * (see(b) - 1) // R + p + 1
-
-    schedules = (ladder_schedule(cfg.alpha), ladder_schedule(cfg.inv_alpha))
-    v = p
+    fs, t = cfg.field, cfg.t
+    sim = _Replay(f"Rescue kernel, {fs.name} t={t}", fs, terms=t)
+    x = sim.const
     for h in range(2 * cfg.rounds):
-        acc = v
-        for g in schedules[h % 2]:
-            for _ in range(abs(g)):
-                acc = mul(acc, acc)
-            if g > 0:
-                acc = mul(acc, v)
-        row = t * (see(acc) - 1) * (p - 1) // R + p + 1
-        v = row + p - 1
-    if mul(v, p) > 2 * p:
-        raise ValueError(f"Rescue kernel, {fs.name} t={t}: output bound >= 2p")
-    if column_bound(t, fs.nlimbs) >= 1 << 63:
-        raise ValueError(f"Rescue kernel, {fs.name} t={t}: REDC columns can overflow 63 bits")
-    return vmax
+        y = sim.pow(x, cfg.inv_alpha if h % 2 else cfg.alpha)
+        x = sim.add(sim.row([y] * t), sim.const)
+    sim.exit(x)
+    return sim.vmax
+
+
+@functools.lru_cache(maxsize=None)
+def check_gmimc_bounds(cfg) -> KernelPlan:
+    """Replay kernel 8's schedule.  Each round copies the front element,
+    adds c_r (carried) and raises it to alpha; F is added word by word,
+    uncarried, to the other t-1 elements, which keep every such add until
+    the exit: values grow by F per add, and limb words by up to 2^24.  The
+    exit is a carry pass and a Montgomery product by 1.  Raises ValueError
+    if a product input could reach R, a limb word 2^32 or the output 2p."""
+    fs, t = cfg.field, cfg.t
+    sim = _Replay(f"GMiMC kernel, {fs.name} t={t} rounds={cfg.rounds}", fs)
+    xs = [sim.const] * t
+    for r in range(cfg.rounds):
+        j = r % t  # the front's register; the kernel never moves the state
+        f = sim.pow(sim.add(xs[j], sim.const), cfg.alpha)
+        xs = [x if i == j else sim.lin((1, 1), (x, f)) for i, x in enumerate(xs)]
+    for x in xs:
+        sim.exit(sim.carry_pass(x))
+    return KernelPlan(False, sim.vmax, sim.wmax)
+
+
+def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:
+    fs, t = cfg.field, cfg.t
+    sim = _Replay(f"Griffin kernel, {fs.name} t={t}", fs)
+    c = sim.const
+
+    def linear(xs, with_rc):
+        ys = [sim.lin(row, xs) for row in cfg.mat_e]
+        ys = [sim.add(y, c) if with_rc else sim.carry_pass(y) for y in ys]
+        return [sim.mul(y, c) for y in ys] if reduce_linear else ys
+
+    xs = linear([c] * t, False)
+    for _ in range(cfg.rounds):
+        y0, y1 = sim.pow(xs[0], cfg.inv_alpha), sim.pow(xs[1], cfg.alpha)
+        out = [y0, y1] + xs[2:]
+        for i in range(t - 1, 1, -1):  # descending, as the kernel
+            terms = [y0, y1] + ([xs[i - 1]] if i >= 3 else [])
+            li = sim.carry_pass(sim.lin([i - 1, 1, 1][: len(terms)], terms))
+            quad = sim.add(sim.add(sim.mul(li, li), sim.mul(li, c)), c)
+            out[i] = sim.mul(xs[i], quad)
+        xs = linear(out, True)
+    for x in xs:
+        sim.exit(x)
+    return KernelPlan(reduce_linear, sim.vmax, sim.wmax)
+
+
+@functools.lru_cache(maxsize=None)
+def check_griffin_bounds(cfg) -> KernelPlan:
+    """Replay kernel 6's schedule: the opening small-integer linear layer
+    (limb words unreduced, then carried), per round the inverse ladder on
+    x_0, x_1^alpha, the quadratic gates from i = t-1 down to 2, and the
+    linear layer plus rc.  The linear layer amplifies values by its row sum,
+    so where the replay without it fails, the plan takes the post-linear
+    Montgomery product by 1 (``reduce``), as the TPU kernel does
+    (``pallas_griffin.py:359-364``).  Raises ValueError if neither plan is
+    exact."""
+    try:
+        return _griffin_replay(cfg, False)
+    except ValueError:
+        return _griffin_replay(cfg, True)
+
+
+def _anemoi_replay(cfg, reduce_pht: bool) -> KernelPlan:
+    fs, lcol = cfg.field, cfg.l
+    sim = _Replay(f"Anemoi kernel, {fs.name} l={lcol}", fs, terms=lcol)
+    c = sim.const
+
+    def diffusion(x, y):
+        if lcol > 1:
+            x, y = sim.row([x] * lcol), sim.row([y] * lcol)
+        y = sim.add(y, x)
+        x = sim.add(x, y)
+        return (sim.mul(x, c), sim.mul(y, c)) if reduce_pht else (x, y)
+
+    x = y = c  # one bound per column: every pair takes the same schedule
+    for _ in range(cfg.rounds):
+        x, y = diffusion(sim.add(x, c), sim.add(y, c))
+        u = sim.add(sim.add(x, sim.mul(sim.mul(y, y), c)), c)
+        v = sim.add(y, sim.mul(sim.pow(u, cfg.inv_alpha), c))
+        x, y = sim.add(u, sim.mul(sim.mul(v, v), c)), v
+    x, y = diffusion(x, y)
+    sim.exit(x)
+    sim.exit(y)
+    return KernelPlan(reduce_pht, sim.vmax, sim.wmax)
+
+
+@functools.lru_cache(maxsize=None)
+def check_anemoi_bounds(cfg) -> KernelPlan:
+    """Replay kernel 7's schedule: the rc adds, the diffusion (M_x rows
+    lazily summed with one REDC each, none at l = 1; then the PHT adds), the
+    open Flystel with its subtractions as products by negated constants, the
+    closing diffusion and the exit.  At l = 1 nothing reduces between the
+    PHT adds and values grow round over round, so where the replay without
+    it fails the plan takes the post-PHT Montgomery product by 1
+    (``reduce``), as the TPU kernel does (``pallas_anemoi.py:81-89``).
+    Raises ValueError if neither plan is exact."""
+    try:
+        return _anemoi_replay(cfg, False)
+    except ValueError:
+        return _anemoi_replay(cfg, True)

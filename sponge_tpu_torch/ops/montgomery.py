@@ -30,25 +30,31 @@ def limb_col(fs: FieldSpec, value: int, device: torch.device) -> torch.Tensor:
 
 def carry(x: torch.Tensor) -> torch.Tensor:
     """Sequential carry pass: limbs 0..L-2 below 2^24, the rest left in the
-    top limb (below 2^24 whenever the value is below R)."""
-    x = x.clone()
-    for k in range(x.shape[-2] - 1):
-        x[..., k + 1, :] += x[..., k, :] >> LIMB_BITS
-        x[..., k, :] &= LIMB_MASK
-    return x
+    top limb (below 2^24 whenever the value is below R).  The limb rows are
+    separate tensors, so a step is three element-wise ops."""
+    rows = list(x.long().unbind(-2))
+    for k in range(len(rows) - 1):
+        c = rows[k] >> LIMB_BITS
+        rows[k] = rows[k] & LIMB_MASK
+        rows[k + 1] = rows[k + 1] + c
+    return torch.stack(rows, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _diagonal(L: int, device: torch.device) -> torch.Tensor:
+    """Column i + j of each limb product a_i b_j, in the order of the flattened
+    (j, i) outer product."""
+    return torch.tensor([i + j for j in range(L) for i in range(L)], device=device)
 
 
 def columns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Schoolbook product columns ``sum_{i+j=k} a_i b_j``: (..., 2L, B) int64."""
+    """Schoolbook product columns ``sum_{i+j=k} a_i b_j``: (..., 2L, B) int64,
+    from one outer product of the limbs and one indexed sum."""
     L = a.shape[-2]
-    a = a.long()
-    b = b.long()
-    prod = a * b[..., :1, :]
-    out = torch.zeros(prod.shape[:-2] + (2 * L, prod.shape[-1]), dtype=torch.int64, device=a.device)
-    out[..., :L, :] = prod
-    for j in range(1, L):
-        out[..., j : j + L, :] += a * b[..., j : j + 1, :]
-    return out
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    outer = a.long().unsqueeze(-3) * b.long().unsqueeze(-2)  # [..., j, i, :] = a_i b_j
+    out = torch.zeros(shape[:-2] + (2 * L, shape[-1]), dtype=torch.int64, device=a.device)
+    return out.index_add_(-2, _diagonal(L, a.device), outer.reshape(shape[:-2] + (L * L, shape[-1])))
 
 
 def redc(fs: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
@@ -57,24 +63,24 @@ def redc(fs: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
     L = fs.nlimbs
     p = limb_col(fs, fs.modulus, cols.device)
     n0 = fs.n0inv
+    rows = cols.unbind(-2)  # views: in-place ops on a row write to cols
     for i in range(L):
-        q = ((cols[..., i, :] & LIMB_MASK) * n0) & LIMB_MASK
-        cols[..., i : i + L, :] += q.unsqueeze(-2) * p
-        cols[..., i + 1, :] += cols[..., i, :] >> LIMB_BITS
+        q = ((rows[i] & LIMB_MASK) * n0) & LIMB_MASK
+        cols[..., i : i + L, :].addcmul_(q.unsqueeze(-2), p)
+        rows[i + 1].add_(rows[i] >> LIMB_BITS)
     return carry(cols[..., L:, :])
 
 
 def reduce_once(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     """Conditional subtraction of p: carried limbs with value < 2p ->
-    canonical."""
-    p = limb_col(fs, fs.modulus, x.device)
-    d = x - p
-    borrow = torch.zeros_like(d[..., 0, :])
-    for k in range(d.shape[-2]):
-        v = d[..., k, :] - borrow
-        borrow = (v < 0).long()
-        d[..., k, :] = v & LIMB_MASK
-    return torch.where((borrow == 0).unsqueeze(-2), d, x)
+    canonical.  The borrow of each limb of x - p is its floor shift (-1 or
+    0); a negative top limb means x < p."""
+    rows = (x - limb_col(fs, fs.modulus, x.device)).unbind(-2)
+    out, v = [], None
+    for r in rows:
+        v = r if v is None else r + (v >> LIMB_BITS)
+        out.append(v & LIMB_MASK)
+    return torch.where((v < 0).unsqueeze(-2), x, torch.stack(out, -2))
 
 
 def canonicalize(fs: FieldSpec, x: torch.Tensor) -> torch.Tensor:

@@ -20,12 +20,11 @@ import ctypes
 
 import torch
 
-from ..poseidon2.config import Poseidon2Config, constants_size, unpack_constants
+from ..poseidon2.config import Poseidon2Config, constant_layout, unpack_constants
 from . import _build
 from . import montgomery as mont
 from .bounds import p2_plan
 from .montgomery import ladder_schedule
-from .poseidon_dense import check_state
 
 
 def _small_mat(rows, device) -> torch.Tensor:
@@ -66,27 +65,23 @@ def permute_p2_plain(cfg: Poseidon2Config, consts: torch.Tensor, state: torch.Te
     return x.int()
 
 
+def _launch_args(cfg: Poseidon2Config, consts: torch.Tensor):
+    """The fold plan, then kernel 3's own C arguments."""
+    plan = p2_plan(cfg)
+    folds = (ctypes.c_int * len(plan.folds))(*plan.folds)
+    return (
+        cfg.full_rounds, cfg.partial_rounds, len(ladder_schedule(cfg.alpha)), int(cfg.small_diag), folds,
+        consts.data_ptr(), cfg.field.n0inv,
+    )
+
+
 def permute_p2(cfg: Poseidon2Config, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     """Poseidon2 permutation of a (t, L, B) int32 canonical Montgomery plane.
     ``consts`` is ``poseidon2.config.kernel_constants(cfg)`` on the state's
     device."""
-    check_state(cfg, consts, state, constants_size(cfg))
-    if state.device.type == "cpu":
-        return permute_p2_plain(cfg, consts, state)
-    if state.device.type != "cuda":
-        raise ValueError(f"no kernel for device {state.device}")
-    _build.check_instantiated("sponge_poseidon2", cfg.t, cfg.field.nlimbs)
-    plan = p2_plan(cfg)
-    out = torch.empty_like(state)
-    if state.shape[-1]:
-        folds = (ctypes.c_int * len(plan.folds))(*plan.folds)
-        _build.launch(
-            "sponge_poseidon2", state, out, cfg.full_rounds, cfg.partial_rounds,
-            len(ladder_schedule(cfg.alpha)), int(cfg.small_diag), folds,
-            consts.data_ptr(), cfg.field.n0inv,
-        )
-        permute_p2.launches += 1
-    return out
+    return _build.run(
+        permute_p2, "sponge_poseidon2", cfg, consts, state, constant_layout(cfg), permute_p2_plain, _launch_args
+    )
 
 
 permute_p2.launches = 0

@@ -15,30 +15,16 @@ from __future__ import annotations
 
 import torch
 
-from ..poseidon.config import PoseidonConfig, constants_size, unpack_constants
+from ..poseidon.config import PoseidonConfig, constant_layout, unpack_constants
 from . import _build
 from . import montgomery as mont
 from .bounds import check_kernel_bounds
 
 
-def check_state(cfg, consts: torch.Tensor, state: torch.Tensor, size: int) -> None:
-    """Validate a (t, L, B) int32 state plane and its constant buffer of
-    ``size`` words (the config family's ``constants_size(cfg)``)."""
-    shape = (cfg.t, cfg.field.nlimbs)
-    if state.dim() != 3 or tuple(state.shape[:2]) != shape:
-        raise ValueError(f"state must be (t, L, B) = {shape + ('B',)}, got {tuple(state.shape)}")
-    if state.dtype != torch.int32 or consts.dtype != torch.int32:
-        raise TypeError("state and constants must be int32")
-    if not state.is_contiguous():
-        raise ValueError("state must be contiguous")
-    if tuple(consts.shape) != (size,) or not consts.is_contiguous():
-        raise ValueError(f"constants must be kernel_constants(cfg): {size} words")
-    if consts.device != state.device:
-        raise ValueError(f"constants on {consts.device}, state on {state.device}")
-
-
-def _launch_args(cfg: PoseidonConfig, consts: torch.Tensor):
-    """The Poseidon kernels' own C arguments (``_build.SIGNATURES``)."""
+def _launch_args(cfg: PoseidonConfig, consts: torch.Tensor, optimized: bool = False):
+    """The value bound of kernel 1 (``optimized``) or 2, then the Poseidon
+    kernels' own C arguments (``_build.SIGNATURES``)."""
+    check_kernel_bounds(cfg, optimized=optimized)
     return cfg.alpha, cfg.full_rounds, cfg.partial_rounds, consts.data_ptr(), cfg.field.n0inv
 
 
@@ -73,18 +59,10 @@ def permute_dense(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor
     """Dense permutation of a (t, L, B) int32 canonical Montgomery plane.
 
     ``consts`` is ``kernel_constants(cfg)`` on the state's device."""
-    check_state(cfg, consts, state, constants_size(cfg))
-    if state.device.type == "cpu":
-        return permute_dense_plain(cfg, consts, state)
-    if state.device.type != "cuda":
-        raise ValueError(f"no kernel for device {state.device}")
-    _build.check_instantiated("sponge_poseidon_dense", cfg.t, cfg.field.nlimbs)
-    check_kernel_bounds(cfg, optimized=False)
-    out = torch.empty_like(state)
-    if state.shape[-1]:
-        _build.launch("sponge_poseidon_dense", state, out, *_launch_args(cfg, consts))
-        permute_dense.launches += 1
-    return out
+    return _build.run(
+        permute_dense, "sponge_poseidon_dense", cfg, consts, state, constant_layout(cfg),
+        permute_dense_plain, _launch_args,
+    )
 
 
 permute_dense.launches = 0

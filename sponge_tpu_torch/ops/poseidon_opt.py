@@ -16,13 +16,14 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..poseidon.config import PoseidonConfig, constants_size, unpack_constants
+from ..poseidon.config import PoseidonConfig, constant_layout, unpack_constants
 from . import _build
 from . import montgomery as mont
-from .bounds import check_kernel_bounds
-from .poseidon_dense import _launch_args, check_state, full_round
+from .poseidon_dense import _launch_args, full_round
 
 
 def permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -51,20 +52,12 @@ def permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) 
     """Sparse-factorized permutation of a (t, L, B) int32 canonical
     Montgomery plane.  ``consts`` is ``kernel_constants(cfg)`` on the state's
     device."""
-    check_state(cfg, consts, state, constants_size(cfg))
     if cfg.partial_rounds < 2:
         raise ValueError("the sparse-factorized kernel needs >= 2 partial rounds")
-    if state.device.type == "cpu":
-        return permute_opt_plain(cfg, consts, state)
-    if state.device.type != "cuda":
-        raise ValueError(f"no kernel for device {state.device}")
-    _build.check_instantiated("sponge_poseidon_opt", cfg.t, cfg.field.nlimbs)
-    check_kernel_bounds(cfg, optimized=True)
-    out = torch.empty_like(state)
-    if state.shape[-1]:
-        _build.launch("sponge_poseidon_opt", state, out, *_launch_args(cfg, consts))
-        permute_opt.launches += 1
-    return out
+    return _build.run(
+        permute_opt, "sponge_poseidon_opt", cfg, consts, state, constant_layout(cfg), permute_opt_plain,
+        functools.partial(_launch_args, optimized=True),
+    )
 
 
 permute_opt.launches = 0

@@ -14,12 +14,11 @@ from __future__ import annotations
 
 import torch
 
-from ..rescue.config import RescueConfig, constants_size, unpack_constants
+from ..rescue.config import RescueConfig, constant_layout, unpack_constants
 from . import _build
 from . import montgomery as mont
 from .bounds import check_rescue_bounds
 from .montgomery import ladder_schedule
-from .poseidon_dense import check_state
 
 
 def rescue_permute_plain(cfg: RescueConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -35,25 +34,23 @@ def rescue_permute_plain(cfg: RescueConfig, consts: torch.Tensor, state: torch.T
     return x.int()
 
 
+def _launch_args(cfg: RescueConfig, consts: torch.Tensor):
+    """The value bound, then kernel 5's own C arguments."""
+    check_rescue_bounds(cfg)
+    return (
+        cfg.rounds, len(ladder_schedule(cfg.alpha)), len(ladder_schedule(cfg.inv_alpha)), consts.data_ptr(),
+        cfg.field.n0inv,
+    )
+
+
 def rescue_permute(cfg: RescueConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     """Rescue-Prime permutation of a (t, L, B) int32 canonical Montgomery
     plane.  ``consts`` is ``rescue.config.kernel_constants(cfg)`` on the
     state's device."""
-    check_state(cfg, consts, state, constants_size(cfg))
-    if state.device.type == "cpu":
-        return rescue_permute_plain(cfg, consts, state)
-    if state.device.type != "cuda":
-        raise ValueError(f"no kernel for device {state.device}")
-    _build.check_instantiated("sponge_rescue", cfg.t, cfg.field.nlimbs)
-    check_rescue_bounds(cfg)
-    out = torch.empty_like(state)
-    if state.shape[-1]:
-        _build.launch(
-            "sponge_rescue", state, out, cfg.rounds, len(ladder_schedule(cfg.alpha)),
-            len(ladder_schedule(cfg.inv_alpha)), consts.data_ptr(), cfg.field.n0inv,
-        )
-        rescue_permute.launches += 1
-    return out
+    return _build.run(
+        rescue_permute, "sponge_rescue", cfg, consts, state, constant_layout(cfg), rescue_permute_plain,
+        _launch_args,
+    )
 
 
 rescue_permute.launches = 0

@@ -95,11 +95,6 @@ def constant_layout(cfg: PoseidonConfig):
     return layout
 
 
-def constants_size(cfg: PoseidonConfig) -> int:
-    """Words in the flat constant buffer of ``cfg``."""
-    return sum(int(np.prod(shape)) for _, shape in constant_layout(cfg))
-
-
 @functools.lru_cache(maxsize=None)
 def kernel_constants(cfg: PoseidonConfig) -> np.ndarray:
     """Flat int32 buffer of ``constant_layout``: the modulus as plain limbs,
@@ -119,10 +114,15 @@ def kernel_constants(cfg: PoseidonConfig) -> np.ndarray:
     return np.concatenate([a.reshape(-1) for a in parts]).astype(np.int32)
 
 
+def layout_size(layout) -> int:
+    """Words in a flat constant buffer laid out by ``layout``."""
+    return sum(int(np.prod(shape)) for _, shape in layout)
+
+
 def unpack_layout(layout, buf):
     """Views of a flat (device) buffer by the sections of ``layout``, each
     with a trailing batch axis of 1 so it broadcasts over (.., L, B) planes."""
-    need = sum(int(np.prod(shape)) for _, shape in layout)
+    need = layout_size(layout)
     if tuple(buf.shape) != (need,):
         raise ValueError(f"constant buffer has shape {tuple(buf.shape)}, layout needs ({need},)")
     out, off = {}, 0

@@ -20,7 +20,7 @@ per (config, device).  Backends:
 from __future__ import annotations
 
 import functools
-from typing import Union
+from typing import Protocol
 
 import torch
 from torch import nn
@@ -28,13 +28,23 @@ from torch import nn
 from ..fields import FieldSpec
 from ..ops.poseidon_dense import permute_dense, permute_dense_plain
 from ..ops.poseidon_opt import permute_opt
-from ..poseidon2.config import Poseidon2Config
-from ..rescue.config import RescueConfig
 from .config import PoseidonConfig, kernel_constants
 
 BACKENDS = ("auto", "opt", "dense", "plain")
 
-SpongeConfig = Union[PoseidonConfig, Poseidon2Config, RescueConfig]
+
+class SpongeConfig(Protocol):
+    """What the sponge, transcript and hash layers read of a config: a
+    ``PoseidonConfig``, or any family's config with a ``batched_permute``
+    hook (``Poseidon2Config``, ``RescueConfig``, ``GmimcConfig``,
+    ``GriffinConfig``, ``AnemoiConfig``)."""
+
+    field: FieldSpec
+    rate: int
+    capacity: int
+
+    @property
+    def t(self) -> int: ...
 
 
 class PoseidonPermutation(nn.Module):
@@ -70,9 +80,9 @@ def permutation_for(cfg: PoseidonConfig, device: torch.device) -> PoseidonPermut
 
 def batched_permute(cfg: SpongeConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """Backend-dispatched batched permutation (see module docstring).  Any
-    other config of the port (Poseidon2, Rescue-Prime) goes to its family's
-    hook, ``cfg.batched_permute(state, backend)``, with backends "auto",
-    "kernel" and "plain"."""
+    other config of the port (Poseidon2, Rescue-Prime, GMiMC, Griffin,
+    Anemoi) goes to its family's hook, ``cfg.batched_permute(state,
+    backend)``, with backends "auto", "kernel" and "plain"."""
     if not isinstance(getattr(cfg, "field", None), FieldSpec):
         raise NotImplementedError(f"{type(cfg).__name__}: not a config of the PyTorch port")
     if isinstance(cfg, PoseidonConfig):

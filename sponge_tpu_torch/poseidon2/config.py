@@ -119,10 +119,6 @@ def constant_layout(cfg: Poseidon2Config):
     ]
 
 
-def constants_size(cfg: Poseidon2Config) -> int:
-    return sum(int(np.prod(shape)) for _, shape in constant_layout(cfg))
-
-
 @functools.lru_cache(maxsize=None)
 def kernel_constants(cfg: Poseidon2Config) -> np.ndarray:
     """Flat int32 buffer of ``constant_layout``, built once per config."""

@@ -94,10 +94,6 @@ def constant_layout(cfg: RescueConfig):
     ]
 
 
-def constants_size(cfg: RescueConfig) -> int:
-    return sum(int(np.prod(shape)) for _, shape in constant_layout(cfg))
-
-
 @functools.lru_cache(maxsize=None)
 def kernel_constants(cfg: RescueConfig) -> np.ndarray:
     """Flat int32 buffer of ``constant_layout``, built once per config."""

@@ -17,6 +17,7 @@ from conftest import TINY_FR
 
 import sponge_tpu
 from sponge_tpu.ops import montgomery as jmont
+import sponge_tpu_torch as st
 from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, limbs_to_ints, mont_tensor_to_ints
 from sponge_tpu_torch.ops import montgomery as mont
@@ -103,6 +104,63 @@ def test_mont_dot_lazy_row_sum():
     for i in range(2):
         want = [sum(mat[i][j] * vecs[j][b] for j in range(3)) % p for b in range(B)]
         assert port_ints(fs, out[i]) == want
+
+
+PRIMITIVE_FIELDS = {  # L = 2, 3, 11
+    "tiny_fr_25": lambda: st.FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3),
+    "goldilocks_fr": lambda: st.GOLDILOCKS_FR,
+    "bls12_381_fr": lambda: st.BLS12_381_FR,
+}
+
+
+def _plane(fs, vals):
+    """(L, B) int64 limbs of arbitrary non-negative ints below 2^(24 L)."""
+    return torch.tensor([[(v >> (24 * k)) & 0xFFFFFF for v in vals] for k in range(fs.nlimbs)])
+
+
+def _value(rows):
+    """The ints of a (K, B) plane of limb columns of weight 2^(24 k)."""
+    return [sum(int(rows[k, b]) << (24 * k) for k in range(rows.shape[0])) for b in range(rows.shape[1])]
+
+
+@pytest.mark.parametrize("name", list(PRIMITIVE_FIELDS))
+def test_plain_primitives_match_python_ints(name):
+    """``carry``, ``columns``, ``redc`` and ``reduce_once`` against Python
+    ints on edge limbs: every limb 0 or 2^24 - 1, values p - 1, p, 2p - 1 and
+    R - 1, and a broadcast (n, L, 1) x (L, B) product as ``mont_dot`` forms
+    it."""
+    fs = PRIMITIVE_FIELDS[name]()
+    p, R, L = fs.modulus, fs.r, fs.nlimbs
+    rng = np.random.default_rng(L)
+    edge = [0, 1, p - 1, p, 2 * p - 1, R - 1, sum(0xFFFFFF << (48 * k) for k in range((L + 1) // 2))]
+    xs = edge + [int(rng.integers(0, 2**63)) ** 5 % R for _ in range(9)]
+    ys = xs[::-1]
+    a, b = _plane(fs, xs), _plane(fs, ys)
+    cols = mont.columns(a, b)
+    assert cols.shape == (2 * L, len(xs))
+    for k in range(2 * L):
+        assert cols[k].tolist() == [
+            sum(int(a[i, j]) * int(b[k - i, j]) for i in range(max(0, k - L + 1), min(k, L - 1) + 1))
+            for j in range(len(xs))
+        ]
+    assert _value(cols) == [x * y for x, y in zip(xs, ys)]
+    rinv = pow(R, -1, p)
+    red = mont.redc(fs, cols.clone())
+    assert int(red[:-1].max()) < 1 << 24
+    for x, y, v in zip(xs, ys, _value(red)):
+        assert v % p == x * y * rinv % p and v < x * y // R + p
+    # Redundant limbs (2^24 moved down from each limb k + 1) carry back.
+    plane = _plane(fs, xs)
+    plane[:-1] += 1 << 24
+    plane[1:] -= 1
+    carried = mont.carry(plane)
+    assert _value(carried) == xs and int(carried[:-1].max()) < 1 << 24
+    below_2p = [v for v in xs if v < 2 * p]
+    assert _value(mont.reduce_once(fs, _plane(fs, below_2p))) == [v % p for v in below_2p]
+    c = _plane(fs, xs[:3]).T[:, :, None]  # (3, L, 1), as a mont_dot row of constants
+    outer = mont.columns(c, a)
+    assert outer.shape == (3, 2 * L, len(xs))
+    assert [_value(outer[n]) for n in range(3)] == [[xs[n] * x for x in xs] for n in range(3)]
 
 
 def test_canonicalize_below_2p():

@@ -21,6 +21,9 @@ def test_import_leaves_jax_out():
         "import sys, sponge_tpu_torch, sponge_tpu_torch.hash, sponge_tpu_torch.interop\n"
         "import sponge_tpu_torch.ops.poseidon2, sponge_tpu_torch.ops.rescue\n"
         "import sponge_tpu_torch.poseidon2.permutation, sponge_tpu_torch.rescue.permutation\n"
+        "import sponge_tpu_torch.ops.gmimc, sponge_tpu_torch.ops.griffin, sponge_tpu_torch.ops.anemoi\n"
+        "import sponge_tpu_torch.gmimc.permutation, sponge_tpu_torch.griffin.permutation\n"
+        "import sponge_tpu_torch.anemoi.permutation\n"
         "from sponge_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sponge_tpu'))\n"
         "assert not bad, bad\n"
@@ -41,7 +44,11 @@ def test_public_names_mirror_jax_package():
         "BABYBEAR_FR", "MERSENNE31_FR", "KOALABEAR_FR", "Fp", "U64", "Usize", "WithLength",
         "Poseidon2Config", "OraclePoseidon2Sponge", "get_default_poseidon2_parameters",
         "generate_poseidon2_parameters", "RescueConfig", "OracleRescueSponge",
-        "get_default_rescue_parameters", "generate_rescue_parameters",
+        "get_default_rescue_parameters", "generate_rescue_parameters", "GmimcConfig",
+        "OracleGmimcSponge", "get_default_gmimc_parameters", "generate_gmimc_parameters",
+        "GriffinConfig", "OracleGriffinSponge", "get_default_griffin_parameters",
+        "generate_griffin_parameters", "AnemoiConfig", "OracleAnemoiSponge",
+        "get_default_anemoi_parameters", "generate_anemoi_parameters",
     }
     for name in ported:
         assert hasattr(sponge_tpu, name) and hasattr(sponge_tpu_torch, name), name
