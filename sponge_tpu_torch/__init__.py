@@ -5,8 +5,9 @@ transcript and hashing surface over ``(t, L, B)`` int32 Montgomery planes of
 24-bit limbs.  The permutations run in hand-written CUDA kernels: Poseidon
 (``csrc/poseidon_opt.cu``, ``csrc/poseidon_dense.cu``), Poseidon2
 (``csrc/poseidon2.cu``), Rescue-Prime (``csrc/rescue.cu``), GMiMC-erf
-(``csrc/gmimc.cu``), Griffin-pi (``csrc/griffin.cu``) and Anemoi
-(``csrc/anemoi.cu``), each with a plain PyTorch version for CPU tensors.
+(``csrc/gmimc.cu``), Griffin-pi (``csrc/griffin.cu``), Anemoi
+(``csrc/anemoi.cu``) and Monolith (``csrc/monolith.cu``), each with a plain
+PyTorch version for CPU tensors.
 Every family's config drives every entry point a ``PoseidonConfig`` does.
 It imports neither JAX nor ``sponge_tpu``.
 """
@@ -71,6 +72,10 @@ from .griffin.params import (
 )
 from .griffin.permutation import GriffinPermutation, batched_griffin_permute
 from .lazy import LazyPoseidonSponge
+from .monolith.config import MonolithConfig
+from .monolith.oracle import OracleMonolithSponge
+from .monolith.params import generate_monolith_parameters, get_default_monolith_parameters
+from .monolith.permutation import MonolithPermutation, batched_monolith_permute
 from .poseidon.config import PoseidonConfig
 from .poseidon.oracle import (
     ABSORBING,
@@ -119,6 +124,7 @@ __all__ = [
     "batched_anemoi_permute",
     "batched_gmimc_permute",
     "batched_griffin_permute",
+    "batched_monolith_permute",
     "batched_permute",
     "batched_permute2",
     "batched_rescue_permute",
@@ -135,11 +141,13 @@ __all__ = [
     "generate_anemoi_parameters",
     "generate_gmimc_parameters",
     "generate_griffin_parameters",
+    "generate_monolith_parameters",
     "generate_poseidon2_parameters",
     "generate_rescue_parameters",
     "get_default_anemoi_parameters",
     "get_default_gmimc_parameters",
     "get_default_griffin_parameters",
+    "get_default_monolith_parameters",
     "get_default_poseidon2_parameters",
     "get_default_poseidon_parameters",
     "get_default_rescue_parameters",
@@ -161,10 +169,13 @@ __all__ = [
     "KOALABEAR_FR",
     "LazyPoseidonSponge",
     "MERSENNE31_FR",
+    "MonolithConfig",
+    "MonolithPermutation",
     "NONE",
     "OracleAnemoiSponge",
     "OracleGmimcSponge",
     "OracleGriffinSponge",
+    "OracleMonolithSponge",
     "OraclePoseidon2Sponge",
     "OraclePoseidonSponge",
     "OracleRescueSponge",

@@ -1,6 +1,7 @@
 // Montgomery arithmetic on 24-bit limbs in 32-bit words, one field element per
 // thread, shared by the port's kernels (poseidon_opt.cu, poseidon_dense.cu,
-// poseidon2.cu, rescue.cu, gmimc.cu, griffin.cu, anemoi.cu).
+// poseidon2.cu, rescue.cu, gmimc.cu, griffin.cu, anemoi.cu, monolith.cu,
+// probe.cu).
 //
 // An element is L little-endian limbs below 2^24 in Montgomery form with
 // R = 2^(24 L).  A product or a row dot product is accumulated in L 64-bit

@@ -7,7 +7,8 @@ any of the JAX limb plans.  Inputs are numpy arrays (this module never
 imports JAX): ``device_constants(cfg)``'s ``ark`` (R, t, L, 1) and ``mds``
 (t, t, L, 1), ``device_constants2(cfg)``'s Poseidon2 tables, the Rescue,
 GMiMC, Griffin and Anemoi tiers' ``_device_constants(cfg)``, and
-``(t, L, B)`` state planes.
+``(t, L, B)`` state planes; a JAX ``MonolithConfig`` is read through its
+Python-int attributes (``config_from_jax``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from .anemoi.config import AnemoiConfig
 from .fields import _FIELDS, FieldSpec, ints_to_mont_tensor, mont_tensor_to_ints
 from .gmimc.config import GmimcConfig
 from .griffin.config import GriffinConfig
+from .monolith.config import MonolithConfig
 from .poseidon.config import PoseidonConfig
 from .poseidon2.config import Poseidon2Config
 from .rescue.config import RescueConfig
@@ -213,16 +215,21 @@ def anemoi_config_from_device_constants(
 def config_from_jax(cfg):
     """The port's config of a JAX-package config, dispatched on its class
     name (``PoseidonConfig``, ``Poseidon2Config``, ``RescueConfig``,
-    ``GmimcConfig``, ``GriffinConfig``, ``AnemoiConfig``) and read through
-    its attributes, which are Python ints, over the port's field of the same
-    modulus.  Any other class raises."""
+    ``GmimcConfig``, ``GriffinConfig``, ``AnemoiConfig``,
+    ``MonolithConfig``) and read through its attributes, which are Python
+    ints, over the port's field of the same modulus.  Any other class
+    raises."""
     kind = type(cfg).__name__
     if kind not in ("PoseidonConfig", "Poseidon2Config", "RescueConfig", "GmimcConfig",
-                    "GriffinConfig", "AnemoiConfig"):
+                    "GriffinConfig", "AnemoiConfig", "MonolithConfig"):
         raise TypeError(f"no port counterpart of the JAX config class {kind}")
     ints = lambda rows: tuple(tuple(int(v) for v in row) for row in rows)  # noqa: E731
-    common = dict(field=field_for_modulus(cfg.field.modulus), alpha=cfg.alpha, rate=cfg.rate,
-                  capacity=cfg.capacity)
+    geometry = dict(field=field_for_modulus(cfg.field.modulus), rate=cfg.rate, capacity=cfg.capacity)
+    if kind == "MonolithConfig":
+        return MonolithConfig(
+            rounds=cfg.rounds, bars=cfg.bars, rc=ints(cfg.rc), concrete=ints(cfg.concrete), **geometry
+        )
+    common = dict(alpha=cfg.alpha, **geometry)
     if kind == "PoseidonConfig":
         return PoseidonConfig(
             full_rounds=cfg.full_rounds, partial_rounds=cfg.partial_rounds, ark=ints(cfg.ark),

@@ -44,7 +44,11 @@ NVCC_FLAGS = (
 # (3, 11); the 31-bit fields at capacity 8, rate 8 (16, 2); the 35-bit and
 # 25-bit test fields (3, 2); the 44-bit low-headroom test field at t = 8;
 # Goldilocks at capacity 4, rate 4 (8, 3); Anemoi at rates 3 and 1 over the
-# 255/254-bit fields (4, 11), (2, 11) and rate 3 over the 25-bit field (4, 2).
+# 255/254-bit fields (4, 11), (2, 11) and rate 3 over the 25-bit field (4, 2);
+# Monolith at Goldilocks rates 8 and 4 (12, 3), (8, 3), at the 31-bit fields
+# rate 8 (16, 2) and the dense capacity-2 test configs (4, 2).  The chain
+# probe's (t, L) are (chains per thread, 32-bit words per chain value); the
+# ablation probe runs kernel 1's BLS12-381 schedule.
 INSTANTIATIONS = {
     "sponge_poseidon_opt": frozenset({(3, 11), (3, 2)}),
     "sponge_poseidon_dense": frozenset({(3, 11), (3, 2)}),
@@ -53,6 +57,11 @@ INSTANTIATIONS = {
     "sponge_gmimc": frozenset({(3, 11), (8, 3), (3, 2)}),
     "sponge_griffin": frozenset({(3, 11), (8, 3), (3, 2)}),
     "sponge_anemoi": frozenset({(4, 11), (2, 11), (8, 3), (4, 2)}),
+    "sponge_monolith": frozenset({(12, 3), (8, 3), (16, 2), (4, 2)}),
+    "sponge_probe_chains": frozenset(
+        {(c, w) for c in (1, 4, 8, 16) for w in (1, 2)} | {(1, 11), (2, 11)}
+    ),
+    "sponge_probe_ablation": frozenset({(3, 11)}),
 }
 
 # Arguments between (in, out, B, t, L) and the stream, per symbol (the C
@@ -73,6 +82,13 @@ SIGNATURES = {
     "sponge_griffin": [c_int, c_uint, c_int, c_int, c_void_p, c_uint],
     # rounds, inverse-alpha ladder length, post-PHT reduction, constants, n0inv
     "sponge_anemoi": [c_int, c_int, c_int, c_void_p, c_uint],
+    # rounds, bars, Bar chunk count, Mersenne body, scaled Concrete, plan
+    # (host int[6]: fold counts, bit length, Mersenne shift), constants, n0inv
+    "sponge_monolith": [c_int, c_int, c_int, c_int, c_int, POINTER(c_int), c_void_p, c_uint],
+    # op, loop iterations, constants, clocks (device int64[2] or null), n0inv
+    "sponge_probe_chains": [c_int, c_int, c_void_p, c_void_p, c_uint],
+    # mode, alpha, full rounds, partial rounds, constants, n0inv
+    "sponge_probe_ablation": [c_int, c_int, c_int, c_int, c_void_p, c_uint],
 }
 _HEAD = [c_void_p, c_void_p, c_longlong, c_int, c_int]  # in, out, B, t, L
 

@@ -477,3 +477,181 @@ def check_anemoi_bounds(cfg) -> KernelPlan:
         return _anemoi_replay(cfg, False)
     except ValueError:
         return _anemoi_replay(cfg, True)
+
+
+# ---------------------------------------------------------------------------
+# Monolith (csrc/monolith.cu)
+# ---------------------------------------------------------------------------
+
+MONOLITH_SITES = ("sq", "add", "conc", "rc")
+
+
+@dataclass(frozen=True)
+class MonolithPlan:
+    """How kernel 4 runs one config: the body (``"generic"``: Montgomery
+    limbs; ``"mersenne"``: one canonical word per element, no Montgomery
+    form inside), the Concrete (``"scaled"``: plain small-integer entries
+    times limb words in 64-bit columns; ``"dense"``: a lazily summed row of
+    constant products), the fold count at each site of ``MONOLITH_SITES``
+    (rho-folds for the generic body, 2^n = 1 folds for the Mersenne body),
+    the shift s with R mod p = 2^s (Mersenne body), and the largest value
+    and 32-bit limb word bound reached."""
+
+    body: str
+    concrete: str
+    folds: tuple
+    shift: int | None
+    vmax: int
+    wmax: int
+
+
+def mersenne_rot_shift(fs) -> int | None:
+    """s with R mod p = 2^s when p = 2^n - 1 and n <= 32, else None.  Then
+    the Montgomery form of x is x rotated left by s within n bits, and one
+    canonical element is one 32-bit word: the Mersenne body of kernel 4
+    rotates at its boundary and runs with no Montgomery reduction.  The
+    port's s is 24 L mod n: 17 for Mersenne31 (L = 2), 11 for 2^13 - 1
+    (L = 1); the JAX package's 12-bit limbs give 5 and 11."""
+    n = fs.modulus_bit_size
+    if fs.modulus != (1 << n) - 1 or n > 32:
+        return None
+    return (LIMB_BITS * fs.nlimbs) % n
+
+
+class _MonolithReplay(_Replay):
+    """Kernel 4's generic body on exclusive (value, limb word) bounds: Bars
+    (a product by plain 1, the conditional subtraction, chi on canonical
+    bits, a product by R^2), Bricks from i = t-1 down (each square and each
+    sum rho-folded), the Concrete and + rc (folded), then the exit product
+    by the Montgomery form of 1.  With ``folds=None`` each site's count grows
+    to what its instances need; with fixed counts every constraint is
+    checked."""
+
+    def __init__(self, cfg, concrete, folds=None):
+        fs = cfg.field
+        super().__init__(f"Monolith kernel, {fs.name} t={cfg.t}", fs, terms=cfg.t if concrete == "dense" else 1)
+        self.cfg, self.concrete, self.rho = cfg, concrete, fs.r_mod_p
+        self.derive = folds is None
+        self.folds = dict(zip(MONOLITH_SITES, folds or (0,) * len(MONOLITH_SITES)))
+
+    def _count(self, site, v):
+        if self.derive:
+            self.folds[site] = max(self.folds[site], fold_count(self.R, self.rho, v))
+        return self.folds[site]
+
+    def fold(self, x, site):
+        """``fold``: n top-carry rho-folds in 32-bit words."""
+        v = x[0]
+        for _ in range(self._count(site, v)):
+            cm = (v - 1) // self.R
+            self._see(v, (cm + 1) * _W24 + 256)  # a low limb plus c * rho_k plus a carry
+            v = fold_bound(self.R, self.rho, v)
+        return self.carried(v)
+
+    def concrete_layer(self, xs):
+        if self.concrete == "dense":
+            return [self.fold(self.row(xs), "conc") for _ in xs]
+        out = []
+        for row in self.cfg.concrete:
+            col = sum(c * (x[1] - 1) for c, x in zip(row, xs)) + (1 << 40)  # a column plus its carry in
+            if col >= 1 << 63:
+                self._fail("a Concrete column can reach 2^63")
+            v = sum(c * (x[0] - 1) for c, x in zip(row, xs)) + 1
+            self.vmax = max(self.vmax, v)
+            for _ in range(self._count("conc", v)):  # ``fold_cols``: the H * rho_k in 64-bit columns
+                if v > 1 << (LIMB_BITS * self.L + 39):
+                    self._fail("a Concrete fold can pass 2^63 in a column")
+                v = fold_bound(self.R, self.rho, v)
+            out.append(self.carried(v))
+        return out
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        t = cfg.t
+        one = (2, 2)  # plain 1 as an exclusive bound
+        xs = self.concrete_layer([self.const] * t)
+        for _ in range(cfg.rounds):
+            for e in range(cfg.bars):
+                if self.mul(xs[e], one)[0] > 2 * p:
+                    self._fail("a Bars input is not below 2p after the product by 1")
+                xs[e] = self.mul(self.const, self.const)  # canonical bits times R^2
+            new = list(xs)
+            for i in range(t - 1, 0, -1):
+                sq = self.fold(self.mul(xs[i - 1], xs[i - 1]), "sq")
+                new[i] = self.fold(self.add(xs[i], sq), "add")
+            xs = [self.fold(self.add(x, self.const), "rc") for x in self.concrete_layer(new)]
+        for x in xs:
+            self.exit(x)
+        return tuple(self.folds[s] for s in MONOLITH_SITES)
+
+
+def _mersenne_fold_count(p: int, n: int, vmax: int) -> int:
+    """2^n = 1 folds, V -> (V >> n) + (V & p), that bring every value below
+    ``vmax`` under 2p (one conditional subtraction then canonicalizes)."""
+    folds = 0
+    while vmax > 2 * p:
+        vmax = ((vmax - 1) >> n) + p + 1
+        folds += 1
+    return folds
+
+
+def _mersenne_plan(cfg, concrete: str, s: int) -> MonolithPlan:
+    """Kernel 4's Mersenne body: every value canonical (< p < 2^32) in one
+    word between sites; a square, a Concrete row or a sum is formed in 64
+    bits and folded back below 2p.  Raises if a Concrete row can reach
+    2^64."""
+    fs, t, p = cfg.field, cfg.t, cfg.field.modulus
+    n = fs.modulus_bit_size
+    mat_max = max(sum(row) for row in cfg.concrete) if concrete == "scaled" else t * (p - 1)
+    conc = mat_max * (p - 1) + 1
+    if conc > 1 << 64:
+        raise ValueError(f"Monolith kernel, {fs.name} t={t}: a Mersenne Concrete row can reach 2^64")
+    folds = tuple(
+        _mersenne_fold_count(p, n, v) for v in ((p - 1) ** 2 + 1, 2 * p - 1, conc, 2 * p - 1)
+    )
+    return MonolithPlan("mersenne", concrete, folds, s, max(conc, (p - 1) ** 2 + 1), p)
+
+
+def _generic_plan(cfg, concrete: str) -> MonolithPlan:
+    from ..monolith.config import bar_chunks
+
+    fs = cfg.field
+    bit = 0
+    for w in bar_chunks(fs):
+        if bit // LIMB_BITS != (bit + w - 1) // LIMB_BITS:
+            raise ValueError(f"{fs.name}: a Bar chunk straddles two 24-bit limbs")
+        bit += w
+    folds = list(_MonolithReplay(cfg, concrete).run())
+    for i in range(len(folds)):  # then each site's count down as far as the replay admits
+        while folds[i]:
+            try:
+                _MonolithReplay(cfg, concrete, tuple(folds[:i] + [folds[i] - 1] + folds[i + 1 :])).run()
+            except ValueError:
+                break
+            folds[i] -= 1
+    sim = _MonolithReplay(cfg, concrete, tuple(folds))
+    sim.run()
+    return MonolithPlan("generic", concrete, tuple(folds), None, sim.vmax, sim.wmax)
+
+
+@functools.lru_cache(maxsize=None)
+def check_monolith_bounds(cfg) -> MonolithPlan:
+    """Kernel 4's plan for ``cfg``: the Mersenne body where
+    ``mersenne_rot_shift`` applies, else the generic body; the scaled
+    Concrete where every matrix entry is a small integer and the replay
+    admits it, else the dense one; the fold counts derived by a replay of
+    the body that brings every value under R at every site, then taken down
+    site by site as far as a replay with the counts fixed admits (values may
+    pass R between sites while every word stays below 2^32 and every
+    product input below R), and verified once more.  Raises
+    ValueError if no plan is exact (a value could reach R, a word 2^32, a
+    column 2^63 or 2^64)."""
+    s = mersenne_rot_shift(cfg.field)
+    kinds = ("scaled", "dense") if cfg.concrete_small_entries() is not None else ("dense",)
+    err = None
+    for kind in kinds:
+        try:
+            return _mersenne_plan(cfg, kind, s) if s is not None else _generic_plan(cfg, kind)
+        except ValueError as e:
+            err = e
+    raise err

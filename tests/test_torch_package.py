@@ -23,7 +23,8 @@ def test_import_leaves_jax_out():
         "import sponge_tpu_torch.poseidon2.permutation, sponge_tpu_torch.rescue.permutation\n"
         "import sponge_tpu_torch.ops.gmimc, sponge_tpu_torch.ops.griffin, sponge_tpu_torch.ops.anemoi\n"
         "import sponge_tpu_torch.gmimc.permutation, sponge_tpu_torch.griffin.permutation\n"
-        "import sponge_tpu_torch.anemoi.permutation\n"
+        "import sponge_tpu_torch.anemoi.permutation, sponge_tpu_torch.monolith.permutation\n"
+        "import sponge_tpu_torch.ops.monolith, sponge_tpu_torch.ops.probe\n"
         "from sponge_tpu_torch.ops import _build\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sponge_tpu'))\n"
         "assert not bad, bad\n"
@@ -48,7 +49,8 @@ def test_public_names_mirror_jax_package():
         "OracleGmimcSponge", "get_default_gmimc_parameters", "generate_gmimc_parameters",
         "GriffinConfig", "OracleGriffinSponge", "get_default_griffin_parameters",
         "generate_griffin_parameters", "AnemoiConfig", "OracleAnemoiSponge",
-        "get_default_anemoi_parameters", "generate_anemoi_parameters",
+        "get_default_anemoi_parameters", "generate_anemoi_parameters", "MonolithConfig",
+        "OracleMonolithSponge", "get_default_monolith_parameters", "generate_monolith_parameters",
     }
     for name in ported:
         assert hasattr(sponge_tpu, name) and hasattr(sponge_tpu_torch, name), name
