@@ -7,7 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds every CUDA kernel from sponge_tpu_torch/csrc with nvcc (one nvcc
 per source, in parallel): Poseidon (kernels 1 and 2), Poseidon2 (kernel 3),
 Monolith (kernel 4), Rescue-Prime (kernel 5), Griffin-pi (kernel 6), Anemoi
-(kernel 7), GMiMC-erf (kernel 8) and the two probe kernels.  It first runs
+(kernel 7), GMiMC-erf (kernel 8) and the two probe kernels, and prints the
+window, table bytes, registers and spills of each instantiation of kernels
+5 and 7 (failing if the compiled registers would pick another window than
+the shipped one).  It first runs
 the probes (launches counted): the dependent latency and the saturated issue
 rate of 32-bit and widening multiply-adds against their peaks, their SASS
 instruction counts, one chain of 64 Montgomery products against two of 32,
@@ -26,7 +29,8 @@ root; Monolith: the Goldilocks t = 12 and Mersenne31 t = 16 permutations at
 B = 2^20, a lazy Monolith-31 sponge, a 2^20-leaf wide-digest Goldilocks
 Merkle tree with 2^14 proofs opened and verified, a narrow BLS12-381 tree
 with one proof), and times each kernel beside its plain version with CUDA
-events.  The plain version's timed run takes the path's own 2^20-lane input
+events (kernel 5 at BLS12-381 also with its inverse S-box at windows 3 and
+4, in turns).  The plain version's timed run takes the path's own 2^20-lane input
 (for the BLS12-381 inverse-S-box families, Rescue, Griffin and Anemoi, 2^14
 lanes from both ends of it) and must equal the path's output there.  Each
 kernel's bound is the larger of the limb products the function needs
@@ -43,6 +47,7 @@ from __future__ import annotations
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -324,6 +329,89 @@ def sass_counts(lib_path, function_key):
     return counts
 
 
+def ptxas_entries(report):
+    """{mangled kernel name: (registers, spill store bytes, spill load bytes)}
+    from a ``ptxas -v`` report."""
+    out, name, spills = {}, None, (0, 0)
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spills = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            out[name] = (int(m[1]), *spills)
+    return out
+
+
+def window_phase(cfgs, report):
+    """Kernels 5 and 7 per instantiated config: the windows
+    (``rescue.config.windows``, ``anemoi.config.window``), the table's
+    shared bytes per block, the compiled registers and spills, and the
+    blocks per SM.  Fails unless the window rule picks the shipped windows
+    at the compiled registers too (``_build.REGISTERS`` is the rule's
+    input)."""
+    import sponge_tpu_torch as st
+    from sponge_tpu_torch.anemoi.config import window
+    from sponge_tpu_torch.ops import _build
+    from sponge_tpu_torch.ops.montgomery import blocks_per_sm, window_for, window_table_bytes
+    from sponge_tpu_torch.rescue.config import windows
+
+    entries = ptxas_entries(report)
+    for cfg in cfgs:
+        t, L = cfg.t, cfg.field.nlimbs
+        rescue = isinstance(cfg, st.RescueConfig)
+        symbol, kernel = ("sponge_rescue", "rescue_kernel") if rescue else ("sponge_anemoi", "anemoi_kernel")
+        chains = t if rescue else t // 2
+        key = f"{kernel}ILi{t}ELi{L}E"
+        found = [v for k, v in entries.items() if key in k]
+        check(len(found) == 1, f"ptxas report: {len(found)} entries for {key}")
+        regs, spill_st, spill_ld = found[0]
+        exps = (cfg.alpha, cfg.inv_alpha) if rescue else (cfg.inv_alpha,)
+        shipped = windows(cfg) if rescue else (window(cfg),)
+        compiled = tuple(window_for(e, L, chains, regs) for e in exps)
+        check(compiled == shipped, f"{key}: {regs} registers give windows {compiled}, the shipped ones are {shipped} "
+              f"(at {_build.registers(symbol, t, L)} registers in _build.REGISTERS)")
+        table = window_table_bytes(chains, L, max(shipped))
+        say("window", f"{kernel} {cfg.field.name} t={t} L={L}: w {'(alpha, 1/alpha) ' if rescue else ''}"
+            f"{shipped if rescue else shipped[0]}, table {table:,} B of shared memory per block; ptxas "
+            f"{regs} registers ({_build.registers(symbol, t, L)} recorded), spills {spill_st} B stored, "
+            f"{spill_ld} B loaded; {blocks_per_sm(regs, table)} blocks per SM ({blocks_per_sm(regs, 0)} by "
+            f"registers alone)")
+
+
+def window_comparison(cfg, state, path_out, gpu):
+    """Kernel 5 with its inverse S-box at window 3 and at window 4, each by a
+    direct launch with a constant buffer of that window (not counted), in
+    turns 3, 4, 4, 3 on the path's input; both outputs must equal the
+    path's, and the replay must admit the 4-bit chain."""
+    from sponge_tpu_torch.ops import _build
+    from sponge_tpu_torch.ops.bounds import _Replay
+    from sponge_tpu_torch.ops.montgomery import window_schedule
+    from sponge_tpu_torch.rescue.config import kernel_constants, schedules, windows
+
+    w_alpha = windows(cfg)[0]
+    alpha_sched, inv_sched = schedules(cfg)
+    head = kernel_constants(cfg)[: -len(inv_sched)]
+    sim = _Replay(f"Rescue kernel, {cfg.field.name} t={cfg.t}, window 4", cfg.field, terms=cfg.t)
+    sim.pow_window(sim.const, cfg.inv_alpha, 4)
+    runs = {}
+    for w in (3, 4):
+        sched = window_schedule(cfg.inv_alpha, w)
+        consts = torch.from_numpy(np.concatenate([head, np.asarray(sched, dtype=np.int32)])).to(state.device)
+        args = (cfg.rounds, w_alpha, len(alpha_sched), w, len(sched), consts.data_ptr(), cfg.field.n0inv)
+        runs[w] = (consts, args)
+    best = {}
+    for w in (3, 4, 4, 3):
+        consts, args = runs[w]
+        out = torch.empty_like(state)
+        ms, _ = time_ms(lambda: _build.launch("sponge_rescue", state, out, *args), reps=2)
+        check(torch.equal(out, path_out), f"kernel 5 at window {w}: output != the path's at B={state.shape[-1]}")
+        best[w] = min(best.get(w, float("inf")), ms)
+    say("window", f"rescue_permute {cfg.field.name} t={cfg.t} B={state.shape[-1]}, inverse S-box at window 3 "
+        f"(shipped: {windows(cfg)[1]}) {best[3]:.3f} ms, at window 4 {best[4]:.3f} ms (in turns 3, 4, 4, 3, best "
+        f"of each; both outputs == the path's) [{gpu}]")
+
+
 def probe_phase(st, dev, rng, gpu, peak):
     """The probe kernels, launches counted: dependent latencies, saturated
     rates against the ``peak`` rates every bound divides by, SASS counts,
@@ -562,6 +650,7 @@ def main():
     mo_bb = st.get_default_monolith_parameters(st.BABYBEAR_FR)
     mo_kb4 = st.generate_monolith_parameters(st.KOALABEAR_FR, 2, 2, 6, 2)
     mo_m314 = st.generate_monolith_parameters(st.MERSENNE31_FR, 2, 2, 6, 2)
+    window_phase([r_bls, r_bb, r_25, a_bls, a_bls1, a_gl, a_25], _build.ptxas_report())
 
     # ---- 3. golden vectors through the sponge on the card ----
     goldens = [
@@ -944,6 +1033,7 @@ def main():
         if cfg is p2_bls:  # BabyBear t = 16 is the path's other width, not in the summary line
             kernels["poseidon2_permute"].update(timed)
     kernels["rescue_permute"].update(time_kernel("rescue_permute", r_bls, r_state, ends, r_out))
+    window_comparison(r_bls, r_state, r_out, gpu)
     time_kernel("rescue_permute", r_bb, p2_states[p2_bb.field.name], slice(0, B_CHECK))
     for name, cfg, lanes in (("gmimc_permute", m_bls, every), ("griffin_permute", g_bls, ends),
                              ("anemoi_permute", a_bls, ends)):

@@ -24,7 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..fields import FieldSpec
-from ..ops.montgomery import ladder_schedule
+from ..ops._build import registers
+from ..ops.montgomery import window_for, window_schedule
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 
@@ -105,11 +106,24 @@ class AnemoiConfig:
         return OracleAnemoiSponge(self)
 
 
+@functools.lru_cache(maxsize=None)
+def window(cfg: AnemoiConfig) -> int:
+    """Kernel 7's window (``montgomery.window_for``) for x^(1/alpha): the l
+    chains of a lane at the kernel's registers."""
+    L = cfg.field.nlimbs
+    return window_for(cfg.inv_alpha, L, cfg.l, registers("sponge_anemoi", 2 * cfg.l, L))
+
+
+def schedule(cfg: AnemoiConfig) -> list[int]:
+    """``montgomery.window_schedule`` of 1/alpha at ``window``."""
+    return window_schedule(cfg.inv_alpha, window(cfg))
+
+
 def constant_layout(cfg: AnemoiConfig):
     """Sections of the flat int32 constant buffer, in order, limb axis last:
     the modulus and R mod p (plain limbs); rc_x, rc_y, M_x and the Flystel
-    scalars g, -g, -g^-1 and -1 (Montgomery limbs); the ladder schedule of
-    1/alpha."""
+    scalars g, -g, -g^-1 and -1 (Montgomery limbs); the window schedule of
+    1/alpha (``schedule``)."""
     lc, L = cfg.l, cfg.field.nlimbs
     return [
         ("p", (L,)),
@@ -118,7 +132,7 @@ def constant_layout(cfg: AnemoiConfig):
         ("rc_y", (cfg.rounds, lc, L)),
         ("mat", (lc, lc, L)),
         ("scalars", (4, L)),
-        ("inv_runs", (len(ladder_schedule(cfg.inv_alpha)),)),
+        ("inv_window", (len(schedule(cfg)),)),
     ]
 
 
@@ -134,7 +148,7 @@ def kernel_constants(cfg: AnemoiConfig) -> np.ndarray:
         mont_limb_rows(fs, cfg.rc_y),
         mont_limb_rows(fs, cfg.mat_x),
         mont_limb_rows(fs, [[cfg.g, -cfg.g % p, -cfg.g_inv % p, p - 1]]),
-        np.asarray(ladder_schedule(cfg.inv_alpha), dtype=np.int64),
+        np.asarray(schedule(cfg), dtype=np.int64),
     ]
     return np.concatenate([np.asarray(a).reshape(-1) for a in parts]).astype(np.int32)
 

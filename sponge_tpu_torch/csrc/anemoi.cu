@@ -14,24 +14,28 @@
 // constant -g^-1, as in the TPU kernel, so every operand stays a non-negative
 // lazily reduced value and no borrow is needed.  The M_x rows are lazily
 // summed products with one REDC each (mat_apply_rolled; M_x is the identity
-// at l = 1 and skipped); the PHT adds are carried but not reduced.  The inverse S-box
-// runs over all l pairs in lockstep through the run-length ladder (mont.cuh
-// pow_ladder), l independent chains per lane.  At l = 1 nothing reduces
-// between the PHT adds, so values grow round over round; where
-// ops/bounds.py check_anemoi_bounds finds they could reach R it asks for the
-// post-PHT reduction, one Montgomery product by 1 per element after each
-// diffusion (BLS12-381 at l = 1), and the same replay proves every product
-// input below R.
+// at l = 1 and skipped); the PHT adds are carried but not reduced.  The
+// Flystel squares with mont_sqr.  The inverse S-box runs over all l pairs in
+// lockstep through the sliding-window chain (mont.cuh pow_window, the
+// schedule of ops/montgomery.py window_schedule at anemoi/config.py window),
+// l independent chains per lane, the odd powers x^3 .. x^(2^w - 1) in
+// shared memory (264 bytes per thread at l = 2, L = 11, w = 3: 252
+// squarings and 66 multiplies where the binary ladder took 253 + 129 full
+// products).  At l = 1 nothing reduces between the PHT adds, so values grow
+// round over round; where ops/bounds.py check_anemoi_bounds finds they could
+// reach R it asks for the post-PHT reduction, one Montgomery product by 1
+// per element after each diffusion (BLS12-381 at l = 1), and the same replay
+// proves every product input below R.
 //
-// What bounds it on the H100: integer multiply-add issue, l x (253 + 129)
-// ladder products per round at BLS12-381.  Design: one thread per lane,
-// state in registers, one rolled round loop that also runs the closing
-// diffusion, so the diffusion is inlined once.
+// What bounds it on the H100: widening multiply-add issue, l x 63,800 limb
+// products of the inverse S-box per round at BLS12-381.  Design: one thread
+// per lane, state in registers, one rolled round loop that also runs the
+// closing diffusion, so the diffusion is inlined once.
 //
 // Constant buffer layout (int32, limb axis last; anemoi/config.py
 // constant_layout): p (L) | one = R mod p (L) | rc_x (rounds, l, L) |
 // rc_y (rounds, l, L) | M_x (l, l, L) | g, -g, -g^-1, -1 (4, L) |
-// inverse-alpha schedule.
+// inverse-alpha window schedule.
 
 #include "mont.cuh"
 
@@ -69,30 +73,6 @@ __device__ __forceinline__ void mat_apply_rolled(uint32_t (&x)[N][L], const int3
     for (int k = 0; k < L; ++k) x[r][k] = y[r][k];
 }
 
-// out = a^2 / R (mod p) with a staged through this thread's slots of shared
-// memory (``stage`` = base + threadIdx.x, limbs kThreads words apart, so a
-// warp's accesses fall in distinct banks): the operand is read by loop index
-// and the loop over its limbs stays rolled, like mont_mul_const.  With the
-// Flystel's squarings unrolled as well, nvcc 12.9's cicc crashed on this
-// kernel at (t, L) = (4, 11).
-template <int L>
-__device__ __forceinline__ void mont_sqr_staged(uint32_t (&out)[L], const uint32_t (&a)[L],
-                                                uint32_t* stage, const Modulus<L>& m) {
-#pragma unroll
-  for (int k = 0; k < L; ++k) stage[k * kThreads] = a[k];
-  uint64_t acc[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) acc[k] = 0;
-#pragma unroll 1
-  for (int i = 0; i < L; ++i) {
-    const uint32_t ai = stage[i * kThreads];
-#pragma unroll
-    for (int k = 0; k < L; ++k) acc[k] += static_cast<uint64_t>(a[k]) * ai;
-    redc_step(acc, m);
-  }
-  carry_out(out, acc);
-}
-
 template <int N, int L>
 __device__ __forceinline__ void anemoi_diffusion(uint32_t (&x)[N][L], uint32_t (&y)[N][L],
                                                  const int32_t* __restrict__ mat, int reduce,
@@ -125,8 +105,9 @@ __device__ __forceinline__ void anemoi_diffusion(uint32_t (&x)[N][L], uint32_t (
 template <int T, int L>
 __global__ void __launch_bounds__(kThreads)
     anemoi_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
-                  int rounds, int n_inv_runs, int reduce, const int32_t* __restrict__ consts,
+                  int rounds, int w, int n_inv, int reduce, const int32_t* __restrict__ consts,
                   uint32_t n0inv) {
+  extern __shared__ uint32_t table_base[];
   constexpr int N = T / 2;
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -140,9 +121,8 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t* neg_g = g + L;
   const int32_t* neg_ginv = neg_g + L;
   const int32_t* neg_one = neg_ginv + L;
-  const int32_t* inv_runs = neg_one + L;
-  __shared__ uint32_t stage_base[L * kThreads];
-  uint32_t* stage = stage_base + threadIdx.x;
+  const int32_t* inv_sched = neg_one + L;
+  uint32_t* table = table_base + threadIdx.x;
 
   uint32_t s[T][L], x[N][L], y[N][L];
   load_state<T, L>(s, in, B, b);
@@ -170,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < N; ++j) {  // u = x + (-g) y^2 + (-g^-1)
       uint32_t sq[L];
-      mont_sqr_staged(sq, y[j], stage, m);
+      mont_sqr(sq, y[j], m);
       mont_mul_const(sq, sq, neg_g, m);
 #pragma unroll
       for (int k = 0; k < L; ++k) u[j][k] = x[j][k];
@@ -179,13 +159,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < L; ++k) lad[j][k] = u[j][k];
     }
-    pow_ladder<N, L>(lad, inv_runs, n_inv_runs, m, one, 0);
+    pow_window<N, L>(lad, inv_sched, n_inv, w, table, m);
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       mont_mul_const(lad[j], lad[j], neg_one, m);
       add_lazy(y[j], lad[j]);  // v = y + (-1) u^(1/alpha)
       uint32_t sq[L];
-      mont_sqr_staged(sq, y[j], stage, m);
+      mont_sqr(sq, y[j], m);
       mont_mul_const(sq, sq, g, m);
 #pragma unroll
       for (int k = 0; k < L; ++k) x[j][k] = u[j][k];
@@ -201,30 +181,33 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int T, int L>
-int launch_anemoi(const int32_t* in, int32_t* out, long long B, int rounds, int n_inv_runs,
+int launch_anemoi(const int32_t* in, int32_t* out, long long B, int rounds, int w, int n_inv,
                   int reduce, const int32_t* consts, unsigned n0inv, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  anemoi_kernel<T, L><<<blocks, kThreads, 0, stream>>>(in, out, B, rounds, n_inv_runs, reduce,
-                                                       consts, n0inv);
+  const size_t shared = window_table_bytes(T / 2, L, w);
+  if (const int err = allow_dynamic_shared(anemoi_kernel<T, L>, shared)) return err;
+  anemoi_kernel<T, L><<<blocks, kThreads, shared, stream>>>(in, out, B, rounds, w, n_inv, reduce,
+                                                            consts, n0inv);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sponge
 
-// Plain C entry point (ctypes): returns cudaGetLastError() after the launch,
-// or -1 when (t, L) has no instantiation.  Instantiations must match
-// INSTANTIATIONS in sponge_tpu_torch/ops/_build.py.
+// Plain C entry point (ctypes): returns the CUDA error of a refused shared
+// memory size or cudaGetLastError() after the launch, or -1 when (t, L) has
+// no instantiation.  Instantiations must match INSTANTIATIONS in
+// sponge_tpu_torch/ops/_build.py.
 extern "C" int sponge_anemoi(const int32_t* in, int32_t* out, long long B, int t, int L,
-                             int rounds, int n_inv_runs, int reduce, const int32_t* consts,
+                             int rounds, int w, int n_inv, int reduce, const int32_t* consts,
                              unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (t == 4 && L == 11)
-    return sponge::launch_anemoi<4, 11>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+    return sponge::launch_anemoi<4, 11>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
   if (t == 2 && L == 11)
-    return sponge::launch_anemoi<2, 11>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+    return sponge::launch_anemoi<2, 11>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
   if (t == 8 && L == 3)
-    return sponge::launch_anemoi<8, 3>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+    return sponge::launch_anemoi<8, 3>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
   if (t == 4 && L == 2)
-    return sponge::launch_anemoi<4, 2>(in, out, B, rounds, n_inv_runs, reduce, consts, n0inv, s);
+    return sponge::launch_anemoi<4, 2>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
   return -1;
 }

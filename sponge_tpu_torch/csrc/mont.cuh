@@ -15,6 +15,9 @@
 // 24-bit limbs but only lazily reduced (value < a*b/R + p); the Python side
 // (sponge_tpu_torch/ops/bounds.py) simulates each kernel's schedule and
 // refuses a config whose values could reach R or end at 2p or more.
+// Kernels 5 and 7 square with mont_sqr and raise to long exponents with
+// pow_window, whose odd-power table sits in dynamic shared memory; the
+// others keep mont_pow and pow_ladder.
 #pragma once
 
 #include <cstdint>
@@ -263,6 +266,136 @@ __device__ __forceinline__ void pow_ladder(uint32_t (&x)[N][L], const int32_t* _
       for (int e = 0; e < N; ++e) {
         mont_mul(x[e], x[e], base[e], m);
         fold(x[e], rho, folds);
+      }
+    }
+  }
+}
+
+// out = a^2 / R (mod p), equal word for word to mont_mul(out, a, a, m): the
+// same operand-scanning frame (acc[k] holds column i + k), where row i adds
+// a_i * a_i into column 2i and a_k * 2 a_i into column i + k for k > i, so
+// each cross product is formed once: L (L + 1) / 2 + L^2 limb products with
+// the REDC, 187 at L = 11 against mont_mul's 242.  Column c has every term
+// (rows i <= c / 2) before it retires at step c, so every q and every carry
+// equal mont_mul's.  A carried input keeps the doubled limb below 2^25 and
+// its products below 2^49 (ops/bounds.py sqr_column_bound).  out may alias a.
+template <int L>
+__device__ __forceinline__ void mont_sqr(uint32_t (&out)[L], const uint32_t (&a)[L],
+                                         const Modulus<L>& m) {
+  uint64_t acc[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) acc[k] = 0;
+#pragma unroll
+  for (int i = 0; i < L; ++i) {
+    const uint32_t ai = a[i], di = a[i] << 1;
+    acc[i] += static_cast<uint64_t>(ai) * ai;
+#pragma unroll
+    for (int k = i + 1; k < L; ++k) acc[k] += static_cast<uint64_t>(a[k]) * di;
+    redc_step(acc, m);
+  }
+  carry_out(out, acc);
+}
+
+// Dynamic shared memory of one block's pow_window tables: the odd powers
+// x^3 .. x^(2^w - 1) of ``chains`` elements of L words per thread
+// (ops/montgomery.py window_table_bytes).
+constexpr size_t window_table_bytes(int chains, int L, int w) {
+  return static_cast<size_t>(chains) * ((1 << (w - 1)) - 1) * L * sizeof(uint32_t) * kThreads;
+}
+
+// Lets ``kernel`` take ``bytes`` of dynamic shared memory where that passes
+// the default 48 KB; returns the CUDA error of a refusal, else 0.
+template <typename Kernel>
+inline int allow_dynamic_shared(Kernel* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+// Slot of odd power j >= 1 (x^(2j+1)) of element e in pow_window's table:
+// limb k at k kThreads words past it.
+template <int L>
+__device__ __forceinline__ uint32_t* window_slot(uint32_t* table, int e, int entries, int j) {
+  return table + (e * (entries - 1) + j - 1) * L * kThreads;
+}
+
+// dst = odd power j of an element: x1, the element itself, for j = 0, else
+// its slot in pow_window's table.
+template <int L>
+__device__ __forceinline__ void window_entry(uint32_t (&dst)[L], const uint32_t (&x1)[L],
+                                             uint32_t* table, int e, int entries, int j) {
+  if (j == 0) {
+#pragma unroll
+    for (int k = 0; k < L; ++k) dst[k] = x1[k];
+  } else {
+    const uint32_t* slot = window_slot<L>(table, e, entries, j);
+#pragma unroll
+    for (int k = 0; k < L; ++k) dst[k] = slot[k * kThreads];
+  }
+}
+
+// x^e on N elements in lockstep by a left-to-right sliding window of w bits
+// (ops/montgomery.py window_schedule): ``sched`` holds the table index j of
+// the leading window (x^(2j+1) seeds the accumulator), then per further
+// window (squarings, j), j = -1 for squarings alone; it is read by loop
+// index, a warp-uniform broadcast.  The odd powers x^3 .. x^(2^w - 1) of
+// each element sit in this thread's slots of dynamic shared memory
+// (``table`` = the block's table + threadIdx.x, limbs kThreads words apart,
+// so a warp's 32 accesses fall in 32 banks); x itself stays in registers.
+// The table is built by the chain's own loop bodies, so each element
+// inlines one mont_sqr and one mont_mul: step 0 squares x and parks x^2 in the
+// last slot, step 1 multiplies by x (x^3), steps 2 .. E-1 by the parked x^2
+// (E = 2^(w-1) entries), each storing its power; the last reads x^2 before
+// it overwrites it with x^(2E-1).  One squaring and E - 1 multiplies build
+// the table; ops/bounds.py _Replay.pow_window replays this order.
+template <int N, int L>
+__device__ __forceinline__ void pow_window(uint32_t (&x)[N][L], const int32_t* __restrict__ sched,
+                                           int n_sched, int w, uint32_t* table,
+                                           const Modulus<L>& m) {
+  const int entries = 1 << (w - 1);
+  const int steps = (n_sched - 1) / 2;
+  uint32_t base[N][L];
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+#pragma unroll
+    for (int k = 0; k < L; ++k) base[e][k] = x[e][k];
+#pragma unroll 1
+  for (int s = entries > 1 ? -entries : 0;; ++s) {
+    int squarings, j, store = 0;
+    if (s < 0) {  // table step
+      const int k = s + entries;
+      squarings = k == 0;
+      j = k == 0 ? -1 : (k == 1 ? 0 : entries - 1);
+      store = k == 0 ? entries - 1 : k;
+    } else {
+      if (s == 0) {
+        const int seed = __ldg(sched);
+#pragma unroll
+        for (int e = 0; e < N; ++e) window_entry(x[e], base[e], table, e, entries, seed);
+      }
+      if (s == steps) break;
+      squarings = __ldg(sched + 1 + 2 * s);
+      j = __ldg(sched + 2 + 2 * s);
+    }
+#pragma unroll 1
+    for (int r = 0; r < squarings; ++r) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) mont_sqr(x[e], x[e], m);
+    }
+    if (j >= 0) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        uint32_t op[L];
+        window_entry(op, base[e], table, e, entries, j);
+        mont_mul(x[e], x[e], op, m);
+      }
+    }
+    if (store > 0) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        uint32_t* slot = window_slot<L>(table, e, entries, store);
+#pragma unroll
+        for (int k = 0; k < L; ++k) slot[k * kThreads] = x[e][k];
       }
     }
   }

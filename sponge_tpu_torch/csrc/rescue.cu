@@ -6,37 +6,44 @@
 // then the exit: one Montgomery product by 1 (values below 2p) and a
 // conditional subtraction, so the output is canonical.
 //
-// Both exponents run through one run-length ladder (mont.cuh pow_ladder):
-// the schedule (ops/montgomery.py ladder_schedule) sits in the constant
-// buffer and is read by loop index, exactly nbits - 1 squarings and
-// popcount - 1 multiplies, 253 and 129 for the BLS12-381 inverse exponent.
-// The TPU kernel's default for long exponents, a 4-bit fixed window, needs a
-// 16-entry table of t x L words per thread (528 at t = 3, L = 11), more than
-// a thread's 255 registers; the run-length ladder needs one copy of the base.
-// The MDS rows are lazily accumulated dot products with one REDC each
-// (mont_row).  ops/bounds.py check_rescue_bounds replays this schedule and
-// proves every product input below R.
+// Both exponents run through one sliding-window chain (mont.cuh
+// pow_window) with squarings by mont_sqr: the schedules
+// (ops/montgomery.py window_schedule, at the windows of rescue/config.py
+// windows) sit in the constant buffer and are read by loop index.  At
+// BLS12-381 x^5 is the 1-bit window (2 squarings, 1 multiply) and
+// x^(1/5) the 3-bit one: 252 squarings and 66 multiplies with the table,
+// 63,096 limb products against the binary ladder's 253 + 129 full products
+// (92,444).  The TPU kernel's 4-bit fixed window keeps its table in VMEM;
+// here a table of t x L words per odd power is too much for registers, so
+// x^3 .. x^(2^w - 1) sit in shared memory (396 bytes per thread at t = 3,
+// L = 11, w = 3) and x in registers: the window rule keeps the 4 blocks
+// per SM that the registers allow (__launch_bounds__ below).  The MDS rows are lazily accumulated dot
+// products with one REDC each (mont_row).  ops/bounds.py
+// check_rescue_bounds replays this schedule and proves every product input
+// below R.
 //
-// What bounds it on the H100: integer multiply-add issue; about 14 x 2 x
-// (3 + 382) products of 2 L^2 limb products per lane at BLS12-381, about 32x
-// a Poseidon permutation, for 264 bytes of state.  Design: one thread per
-// lane, state in registers, the ladder in lockstep over the t elements
-// (independent chains), one rolled loop over the half-rounds so the ladder
-// and the MDS are each inlined once.
+// What bounds it on the H100: widening multiply-add issue; about 14 x 2 x
+// 3 x 63,800 limb products per lane at BLS12-381 for 264 bytes of state.
+// Design: one thread per lane, state in registers, the chain in lockstep
+// over the t elements (independent chains), one rolled loop over the
+// half-rounds so the chain and the MDS are each inlined once.
 //
 // Constant buffer layout (int32, limb axis last; rescue/config.py
 // constant_layout): p (L) | one = R mod p (L) | rc (2N, t, L) | mds (t, t, L) |
-// alpha schedule | inverse-alpha schedule.
+// alpha window schedule | inverse-alpha window schedule.
 
 #include "mont.cuh"
 
 namespace sponge {
 
+// At most 128 registers a thread, so that 4 blocks fit an SM: left to
+// itself ptxas takes more at (3, 11) and the SM holds 3.
 template <int T, int L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
     rescue_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
-                  int rounds, int n_alpha_runs, int n_inv_runs,
+                  int rounds, int w_alpha, int n_alpha, int w_inv, int n_inv,
                   const int32_t* __restrict__ consts, uint32_t n0inv) {
+  extern __shared__ uint32_t table_base[];
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
   Modulus<L> m;
@@ -44,16 +51,17 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t* one = consts + L;
   const int32_t* rc = one + L;
   const int32_t* mds = rc + 2 * rounds * T * L;
-  const int32_t* alpha_runs = mds + T * T * L;
-  const int32_t* inv_runs = alpha_runs + n_alpha_runs;
+  const int32_t* alpha_sched = mds + T * T * L;
+  const int32_t* inv_sched = alpha_sched + n_alpha;
+  uint32_t* table = table_base + threadIdx.x;
 
   uint32_t x[T][L];
   load_state<T, L>(x, in, B, b);
 #pragma unroll 1
   for (int h = 0; h < 2 * rounds; ++h) {
     const bool inverse = h & 1;
-    pow_ladder<T, L>(x, inverse ? inv_runs : alpha_runs, inverse ? n_inv_runs : n_alpha_runs, m,
-                     one, 0);
+    pow_window<T, L>(x, inverse ? inv_sched : alpha_sched, inverse ? n_inv : n_alpha,
+                     inverse ? w_inv : w_alpha, table, m);
     mat_apply<T, L>(x, mds, m);
 #pragma unroll
     for (int e = 0; e < T; ++e) add_const(x[e], rc + (h * T + e) * L);
@@ -64,31 +72,35 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int T, int L>
-int launch_rescue(const int32_t* in, int32_t* out, long long B, int rounds, int n_alpha_runs,
-                  int n_inv_runs, const int32_t* consts, unsigned n0inv, cudaStream_t stream) {
+int launch_rescue(const int32_t* in, int32_t* out, long long B, int rounds, int w_alpha,
+                  int n_alpha, int w_inv, int n_inv, const int32_t* consts, unsigned n0inv,
+                  cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  rescue_kernel<T, L><<<blocks, kThreads, 0, stream>>>(in, out, B, rounds, n_alpha_runs,
-                                                       n_inv_runs, consts, n0inv);
+  const size_t shared = window_table_bytes(T, L, w_alpha > w_inv ? w_alpha : w_inv);
+  if (const int err = allow_dynamic_shared(rescue_kernel<T, L>, shared)) return err;
+  rescue_kernel<T, L><<<blocks, kThreads, shared, stream>>>(in, out, B, rounds, w_alpha, n_alpha,
+                                                            w_inv, n_inv, consts, n0inv);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sponge
 
-// Plain C entry point (ctypes): returns cudaGetLastError() after the launch,
-// or -1 when (t, L) has no instantiation.  Instantiations must match
-// INSTANTIATIONS in sponge_tpu_torch/ops/_build.py.
+// Plain C entry point (ctypes): returns the CUDA error of a refused shared
+// memory size or cudaGetLastError() after the launch, or -1 when (t, L) has
+// no instantiation.  Instantiations must match INSTANTIATIONS in
+// sponge_tpu_torch/ops/_build.py.
 extern "C" int sponge_rescue(const int32_t* in, int32_t* out, long long B, int t, int L,
-                             int rounds, int n_alpha_runs, int n_inv_runs,
+                             int rounds, int w_alpha, int n_alpha, int w_inv, int n_inv,
                              const int32_t* consts, unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (t == 3 && L == 11)
-    return sponge::launch_rescue<3, 11>(in, out, B, rounds, n_alpha_runs, n_inv_runs, consts,
-                                        n0inv, s);
+    return sponge::launch_rescue<3, 11>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv,
+                                        consts, n0inv, s);
   if (t == 16 && L == 2)
-    return sponge::launch_rescue<16, 2>(in, out, B, rounds, n_alpha_runs, n_inv_runs, consts,
-                                        n0inv, s);
+    return sponge::launch_rescue<16, 2>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv,
+                                        consts, n0inv, s);
   if (t == 3 && L == 2)
-    return sponge::launch_rescue<3, 2>(in, out, B, rounds, n_alpha_runs, n_inv_runs, consts,
-                                       n0inv, s);
+    return sponge::launch_rescue<3, 2>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv,
+                                       consts, n0inv, s);
   return -1;
 }

@@ -64,6 +64,27 @@ INSTANTIATIONS = {
     "sponge_probe_ablation": frozenset({(3, 11)}),
 }
 
+# ptxas registers per thread of the kernels that size a window table
+# (nvcc 12.9, NVCC_FLAGS): ops/montgomery.py window_for keeps the blocks per
+# SM they allow.  chip_smoke.py checks that the build's own report gives
+# every config the same window.
+REGISTERS = {
+    ("sponge_rescue", 3, 11): 128,
+    ("sponge_rescue", 16, 2): 128,
+    ("sponge_rescue", 3, 2): 56,
+    ("sponge_anemoi", 4, 11): 128,
+    ("sponge_anemoi", 2, 11): 74,
+    ("sponge_anemoi", 8, 3): 56,
+    ("sponge_anemoi", 4, 2): 32,
+}
+
+
+def registers(symbol: str, t: int, L: int) -> int:
+    """``REGISTERS`` of an instantiation; 255 (a thread's most) for any
+    other shape, which no kernel launches."""
+    return REGISTERS.get((symbol, t, L), 255)
+
+
 # Arguments between (in, out, B, t, L) and the stream, per symbol (the C
 # functions in csrc/*.cu).
 SIGNATURES = {
@@ -73,15 +94,17 @@ SIGNATURES = {
     # full rounds, partial rounds, alpha ladder length, small diagonal,
     # fold counts (host int[5]), constants, n0inv
     "sponge_poseidon2": [c_int, c_int, c_int, c_int, POINTER(c_int), c_void_p, c_uint],
-    # rounds, alpha and inverse-alpha ladder lengths, constants, n0inv
-    "sponge_rescue": [c_int, c_int, c_int, c_void_p, c_uint],
+    # rounds, alpha window and schedule length, inverse-alpha window and
+    # schedule length, constants, n0inv
+    "sponge_rescue": [c_int, c_int, c_int, c_int, c_int, c_void_p, c_uint],
     # rounds, alpha, constants, n0inv
     "sponge_gmimc": [c_int, c_uint, c_void_p, c_uint],
     # rounds, alpha, inverse-alpha ladder length, post-linear reduction,
     # constants, n0inv
     "sponge_griffin": [c_int, c_uint, c_int, c_int, c_void_p, c_uint],
-    # rounds, inverse-alpha ladder length, post-PHT reduction, constants, n0inv
-    "sponge_anemoi": [c_int, c_int, c_int, c_void_p, c_uint],
+    # rounds, inverse-alpha window and schedule length, post-PHT reduction,
+    # constants, n0inv
+    "sponge_anemoi": [c_int, c_int, c_int, c_int, c_void_p, c_uint],
     # rounds, bars, Bar chunk count, Mersenne body, scaled Concrete, plan
     # (host int[6]: fold counts, bit length, Mersenne shift), constants, n0inv
     "sponge_monolith": [c_int, c_int, c_int, c_int, c_int, POINTER(c_int), c_void_p, c_uint],

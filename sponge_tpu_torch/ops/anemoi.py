@@ -3,10 +3,12 @@
 Counterpart of ``sponge_tpu/ops/pallas_anemoi.py`` (``anemoi_permute_fn``):
 per round the rc adds, the diffusion (M_x on X and on Y rotated left by 1,
 then the PHT: Y += X, X += Y), the open Flystel on every pair with the
-inverse ladder over all l pairs at once; a closing diffusion; the post-PHT
+inverse S-box over all l pairs at once; a closing diffusion; the post-PHT
 reduction where ``ops/bounds.py`` ``check_anemoi_bounds`` asks for it.  The
-CUDA kernel is ``csrc/anemoi.cu``; ``anemoi_permute_plain`` computes the
-same function with int64 tensor ops, canonical after every step.
+CUDA kernel is ``csrc/anemoi.cu``: the inverse S-box through the
+sliding-window chain (``anemoi.config.window``), its odd-power table in
+shared memory.  ``anemoi_permute_plain`` computes the same function with
+int64 tensor ops, canonical after every step.
 
 ``anemoi_permute`` takes the plain version only for a tensor on the CPU;
 for a CUDA tensor it launches the kernel or raises.
@@ -16,11 +18,10 @@ from __future__ import annotations
 
 import torch
 
-from ..anemoi.config import AnemoiConfig, constant_layout, unpack_constants
+from ..anemoi.config import AnemoiConfig, constant_layout, schedule, unpack_constants, window
 from . import _build
 from . import montgomery as mont
 from .bounds import check_anemoi_bounds
-from .montgomery import ladder_schedule
 
 
 def anemoi_permute_plain(cfg: AnemoiConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -54,7 +55,9 @@ def _launch_args(cfg: AnemoiConfig, consts: torch.Tensor):
     """The value bound (whether to reduce after the PHT), then kernel 7's own
     C arguments."""
     plan = check_anemoi_bounds(cfg)
-    return cfg.rounds, len(ladder_schedule(cfg.inv_alpha)), int(plan.reduce), consts.data_ptr(), cfg.field.n0inv
+    return (
+        cfg.rounds, window(cfg), len(schedule(cfg)), int(plan.reduce), consts.data_ptr(), cfg.field.n0inv,
+    )
 
 
 def anemoi_permute(cfg: AnemoiConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:

@@ -32,9 +32,11 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+from ..anemoi.config import window as anemoi_window
 from ..fields import LIMB_BITS
 from ..poseidon.config import PoseidonConfig
-from .montgomery import fold_bound, fold_count, ladder_schedule
+from ..rescue.config import windows as rescue_windows
+from .montgomery import fold_bound, fold_count, ladder_schedule, window_schedule
 
 
 class _Sim:
@@ -113,6 +115,14 @@ def column_bound(t: int, L: int) -> int:
     products (each below 2^48), plus the carry from the column below."""
     limb = (1 << LIMB_BITS) - 1
     return (t + 1) * L * limb * limb + (1 << (64 - LIMB_BITS))
+
+
+def sqr_column_bound(L: int) -> int:
+    """Largest column of ``mont_sqr``: at most L products of a limb by a
+    doubled limb (below 2^25), the L REDC products (each below 2^48), and
+    the carry from the column below."""
+    limb = (1 << LIMB_BITS) - 1
+    return L * limb * (2 * limb) + L * limb * limb + (1 << (64 - LIMB_BITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -355,6 +365,32 @@ class _Replay:
                 acc = self.mul(acc, x)
         return acc
 
+    def sqr(self, x):
+        """``mont_sqr``: the bound of ``mul(x, x)``; its columns hold
+        products by doubled limb words (below 2^25 for a carried input)."""
+        if sqr_column_bound(self.L) >= 1 << 63:
+            self._fail("squaring columns can overflow 63 bits")
+        return self.mul(x, x)
+
+    def pow_window(self, x, e, w):
+        """``pow_window``: the odd-power table (x^2 = sqr(x), x^3 = x^2 x,
+        then x^(2j+1) = x^(2j-1) x^2), then the chain of
+        ``window_schedule(e, w)`` from its seed."""
+        table = [x]
+        if w > 1:
+            x2 = self.sqr(x)
+            table.append(self.mul(x2, x))
+            while len(table) < 1 << (w - 1):
+                table.append(self.mul(table[-1], x2))
+        sched = window_schedule(e, w)
+        acc = table[sched[0]]
+        for squarings, j in zip(sched[1::2], sched[2::2]):
+            for _ in range(squarings):
+                acc = self.sqr(acc)
+            if j >= 0:
+                acc = self.mul(acc, table[j])
+        return acc
+
     def exit(self, x):
         """One Montgomery product by 1, then one conditional subtraction."""
         if self.mul(x, self.const)[0] > 2 * self.p:
@@ -363,16 +399,18 @@ class _Replay:
 
 @functools.lru_cache(maxsize=None)
 def check_rescue_bounds(cfg) -> int:
-    """Replay kernel 5's schedule on exclusive value bounds: both ladders
-    product by product, the MDS row dots (one REDC each), the constant adds
-    and the exit product by the Montgomery form of 1.  Raises ValueError if
-    a product input could reach R, the output 2p, or a column 2^63; returns
-    the largest value bound."""
+    """Replay kernel 5's schedule on exclusive value bounds: both window
+    chains (``rescue.config.windows``) product by product, tables included,
+    the MDS row dots (one REDC each), the constant adds and the exit product
+    by the Montgomery form of 1.  Raises ValueError if a product input could
+    reach R, the output 2p, or a column 2^63; returns the largest value
+    bound."""
     fs, t = cfg.field, cfg.t
     sim = _Replay(f"Rescue kernel, {fs.name} t={t}", fs, terms=t)
+    w_alpha, w_inv = rescue_windows(cfg)
     x = sim.const
     for h in range(2 * cfg.rounds):
-        y = sim.pow(x, cfg.inv_alpha if h % 2 else cfg.alpha)
+        y = sim.pow_window(x, *((cfg.inv_alpha, w_inv) if h % 2 else (cfg.alpha, w_alpha)))
         x = sim.add(sim.row([y] * t), sim.const)
     sim.exit(x)
     return sim.vmax
@@ -442,7 +480,7 @@ def check_griffin_bounds(cfg) -> KernelPlan:
 def _anemoi_replay(cfg, reduce_pht: bool) -> KernelPlan:
     fs, lcol = cfg.field, cfg.l
     sim = _Replay(f"Anemoi kernel, {fs.name} l={lcol}", fs, terms=lcol)
-    c = sim.const
+    c, w = sim.const, anemoi_window(cfg)
 
     def diffusion(x, y):
         if lcol > 1:
@@ -454,9 +492,9 @@ def _anemoi_replay(cfg, reduce_pht: bool) -> KernelPlan:
     x = y = c  # one bound per column: every pair takes the same schedule
     for _ in range(cfg.rounds):
         x, y = diffusion(sim.add(x, c), sim.add(y, c))
-        u = sim.add(sim.add(x, sim.mul(sim.mul(y, y), c)), c)
-        v = sim.add(y, sim.mul(sim.pow(u, cfg.inv_alpha), c))
-        x, y = sim.add(u, sim.mul(sim.mul(v, v), c)), v
+        u = sim.add(sim.add(x, sim.mul(sim.sqr(y), c)), c)
+        v = sim.add(y, sim.mul(sim.pow_window(u, cfg.inv_alpha, w), c))
+        x, y = sim.add(u, sim.mul(sim.sqr(v), c)), v
     x, y = diffusion(x, y)
     sim.exit(x)
     sim.exit(y)
@@ -467,11 +505,13 @@ def _anemoi_replay(cfg, reduce_pht: bool) -> KernelPlan:
 def check_anemoi_bounds(cfg) -> KernelPlan:
     """Replay kernel 7's schedule: the rc adds, the diffusion (M_x rows
     lazily summed with one REDC each, none at l = 1; then the PHT adds), the
-    open Flystel with its subtractions as products by negated constants, the
-    closing diffusion and the exit.  At l = 1 nothing reduces between the
-    PHT adds and values grow round over round, so where the replay without
-    it fails the plan takes the post-PHT Montgomery product by 1
-    (``reduce``), as the TPU kernel does (``pallas_anemoi.py:81-89``).
+    open Flystel with its squarings, its window chain
+    (``anemoi.config.window``) and its subtractions as products by negated
+    constants, the closing diffusion and the exit.  At l = 1 nothing
+    reduces between the PHT adds and values grow round over round, so where
+    the replay without it fails the plan takes the post-PHT Montgomery
+    product by 1 (``reduce``), as the TPU kernel does
+    (``pallas_anemoi.py:81-89``).
     Raises ValueError if neither plan is exact."""
     try:
         return _anemoi_replay(cfg, False)

@@ -11,6 +11,11 @@ t-term dot product plus its REDC terms stays below (t + 1) * L * 2^48, far
 inside int64 for every shipped field (``ops/bounds.py`` checks it).  This is
 the same arithmetic the CUDA kernels run in 64-bit registers, written with
 tensor ops over the whole plane, so it runs on the CPU and on the card alike.
+
+The exponent schedules the kernels read also live here: the run-length
+ladder (``ladder_schedule``, kernels 3 and 6 and ``mont_pow``) and the
+sliding window (``window_schedule``, kernels 5 and 7), with the rule that
+picks a kernel's window (``window_for``).
 """
 
 from __future__ import annotations
@@ -147,6 +152,86 @@ def ladder_schedule(exponent: int) -> list[int]:
         raise ValueError("exponent must be >= 1")
     runs, trailing = _exponent_runs(exponent)
     return runs + ([-trailing] if trailing else [])
+
+
+def window_schedule(exponent: int, w: int) -> list[int]:
+    """Left-to-right sliding-window chain of x^exponent over the odd powers
+    x, x^3, ..., x^(2^w - 1) (table index j is x^(2j+1)), as the one int
+    list ``pow_window`` (``csrc/mont.cuh``) reads: the table index of the
+    leading window, which seeds the accumulator, then a pair per further
+    window, the squarings before its multiply (the zero bits since the last
+    window plus its own length) and its table index; trailing zero bits end
+    it as a pair with index -1 (squarings alone).  Each window is at most w
+    bits and ends in a 1-bit.  w = 1 is square-and-multiply."""
+    if exponent < 1 or w < 1:
+        raise ValueError("exponent and w must be >= 1")
+    bits = bin(exponent)[2:]
+
+    def window(i):  # [i, j) and its value, from the 1-bit at i
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        return j, int(bits[i:j], 2)
+
+    i, top = window(0)
+    out, zeros = [top >> 1], 0
+    while i < len(bits):
+        if bits[i] == "0":
+            zeros, i = zeros + 1, i + 1
+            continue
+        j, value = window(i)
+        out += [zeros + j - i, value >> 1]
+        zeros, i = 0, j
+    return out + ([zeros, -1] if zeros else [])
+
+
+def window_counts(exponent: int, w: int) -> tuple[int, int]:
+    """(squarings, multiplies) of ``pow_window`` at window w, the table
+    included: one squaring for x^2 and 2^(w-1) - 1 multiplies where w > 1."""
+    sched = window_schedule(exponent, w)
+    squarings, muls = sum(sched[1::2]), sum(j >= 0 for j in sched[2::2])
+    if w > 1:
+        squarings, muls = squarings + 1, muls + (1 << (w - 1)) - 1
+    return squarings, muls
+
+
+# The H100's limits that decide how many 128-thread blocks an SM holds.
+THREADS = 128  # csrc/mont.cuh kThreads
+SM_REGISTERS, SM_SHARED, BLOCK_RESERVED, SM_THREADS, SM_BLOCKS = 65536, 233472, 1024, 2048, 32
+
+
+def window_table_bytes(chains: int, L: int, w: int) -> int:
+    """Dynamic shared memory of one block's odd-power tables: x^3 .. x^(2^w - 1)
+    of every chain, L words each, per thread (x itself stays in registers);
+    ``csrc/mont.cuh`` ``window_table_bytes``."""
+    return chains * ((1 << (w - 1)) - 1) * L * 4 * THREADS
+
+
+def blocks_per_sm(registers: int, shared_bytes: int) -> int:
+    """Resident 128-thread blocks per SM at ``registers`` per thread (warps
+    take registers in units of 256) and ``shared_bytes`` per block (units
+    of 128 bytes, plus 1 KB the system reserves per block); 0 where the
+    block does not fit."""
+    warp_regs = -(-registers * 32 // 256) * 256
+    by_regs = SM_REGISTERS // warp_regs // (THREADS // 32)
+    by_shared = SM_SHARED // (-(-shared_bytes // 128) * 128 + BLOCK_RESERVED)
+    return min(by_regs, by_shared, SM_THREADS // THREADS, SM_BLOCKS)
+
+
+def window_for(exponent: int, L: int, chains: int, registers: int) -> int:
+    """The window of ``pow_window`` for x^exponent on ``chains`` elements of
+    L limbs per thread, in a kernel of ``registers`` per thread: the fewest
+    limb products (a squaring L(L+1)/2 + L^2, a multiply 2 L^2; ties to the
+    smaller table) among the windows of 1 to 8 bits whose table keeps the
+    blocks per SM that the registers allow."""
+    sq, mul = L * (L + 1) // 2 + L * L, 2 * L * L
+    target = blocks_per_sm(registers, 0)
+    costs = {}
+    for w in range(1, 9):
+        if blocks_per_sm(registers, window_table_bytes(chains, L, w)) >= target:
+            n_sq, n_mul = window_counts(exponent, w)
+            costs[w] = n_sq * sq + n_mul * mul
+    return min(costs, key=costs.get)
 
 
 def fold_count(R: int, rho: int, vmax: int) -> int:

@@ -1,10 +1,11 @@
 """Kernel 5: the Rescue-Prime permutation, and its plain PyTorch version.
 
 Counterpart of ``sponge_tpu/ops/pallas_rescue.py`` (``rescue_permute_fn``):
-per round x^alpha, the MDS plus rc[2r], x^(1/alpha), the MDS plus rc[2r+1];
-both exponents through the run-length ladder of ``_exponent_runs``.  The
-CUDA kernel is ``csrc/rescue.cu``; ``rescue_permute_plain`` computes the same
-function with int64 tensor ops, canonical after every step.
+per round x^alpha, the MDS plus rc[2r], x^(1/alpha), the MDS plus rc[2r+1].
+The CUDA kernel is ``csrc/rescue.cu``: both exponents through the
+sliding-window chain (``rescue.config.windows``), its odd-power table in
+shared memory.  ``rescue_permute_plain`` computes the same function with
+int64 tensor ops, canonical after every step.
 
 ``rescue_permute`` takes the plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises.
@@ -14,11 +15,10 @@ from __future__ import annotations
 
 import torch
 
-from ..rescue.config import RescueConfig, constant_layout, unpack_constants
+from ..rescue.config import RescueConfig, constant_layout, schedules, unpack_constants, windows
 from . import _build
 from . import montgomery as mont
 from .bounds import check_rescue_bounds
-from .montgomery import ladder_schedule
 
 
 def rescue_permute_plain(cfg: RescueConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -37,10 +37,8 @@ def rescue_permute_plain(cfg: RescueConfig, consts: torch.Tensor, state: torch.T
 def _launch_args(cfg: RescueConfig, consts: torch.Tensor):
     """The value bound, then kernel 5's own C arguments."""
     check_rescue_bounds(cfg)
-    return (
-        cfg.rounds, len(ladder_schedule(cfg.alpha)), len(ladder_schedule(cfg.inv_alpha)), consts.data_ptr(),
-        cfg.field.n0inv,
-    )
+    (w_alpha, w_inv), (alpha_sched, inv_sched) = windows(cfg), schedules(cfg)
+    return cfg.rounds, w_alpha, len(alpha_sched), w_inv, len(inv_sched), consts.data_ptr(), cfg.field.n0inv
 
 
 def rescue_permute(cfg: RescueConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..fields import FieldSpec
-from ..ops.montgomery import ladder_schedule
+from ..ops._build import registers
+from ..ops.montgomery import window_for, window_schedule
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 
@@ -78,19 +79,35 @@ class RescueConfig:
         return OracleRescueSponge(self)
 
 
+@functools.lru_cache(maxsize=None)
+def windows(cfg: RescueConfig) -> tuple[int, int]:
+    """Kernel 5's windows (``montgomery.window_for``) for x^alpha and
+    x^(1/alpha): the t chains of a lane at the kernel's registers."""
+    t, L = cfg.t, cfg.field.nlimbs
+    regs = registers("sponge_rescue", t, L)
+    return window_for(cfg.alpha, L, t, regs), window_for(cfg.inv_alpha, L, t, regs)
+
+
+def schedules(cfg: RescueConfig) -> tuple[list[int], list[int]]:
+    """``montgomery.window_schedule`` of alpha and 1/alpha at ``windows``."""
+    w_alpha, w_inv = windows(cfg)
+    return window_schedule(cfg.alpha, w_alpha), window_schedule(cfg.inv_alpha, w_inv)
+
+
 def constant_layout(cfg: RescueConfig):
     """Sections of the flat int32 constant buffer, in order, limb axis last:
     the modulus and R mod p (the Montgomery form of 1) as plain limbs, the
-    round constants and the MDS as Montgomery limbs, then the ladder
-    schedules of alpha and 1/alpha (``montgomery.ladder_schedule``)."""
+    round constants and the MDS as Montgomery limbs, then the window
+    schedules of alpha and 1/alpha (``schedules``)."""
     t, L = cfg.t, cfg.field.nlimbs
+    alpha_sched, inv_sched = schedules(cfg)
     return [
         ("p", (L,)),
         ("one", (L,)),
         ("rc", (2 * cfg.rounds, t, L)),
         ("mds", (t, t, L)),
-        ("alpha_runs", (len(ladder_schedule(cfg.alpha)),)),
-        ("inv_runs", (len(ladder_schedule(cfg.inv_alpha)),)),
+        ("alpha_window", (len(alpha_sched),)),
+        ("inv_window", (len(inv_sched),)),
     ]
 
 
@@ -103,8 +120,7 @@ def kernel_constants(cfg: RescueConfig) -> np.ndarray:
         fs.int_to_limbs(fs.r_mod_p),
         mont_limb_rows(fs, cfg.rc),
         mont_limb_rows(fs, cfg.mds),
-        np.asarray(ladder_schedule(cfg.alpha), dtype=np.int64),
-        np.asarray(ladder_schedule(cfg.inv_alpha), dtype=np.int64),
+        *(np.asarray(sched, dtype=np.int64) for sched in schedules(cfg)),
     ]
     return np.concatenate([np.asarray(a).reshape(-1) for a in parts]).astype(np.int32)
 

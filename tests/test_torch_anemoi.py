@@ -21,8 +21,6 @@ from collections import namedtuple
 import pytest
 import torch
 from test_torch_gmimc import (
-    _M24,
-    _M64,
     JAX_T25,
     T25,
     Words,
@@ -45,12 +43,13 @@ from sponge_tpu.anemoi.permutation import anemoi_permute_jit
 from sponge_tpu.ops.pallas_anemoi import anemoi_permute_fn
 import sponge_tpu_torch as st
 from sponge_tpu_torch import interop
-from sponge_tpu_torch.anemoi.config import kernel_constants
+from sponge_tpu_torch.anemoi.config import constant_layout, kernel_constants, schedule, unpack_constants, window
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
 from sponge_tpu_torch.hash import merkle_root
 from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops.anemoi import anemoi_permute
 from sponge_tpu_torch.ops.bounds import check_anemoi_bounds
+from sponge_tpu_torch.ops.montgomery import window_schedule
 from sponge_tpu_torch.poseidon.config import mont_limb_rows
 
 FIELDS = {"bls12_381": "BLS12_381_FR", "bn254": "BN254_FR", "goldilocks": "GOLDILOCKS_FR"}
@@ -192,6 +191,7 @@ def test_bound_takes_the_post_pht_reduction_where_needed():
     values grow round over round, so the plan reduces after each
     diffusion; l = 2 (BLS12-381, BN254) and l = 4 (Goldilocks) do not."""
     assert check_anemoi_bounds(st.get_default_anemoi_parameters(st.BLS12_381_FR, 1)).reduce
+    assert check_anemoi_bounds(st.get_default_anemoi_parameters(st.BN254_FR, 1)).reduce
     for fs, rate in [(st.BLS12_381_FR, 3), (st.BN254_FR, 3), (st.GOLDILOCKS_FR, 4)]:
         plan = check_anemoi_bounds(st.get_default_anemoi_parameters(fs, rate))
         assert not plan.reduce and plan.vmax < 10 * fs.modulus, fs.name
@@ -219,7 +219,9 @@ def test_bound_refuses_what_no_plan_makes_exact():
 class Kernel7(Words):
     """``csrc/anemoi.cu`` for one lane: rc adds, the diffusion (M_x rows
     with one REDC each, then the PHT, then the plan's reduction), the
-    Flystel with products by -g and -1, rounds + 1 diffusions in all."""
+    Flystel with its squarings by ``sqr``, the inverse S-box by
+    ``pow_window`` at ``window(cfg)`` and products by -g and -1, rounds + 1
+    diffusions in all."""
 
     def __init__(self, cfg):
         super().__init__(cfg.field)
@@ -233,23 +235,12 @@ class Kernel7(Words):
         off += n * n * L
         self.g, self.neg_g, self.neg_ginv, self.neg_one = (c[off + i * L : off + (i + 1) * L] for i in range(4))
         self.reduce = check_anemoi_bounds(cfg).reduce
+        self.w = window(cfg)
 
     def row(self, xs, r):
-        """``mat_apply_rolled`` row r: products summed in 64-bit columns,
-        one REDC."""
-        L, n, acc = self.L, len(xs), [0] * self.L
-        for i in range(L):
-            for j in range(n):
-                cji = self.mat[(r * n + j) * L + i]
-                for k in range(L):
-                    acc[k] = (acc[k] + xs[j][k] * cji) & _M64
-            q = ((acc[0] & _M24) * self.n0inv) & _M24
-            for k in range(L):
-                acc[k] = (acc[k] + q * self.p[k]) & _M64
-            carry = acc[0] >> 24
-            acc = acc[1:] + [0]
-            acc[0] = (acc[0] + carry) & _M64
-        return self.carry_out(acc)
+        """``mat_apply_rolled`` row r (the same sums as ``mont_row``)."""
+        n, L = len(xs), self.L
+        return self.mont_row(xs, [self.mat[(r * n + j) * L :][:L] for j in range(n)])
 
     def diffusion(self, x, y):
         n = self.cfg.l
@@ -269,19 +260,41 @@ class Kernel7(Words):
             x = [self.add_lazy(v, self.rc_x[(r * n + j) * L :][:L]) for j, v in enumerate(x)]
             y = [self.add_lazy(v, self.rc_y[(r * n + j) * L :][:L]) for j, v in enumerate(y)]
             x, y = self.diffusion(x, y)
-            u = [self.add_lazy(self.add_lazy(a, self.mont_mul(self.mont_mul(b, b), self.neg_g)), self.neg_ginv)
+            u = [self.add_lazy(self.add_lazy(a, self.mont_mul(self.sqr(b), self.neg_g)), self.neg_ginv)
                  for a, b in zip(x, y)]
-            y = [self.add_lazy(b, self.mont_mul(self.pow(a, cfg.inv_alpha), self.neg_one)) for a, b in zip(u, y)]
-            x = [self.add_lazy(a, self.mont_mul(self.mont_mul(b, b), self.g)) for a, b in zip(u, y)]
+            y = [self.add_lazy(b, self.mont_mul(self.pow_window(a, cfg.inv_alpha, self.w), self.neg_one))
+                 for a, b in zip(u, y)]
+            x = [self.add_lazy(a, self.mont_mul(self.sqr(b), self.g)) for a, b in zip(u, y)]
         x, y = self.diffusion(x, y)
         return [self.store(self.mont_mul(v, self.one)) for v in x + y]
 
 
 @pytest.mark.parametrize("name", ["bls12_381_fr-l1-round1", "bls12_381_fr-l2-round1", "goldilocks_fr-l4"])
 def test_kernel_emulation_matches_oracle(name):
+    """Full width (BLS12-381 t = 2 and t = 4 cut to one round, the 254-bit
+    chain at w = 3; Goldilocks t = 8 at w = 4); every column below 2^63."""
     cfg = interop.config_from_jax(FULL_WIDTH[name]())
     vals = lanes(cfg.field.modulus, cfg.t, 3, 13)
-    assert emulate(cfg, Kernel7(cfg), vals) == oracle_permute(cfg, vals)
+    kernel = Kernel7(cfg)
+    assert emulate(cfg, kernel, vals) == oracle_permute(cfg, vals)
+    assert kernel.colmax < 1 << 63
+
+
+@pytest.mark.parametrize("name", ["bls12_381_fr-l2", "goldilocks_fr-l4"])
+def test_constant_layout_matches_unpack_and_kernel_offsets(name):
+    """``unpack_constants`` names the sections of ``constant_layout`` in
+    order; the kernel finds the inverse schedule after 6L + 2 rounds l L +
+    l^2 L words, and it is ``window_schedule`` at ``window(cfg)``."""
+    cfg = {"bls12_381_fr-l2": lambda: st.get_default_anemoi_parameters(st.BLS12_381_FR, 3),
+           "goldilocks_fr-l4": lambda: st.get_default_anemoi_parameters(st.GOLDILOCKS_FR, 4)}[name]()
+    buf = torch.from_numpy(kernel_constants(cfg))
+    parts = unpack_constants(cfg, buf)
+    assert list(parts) == [n for n, _ in constant_layout(cfg)] == [
+        "p", "one", "rc_x", "rc_y", "mat", "scalars", "inv_window"]
+    L, n = cfg.field.nlimbs, cfg.l
+    off = 6 * L + 2 * cfg.rounds * n * L + n * n * L
+    assert buf[off:].tolist() == schedule(cfg) == parts["inv_window"].flatten().tolist()
+    assert schedule(cfg) == window_schedule(cfg.inv_alpha, window(cfg))
 
 
 # ---- dispatch ----

@@ -33,7 +33,7 @@ from sponge_tpu_torch.gmimc.config import kernel_constants
 from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops.bounds import check_gmimc_bounds
 from sponge_tpu_torch.ops.gmimc import gmimc_permute, gmimc_permute_plain
-from sponge_tpu_torch.ops.montgomery import ladder_schedule
+from sponge_tpu_torch.ops.montgomery import ladder_schedule, window_schedule
 from sponge_tpu_torch.poseidon.config import mont_limb_rows
 
 JAX_T25 = JaxFieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
@@ -127,22 +127,53 @@ _M24, _M32, _M64 = (1 << 24) - 1, (1 << 32) - 1, (1 << 64) - 1
 
 class Words:
     """``csrc/mont.cuh`` transliterated for one lane: an element is a list of
-    L uint32 limb words, a REDC column a uint64; both wrap as on the card."""
+    L uint32 limb words, a REDC column a uint64; both wrap as on the card.
+    ``colmax`` is the largest column any product reached before wrapping."""
 
     def __init__(self, fs):
         self.L, self.p, self.n0inv = fs.nlimbs, [int(v) for v in fs.int_to_limbs(fs.modulus)], fs.n0inv
+        self.colmax = 0
+
+    def redc_step(self, acc):
+        """``redc_step``: retire column 0 with q * p, shift its carry up."""
+        q = ((acc[0] & _M24) * self.n0inv) & _M24
+        acc = [a + q * pk for a, pk in zip(acc, self.p)]
+        self.colmax = max(self.colmax, *acc)
+        acc = [a & _M64 for a in acc]
+        carry = acc[0] >> 24
+        acc = acc[1:] + [0]
+        acc[0] = (acc[0] + carry) & _M64
+        return acc
 
     def mont_mul(self, a, b):
         L, acc = self.L, [0] * self.L
         for i in range(L):
             for k in range(L):
                 acc[k] = (acc[k] + a[k] * b[i]) & _M64
-            q = ((acc[0] & _M24) * self.n0inv) & _M24
-            for k in range(L):
-                acc[k] = (acc[k] + q * self.p[k]) & _M64
-            carry = acc[0] >> 24
-            acc = acc[1:] + [0]
-            acc[0] = (acc[0] + carry) & _M64
+            acc = self.redc_step(acc)
+        return self.carry_out(acc)
+
+    def mont_row(self, xs, consts):
+        """``mont_row``: the products of xs[j] by consts[j] (L limbs each)
+        summed in the same 64-bit columns, one REDC."""
+        L, acc = self.L, [0] * self.L
+        for i in range(L):
+            for x, c in zip(xs, consts):
+                for k in range(L):
+                    acc[k] = (acc[k] + x[k] * c[i]) & _M64
+            acc = self.redc_step(acc)
+        return self.carry_out(acc)
+
+    def sqr(self, a):
+        """``mont_sqr``: row i adds a_i^2 into column 2i and a_k * 2 a_i into
+        column i + k for k > i (acc[k] holds column i + k)."""
+        L, acc = self.L, [0] * self.L
+        for i in range(L):
+            di = (a[i] << 1) & _M32
+            acc[i] += a[i] * a[i]
+            for k in range(i + 1, L):
+                acc[k] += a[k] * di
+            acc = self.redc_step(acc)
         return self.carry_out(acc)
 
     def carry_out(self, acc):
@@ -173,6 +204,25 @@ class Words:
                 acc = self.mont_mul(acc, acc)
             if g > 0:
                 acc = self.mont_mul(acc, x)
+        return acc
+
+    def pow_window(self, x, e, w):
+        """``pow_window``: the odd-power table by the chain's own steps (x^2
+        parked in the last slot until the last multiply), then the chain of
+        ``window_schedule(e, w)`` from its seed, squarings by ``sqr``."""
+        entries = 1 << (w - 1)
+        table = [x] * entries
+        if entries > 1:
+            acc = table[-1] = self.sqr(x)
+            for k in range(1, entries):
+                acc = table[k] = self.mont_mul(acc, table[0] if k == 1 else table[-1])
+        sched = window_schedule(e, w)
+        acc = table[sched[0]]
+        for squarings, j in zip(sched[1::2], sched[2::2]):
+            for _ in range(squarings):
+                acc = self.sqr(acc)
+            if j >= 0:
+                acc = self.mont_mul(acc, table[j])
         return acc
 
     def store(self, x):

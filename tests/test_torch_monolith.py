@@ -314,7 +314,7 @@ class Kernel4(Words):
 
     def concrete(self, x):
         if self.plan.concrete == "dense":
-            return [self.fold(self.row(x, self.mat[i]), self.f_conc) for i in range(self.cfg.t)]
+            return [self.fold(self.mont_row(x, self.mat[i]), self.f_conc) for i in range(self.cfg.t)]
         out = []
         for i in range(self.cfg.t):
             acc = [0] * self.L
@@ -322,20 +322,6 @@ class Kernel4(Words):
                 acc = [a + self.mat[i][j][0] * w for a, w in zip(acc, x[j])]
             out.append(self.fold_cols(acc, self.f_conc))
         return out
-
-    def row(self, x, consts):
-        """``mont_row``: the t products summed in the same columns, one REDC."""
-        L, acc = self.L, [0] * self.L
-        for i in range(L):
-            for j in range(len(x)):
-                for k in range(L):
-                    acc[k] = (acc[k] + x[j][k] * consts[j][i]) & ((1 << 64) - 1)
-            q = ((acc[0] & _M24) * self.n0inv) & _M24
-            acc = [a + q * pk for a, pk in zip(acc, self.p)]
-            carry = acc[0] >> 24
-            acc = acc[1:] + [0]
-            acc[0] += carry
-        return self.carry_out(acc)
 
     def permute(self, x):
         if self.plan.body == "mersenne":

@@ -1,13 +1,17 @@
 """The port's Rescue-Prime family against the JAX package and the oracle.
 
-Parameters field by field; the run-length ladder schedule; the oracle's
-frozen vectors and the JAX oracle on random states; ``rescue_permute_plain``
+Parameters field by field; the run-length ladder schedule; the
+sliding-window schedule, its counts and the rule that picks a kernel's
+window; the Montgomery squaring against the product; the oracle's frozen
+vectors and the JAX oracle on random states; ``rescue_permute_plain``
 (kernel 5's function) against ``rescue_permute_jit`` and the Pallas kernel
 ``rescue_permute_fn`` in interpret mode on the 25-bit test field with two
 rounds (as tests/test_rescue.py runs them), and against the oracle at full
-width; the static value bound; dispatch; and the sponge, transcript and
-Merkle entry points driven by a Rescue config.  Inputs come from numpy
-seeds; equality is exact (tolerance 0) on canonical values.
+width; the static value bound; the constant layout; a word-by-word
+emulation of ``csrc/rescue.cu`` against the oracle; dispatch; and the
+sponge, transcript and Merkle entry points driven by a Rescue config.
+Inputs come from numpy seeds; equality is exact (tolerance 0) on canonical
+values.
 
 At BLS12-381 Fr the 14-round plain permutation takes about 7 s per call on
 the CPU (some 10^4 Montgomery products of 11 limbs in tensor ops), too long
@@ -24,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import TINY_FR
+from test_torch_gmimc import _M24, Words, emulate
 
 import sponge_tpu
 from sponge_tpu.fields import FieldSpec as JaxFieldSpec
@@ -38,9 +43,17 @@ from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
 from sponge_tpu_torch.hash import merkle_root
 from sponge_tpu_torch.ops import _build
-from sponge_tpu_torch.ops.bounds import check_rescue_bounds
-from sponge_tpu_torch.ops.montgomery import _exponent_runs, ladder_schedule
+from sponge_tpu_torch.ops import montgomery as mont
+from sponge_tpu_torch.ops.bounds import _Replay, check_rescue_bounds, sqr_column_bound
+from sponge_tpu_torch.ops.montgomery import _exponent_runs, ladder_schedule, window_counts, window_schedule
 from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
+from sponge_tpu_torch.rescue.config import (
+    constant_layout,
+    kernel_constants,
+    schedules,
+    unpack_constants,
+    windows,
+)
 from sponge_tpu_torch.rescue.oracle import OracleRescueSponge
 from sponge_tpu_torch.rescue.permutation import _device_constants
 
@@ -137,6 +150,117 @@ def test_exponent_runs_reproduce_the_inverse_exponents():
     assert (bls.bit_length() - 1, bin(bls).count("1") - 1) == (253, 129)
 
 
+# ---- the sliding-window chain and the squaring of kernels 5 and 7 ----
+
+SHIPPED_FIELDS = ["BLS12_381_FR", "BN254_FR", "GOLDILOCKS_FR", "BABYBEAR_FR", "KOALABEAR_FR", "MERSENNE31_FR"]
+
+
+def chain_exponent(sched, w):
+    """The exponent a window schedule computes: seed 2j + 1, then per pair
+    a shift by the squarings and + 2j + 1; checks each index is an odd
+    power of the w-bit table."""
+    assert all(-1 <= j < 1 << (w - 1) for j in [sched[0]] + sched[2::2])
+    acc = 2 * sched[0] + 1
+    for squarings, j in zip(sched[1::2], sched[2::2]):
+        acc = (acc << squarings) + (2 * j + 1 if j >= 0 else 0)
+    return acc
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5])
+def test_window_schedule_reproduces_exponents(w):
+    """alpha and 1/alpha of every shipped field (and of the 25-bit test
+    field), plus random exponents; windows end in a 1-bit, so only the
+    trailing pair has index -1."""
+    rng = np.random.default_rng(w)
+    exps = []
+    for name in SHIPPED_FIELDS:
+        p = getattr(st, name).modulus
+        alpha = st.smallest_alpha(p)
+        exps += [alpha, pow(alpha, -1, p - 1)]
+    exps += [tiny25().inv_alpha, 1, 2, 3, 1 << 40] + [int(v) for v in rng.integers(1, 1 << 62, size=8)]
+    for e in exps:
+        sched = window_schedule(e, w)
+        assert chain_exponent(sched, w) == e, (e, w)
+        assert -1 not in sched[2:-1:2]
+        assert (2 * sched[0] + 1).bit_length() + sum(sched[1::2]) == e.bit_length()
+    assert window_schedule(5, 1) == [0, 2, 0]  # x^5: two squarings, one multiply
+
+
+def test_window_counts_match_the_sliding_window():
+    """At BLS12-381 the inverse exponent takes 253 + 129 at w = 1 (the
+    run-length ladder's count), and 252 + 66, 251 + 62, 250 + 56 with the
+    table at w = 3, 4, 5; at 187 and 242 limb products per squaring and
+    multiply, 63,096 limb products at w = 3 against the ladder's 92,444."""
+    e = st.get_default_rescue_parameters(st.BLS12_381_FR, 2).inv_alpha
+    assert window_counts(e, 1) == (253, 129)
+    assert sum(abs(g) + (g > 0) for g in ladder_schedule(e)) == 253 + 129
+    assert [window_counts(e, w) for w in (3, 4, 5)] == [(252, 66), (251, 62), (250, 56)]
+    sq, mul = window_counts(e, 3)
+    assert (sq * 187 + mul * 242, 382 * 242) == (63096, 92444)
+
+
+def test_window_rule_keeps_the_blocks_registers_allow():
+    """The rule's arithmetic of residency and its choices: kernel 5 at
+    (3, 11) and 114 registers holds 4 blocks by registers and by its 3-bit
+    table (50,688 bytes); a 4-bit table (118,272 bytes) leaves 1, so w = 3;
+    at 96 registers (5 blocks) the 3-bit table no longer keeps them and the
+    rule falls back to w = 2.  Kernel 7 at (4, 11) and 128 registers takes
+    w = 3; BabyBear t = 16 w = 2; Goldilocks l = 4 w = 4."""
+    bls = st.get_default_rescue_parameters(st.BLS12_381_FR, 2)
+    assert mont.window_table_bytes(3, 11, 3) == 50688
+    assert mont.window_table_bytes(3, 11, 4) == 118272
+    assert mont.window_table_bytes(3, 11, 1) == 0
+    assert [mont.blocks_per_sm(114, b) for b in (0, 50688, 118272)] == [4, 4, 1]
+    assert mont.blocks_per_sm(32, 0) == 16  # 2048 threads per SM
+    assert mont.window_for(bls.inv_alpha, 11, 3, 114) == 3
+    assert mont.window_for(bls.inv_alpha, 11, 3, 96) == 2
+    assert mont.window_for(bls.alpha, 11, 3, 114) == 1
+    assert mont.window_for(bls.inv_alpha, 11, 2, 128) == 3
+    bb = st.get_default_rescue_parameters(st.BABYBEAR_FR, 8)
+    assert mont.window_for(bb.inv_alpha, 2, 16, 64) == 2
+    gl = st.get_default_anemoi_parameters(st.GOLDILOCKS_FR, 4)
+    assert mont.window_for(gl.inv_alpha, 3, 4, 96) == 4
+
+
+_LIMB_EDGES = {
+    "bls12_381_fr-L11": "BLS12_381_FR",
+    "goldilocks_fr-L3": "GOLDILOCKS_FR",
+    "babybear_fr-L2": "BABYBEAR_FR",
+}
+
+
+@pytest.mark.parametrize("name", list(_LIMB_EDGES))
+def test_sqr_equals_mont_mul_on_edge_limbs(name):
+    """``mont_sqr`` equals ``mont_mul(a, a)`` word for word on carried
+    inputs below R: every limb 2^24 - 1 (R - 1), 0, 1, p - 1, p - 2, single
+    full limbs and random words; no 64-bit column reaches 2^63, and none
+    passes ``sqr_column_bound``."""
+    fs = getattr(st, _LIMB_EDGES[name])
+    L = fs.nlimbs
+    rng = np.random.default_rng(L)
+    ints = [fs.r - 1, 0, 1, fs.modulus - 1, fs.modulus - 2, fs.r - fs.modulus]
+    ints += [(_M24) << (24 * k) for k in range(L)] + [int(v) for v in rng.integers(0, 1 << 62, size=8)]
+    words = Words(fs)
+    for v in ints:
+        a = [int(x) for x in fs.int_to_limbs(v % fs.r)]
+        assert words.sqr(a) == words.mont_mul(a, a), v
+    assert words.colmax < 1 << 63
+    sq = Words(fs)
+    sq.sqr([_M24] * L)
+    assert sq.colmax <= sqr_column_bound(L) < 1 << 63
+
+
+def test_sqr_replay_refuses_columns_past_63_bits():
+    """A radix of 12,000 limbs: a product's columns stay below 2^63, a
+    squaring's (limbs times doubled limbs) do not."""
+    p = (1 << 31) - 1
+    fs = namedtuple("_Field", "name modulus r nlimbs")("huge", p, 1 << (24 * 12000), 12000)
+    sim = _Replay("huge", fs)
+    sim.mul(sim.const, sim.const)
+    with pytest.raises(ValueError, match="squaring columns"):
+        sim.sqr(sim.const)
+
+
 # ---- oracle ----
 
 
@@ -230,6 +354,74 @@ def test_value_bound_refuses_overflow():
     wide = _Cfg(_Field("wide", p, 1 << 264, 11), 4096, 1, 5, pow(5, -1, p - 1))
     with pytest.raises(ValueError, match="63 bits"):
         check_rescue_bounds(wide)
+
+
+# ---- kernel 5's constant layout and a word-by-word emulation of csrc/rescue.cu ----
+
+
+@pytest.mark.parametrize("name", ["bls12_381_fr-t3", "babybear_fr-t16"])
+def test_constant_layout_matches_unpack_and_kernel_offsets(name):
+    """``unpack_constants`` names the sections of ``constant_layout`` in
+    order; the kernel finds the alpha schedule after 2L + (2N + t) t L words
+    and the inverse one after it; both hold ``schedules(cfg)``."""
+    cfg = {"bls12_381_fr-t3": lambda: st.get_default_rescue_parameters(st.BLS12_381_FR, 2),
+           "babybear_fr-t16": lambda: st.get_default_rescue_parameters(st.BABYBEAR_FR, 8)}[name]()
+    buf = torch.from_numpy(kernel_constants(cfg))
+    parts = unpack_constants(cfg, buf)
+    assert list(parts) == [n for n, _ in constant_layout(cfg)] == [
+        "p", "one", "rc", "mds", "alpha_window", "inv_window"]
+    t, L = cfg.t, cfg.field.nlimbs
+    off = 2 * L + (2 * cfg.rounds + t) * t * L
+    alpha_sched, inv_sched = schedules(cfg)
+    assert buf[off : off + len(alpha_sched)].tolist() == alpha_sched == parts["alpha_window"].flatten().tolist()
+    assert buf[off + len(alpha_sched) :].tolist() == inv_sched == parts["inv_window"].flatten().tolist()
+    assert (alpha_sched, inv_sched) == tuple(window_schedule(e, w) for e, w in zip((cfg.alpha, cfg.inv_alpha), windows(cfg)))
+
+
+class Kernel5(Words):
+    """``csrc/rescue.cu`` for one lane: per half-round ``pow_window`` on
+    every element (x^alpha, then x^(1/alpha), at ``windows(cfg)``), the MDS
+    rows summed in 64-bit columns with one REDC each, + rc; the exit
+    product by 1."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg.field)
+        c = [int(v) for v in kernel_constants(cfg)]
+        L, t = self.L, cfg.t
+        self.cfg, self.one = cfg, c[L : 2 * L]
+        self.rc = c[2 * L : 2 * L + 2 * cfg.rounds * t * L]
+        mds = c[2 * L + 2 * cfg.rounds * t * L :]
+        self.mds_rows = [[mds[(r * t + j) * L :][:L] for j in range(t)] for r in range(t)]
+        self.windows = windows(cfg)
+
+    def permute(self, x):
+        cfg, L, t = self.cfg, self.L, self.cfg.t
+        w_alpha, w_inv = self.windows
+        for h in range(2 * cfg.rounds):
+            e, w = (cfg.inv_alpha, w_inv) if h % 2 else (cfg.alpha, w_alpha)
+            x = [self.pow_window(v, e, w) for v in x]
+            x = [self.add_lazy(self.mont_row(x, row), self.rc[(h * t + r) * L :][:L])
+                 for r, row in enumerate(self.mds_rows)]
+        return [self.store(self.mont_mul(v, self.one)) for v in x]
+
+
+KERNEL5 = {
+    "bls12_381_fr-t3-round1": _bls_first_round,
+    "babybear_fr-t16": lambda: st.get_default_rescue_parameters(st.BABYBEAR_FR, 8),
+    "tiny_fr_25-t3": lambda: interop.config_from_jax(tiny25()),
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL5))
+def test_kernel_emulation_matches_oracle(name):
+    """Full width (BLS12-381 t = 3 cut to one round: both chains, the
+    254-bit one at w = 3) and the small fields on a few lanes with edge
+    values; every column below 2^63."""
+    cfg = KERNEL5[name]()
+    vals = lanes(cfg.field.modulus, cfg.t, 3, 17)
+    kernel = Kernel5(cfg)
+    assert emulate(cfg, kernel, vals) == oracle_permute(cfg, vals)
+    assert kernel.colmax < 1 << 63
 
 
 # ---- dispatch ----
