@@ -10,12 +10,15 @@ Monolith (kernel 4), Rescue-Prime (kernel 5), Griffin-pi (kernel 6), Anemoi
 (kernel 7), GMiMC-erf (kernel 8) and the two probe kernels, and prints the
 window, table bytes, registers and spills of each instantiation of kernels
 5 and 7 (failing if the compiled registers would pick another window than
-the shipped one).  It first runs
+the shipped one), and for kernels 1 and 4 every instantiation's registers,
+spills and blocks per SM and a static SASS census of the timed ones beside
+the limb products the bound counts.  It first runs
 the probes (launches counted): the dependent latency and the saturated issue
 rate of 32-bit and widening multiply-adds against their peaks, their SASS
 instruction counts, one chain of 64 Montgomery products against two of 32,
-and kernel 1's schedule cut to nested prefixes, each timed run's words
-against the plain version on lanes from both ends.
+and kernel 1's schedule cut to nested prefixes (copy, round constants,
+S-boxes, the full rounds' MDS; kernel 1 adds the sparse phase), each timed
+run's words against the plain version on lanes from both ends.
 It holds each kernel against its plain PyTorch version (torch.equal, with 0,
 1, p-1, p-2 in every element position) and the scalar oracle, checks the
 golden vectors through the sponge on the card, drives four paths at full
@@ -379,6 +382,72 @@ def window_phase(cfgs, report):
             f"registers alone)")
 
 
+CENSUS_OPS = ("IMAD.WIDE.U32", "IMAD", "IADD3", "LOP3", "SHF", "MOV", "LDG")
+
+
+def census(counts):
+    """SASS opcode counts in ``CENSUS_OPS`` groups: IMAD.WIDE.U32 with its
+    .X form, IMAD the other IMAD forms except IMAD.MOV, which ptxas emits as
+    a move and is counted under MOV, IADD3 with .X, LOP3, SHF and LDG in
+    every form."""
+    out = dict.fromkeys(CENSUS_OPS, 0)
+    for op, n in counts.items():
+        if op.startswith("IMAD.WIDE"):
+            out["IMAD.WIDE.U32"] += n
+        elif op.startswith("IMAD.MOV"):
+            out["MOV"] += n
+        elif op.split(".")[0] in out:
+            out[op.split(".")[0]] += n
+    return out
+
+
+def template_args(mangled):
+    """The integer template arguments of a mangled kernel name."""
+    args = re.findall(r"L[a-z](n?\d+)E", mangled.split("kernelI", 1)[1].split("EEv", 1)[0])
+    return tuple(int(v.replace("n", "-")) for v in args)
+
+
+def census_phase(report, cfgs):
+    """Kernels 1 and 4: every instantiation's ptxas registers, spills and
+    blocks per SM of 128 threads by registers; then for the instantiation
+    each path times (``cfgs``: (name, config) pairs) its blocks per SM with
+    the constants it stages in shared memory and the static SASS census
+    (``CENSUS_OPS``, the code of one kernel, loops counted once) beside the
+    limb products one permutation needs (``limb_products``)."""
+    from sponge_tpu_torch.monolith.config import constant_layout as monolith_layout
+    from sponge_tpu_torch.ops import _build
+    from sponge_tpu_torch.ops.bounds import check_monolith_bounds
+    from sponge_tpu_torch.ops.monolith import chunk_pattern, plan_code
+    from sponge_tpu_torch.ops.montgomery import blocks_per_sm
+    from sponge_tpu_torch.poseidon.config import constant_layout, layout_size
+
+    entries = ptxas_entries(report)
+    for kernel, key in (("kernel 1", "poseidon_opt_kernelI"), ("kernel 4, generic body", "monolith_kernelI"),
+                        ("kernel 4, Mersenne body", "monolith_mersenne_kernelI")):
+        found = sorted((template_args(k), v) for k, v in entries.items() if key in k)
+        say("census", f"{kernel}, per instantiation (template arguments: registers, spill stores/loads B, blocks "
+            f"per SM): " + "; ".join(f"{args}: {r}, {st}/{ld}, {blocks_per_sm(r, 0)}" for args, (r, st, ld) in found))
+    lib = _build.library_path()
+    for name, cfg in cfgs:
+        t, L = cfg.t, cfg.field.nlimbs
+        if name == "poseidon_permute_opt":
+            want, base = (t, L), "poseidon_opt_kernel"
+        else:
+            plan = check_monolith_bounds(cfg)
+            want = (t, L, chunk_pattern(cfg.field), int(plan.concrete == "scaled"), plan_code(plan.folds))
+            base = "monolith_mersenne_kernel" if plan.body == "mersenne" else "monolith_kernel"
+        found = [k for k in entries if f"{base}I" in k and template_args(k) == want]
+        check(len(found) == 1, f"census: {len(found)} ptxas entries for {base} {want}")
+        counts = census(sass_counts(lib, found[0]))
+        wide, narrow = limb_products(name, cfg)
+        regs = entries[found[0]][0]
+        shared = 4 * layout_size((constant_layout if name == "poseidon_permute_opt" else monolith_layout)(cfg))
+        say("census", f"{name} {cfg.field.name} t={t}: {regs} registers, {shared:,} B of shared constants, "
+            f"{blocks_per_sm(regs, shared)} blocks per SM; static SASS "
+            + ", ".join(f"{k} {v}" for k, v in counts.items())
+            + f"; the bound's limb products per permutation: {wide:,} wide, {narrow:,} 32-bit")
+
+
 def window_comparison(cfg, state, path_out, gpu):
     """Kernel 5 with its inverse S-box at window 3 and at window 4, each by a
     direct launch with a constant buffer of that window (not counted), in
@@ -534,7 +603,8 @@ def probe_phase(st, dev, rng, gpu, peak):
     say("probe", "kernel 1 ablation at B=2^20, each prefix == plain on 2048 lanes from both ends: "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in rows.items())
         + f"; so grid and HBM {rows['copy']:.3f}, ark+carry {rows['ark'] - rows['copy']:.3f}, S-boxes "
-        f"{rows['pow'] - rows['ark']:.3f}, MDS and the rest {rows['full'] - rows['pow']:.3f} ms; plain "
+        f"{rows['pow'] - rows['ark']:.3f}, the full rounds' MDS {rows['full_mds'] - rows['pow']:.3f}, the sparse "
+        f"phase (c_r adds, sparse linear layers, D) {rows['full'] - rows['full_mds']:.3f} ms; plain "
         + ", ".join(f"{k} {v:.1f}" for k, v in plain_rows.items()) + f" ms at 2048 lanes [{gpu}]")
     mm = 2 * fs.nlimbs ** 2
     sb = chain_products(bls.alpha, fs.nlimbs * (fs.nlimbs + 1) // 2 + fs.nlimbs ** 2, mm)
@@ -651,6 +721,8 @@ def main():
     mo_kb4 = st.generate_monolith_parameters(st.KOALABEAR_FR, 2, 2, 6, 2)
     mo_m314 = st.generate_monolith_parameters(st.MERSENNE31_FR, 2, 2, 6, 2)
     window_phase([r_bls, r_bb, r_25, a_bls, a_bls1, a_gl, a_25], _build.ptxas_report())
+    census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("monolith_permute", mo_gl),
+                                         ("monolith_permute", mo_m31)])
 
     # ---- 3. golden vectors through the sponge on the card ----
     goldens = [
@@ -1027,6 +1099,9 @@ def main():
     ends = torch.cat([torch.arange(half), torch.arange(B_MAIN - half, B_MAIN)]).to(dev)
     kernels["poseidon_permute_opt"].update(time_kernel("poseidon_permute_opt", bls, state, every, out))
     kernels["poseidon_permute_dense"].update(time_kernel("poseidon_permute_dense", bls, state, every, parity))
+    k1, k2 = kernels["poseidon_permute_opt"]["ms"], kernels["poseidon_permute_dense"]["ms"]
+    say("time", f"kernel 1 (\"auto\") {k1:.3f} ms against kernel 2 (\"dense\") {k2:.3f} ms on the same input: "
+        f"kernel 1 {'faster' if k1 < k2 else 'not faster'} ({k2 / k1:.3f}x) [{gpu}]")
     for cfg in (p2_bls, p2_bb):
         name = cfg.field.name
         timed = time_kernel("poseidon2_permute", cfg, p2_states[name], every, p2_out[name])

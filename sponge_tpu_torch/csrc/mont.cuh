@@ -10,14 +10,18 @@
 // add.  A column holds at most (terms + 1) * L such products plus a carry,
 // below 2^55 for every instantiated config.  All limb loops are unrolled
 // except the outer loop of mont_mul_const (the constant is read from memory
-// with the loop index): unrolling that one too made nvcc 12.9's device front
-// end (cicc) crash on the sparse-round kernel at L = 11.  Results are carried back into
+// with the loop index), which kernels 2, 3, 5, 6, 7 and 8 and the probes
+// keep; kernels 1 and 4 no longer call it (they stage their constants in
+// shared memory; kernel 1's sparse round runs its constant products fully
+// unrolled in poseidon_opt.cu sparse_linear).  Results are carried back into
 // 24-bit limbs but only lazily reduced (value < a*b/R + p); the Python side
 // (sponge_tpu_torch/ops/bounds.py) simulates each kernel's schedule and
 // refuses a config whose values could reach R or end at 2p or more.
 // Kernels 5 and 7 square with mont_sqr and raise to long exponents with
-// pow_window, whose odd-power table sits in dynamic shared memory; the
-// others keep mont_pow and pow_ladder.
+// pow_window, whose odd-power table sits in dynamic shared memory; kernel 1
+// and the probe ablation raise to alpha with pow_sqr (mont_sqr, the t
+// elements of a full round in lockstep); kernels 2, 3, 6 and 8 keep
+// mont_pow and pow_ladder.
 #pragma once
 
 #include <cstdint>
@@ -41,11 +45,35 @@ __device__ __forceinline__ uint32_t ldc(const int32_t* __restrict__ c) {
   return static_cast<uint32_t>(__ldg(c));
 }
 
-template <int L>
+// Where a routine reads the constant buffer: the read-only global path, or
+// shared memory the kernel staged the buffer in (kernels 1 and 4 and the
+// probe ablation).  A word read from shared memory lands in an ordinary
+// register; one read from global memory at a warp-uniform address may be
+// kept in a uniform register, and an IMAD.WIDE.U32 with a uniform operand
+// takes no 64-bit addend, so a modulus held that way costs every REDC
+// product an IADD3 pair (kernel 1: PERF.md).
+struct FromGlobal {
+  __device__ __forceinline__ static uint32_t load(const int32_t* __restrict__ c) { return ldc(c); }
+};
+struct FromShared {
+  __device__ __forceinline__ static uint32_t load(const int32_t* __restrict__ c) {
+    return static_cast<uint32_t>(*c);
+  }
+};
+
+// Copies ``words`` of the constant buffer to ``staged``, the block's dynamic
+// shared memory (the whole block must reach it).
+__device__ __forceinline__ void stage_constants(int32_t* staged, const int32_t* __restrict__ consts,
+                                                int words) {
+  for (int i = threadIdx.x; i < words; i += blockDim.x) staged[i] = __ldg(consts + i);
+  __syncthreads();
+}
+
+template <typename Src = FromGlobal, int L>
 __device__ __forceinline__ void load_modulus(Modulus<L>& m, const int32_t* __restrict__ p,
                                              uint32_t n0inv) {
 #pragma unroll
-  for (int k = 0; k < L; ++k) m.p[k] = ldc(p + k);
+  for (int k = 0; k < L; ++k) m.p[k] = Src::load(p + k);
   m.n0inv = n0inv;
 }
 
@@ -113,7 +141,7 @@ __device__ __forceinline__ void mont_mul_const(uint32_t (&out)[L], const uint32_
 // out = (sum_j x[j] * c[j]) / R (mod p): one matrix row against the whole
 // state, the T products summed lazily in the same columns, one REDC.
 // c points at T constants of L limbs each.
-template <int T, int L>
+template <int T, int L, typename Src = FromGlobal>
 __device__ __forceinline__ void mont_row(uint32_t (&out)[L], const uint32_t (&x)[T][L],
                                          const int32_t* __restrict__ c, const Modulus<L>& m) {
   uint64_t acc[L];
@@ -123,7 +151,7 @@ __device__ __forceinline__ void mont_row(uint32_t (&out)[L], const uint32_t (&x)
   for (int i = 0; i < L; ++i) {
 #pragma unroll
     for (int j = 0; j < T; ++j) {
-      const uint32_t cji = ldc(c + j * L + i);
+      const uint32_t cji = Src::load(c + j * L + i);
 #pragma unroll
       for (int k = 0; k < L; ++k) acc[k] += static_cast<uint64_t>(x[j][k]) * cji;
     }
@@ -133,12 +161,12 @@ __device__ __forceinline__ void mont_row(uint32_t (&out)[L], const uint32_t (&x)
 }
 
 // x = M x for a t x t matrix of the constant buffer (row-major, L limbs each).
-template <int T, int L>
+template <int T, int L, typename Src = FromGlobal>
 __device__ __forceinline__ void mat_apply(uint32_t (&x)[T][L], const int32_t* __restrict__ mat,
                                           const Modulus<L>& m) {
   uint32_t y[T][L];
 #pragma unroll
-  for (int i = 0; i < T; ++i) mont_row<T, L>(y[i], x, mat + i * T * L, m);
+  for (int i = 0; i < T; ++i) mont_row<T, L, Src>(y[i], x, mat + i * T * L, m);
 #pragma unroll
   for (int i = 0; i < T; ++i)
 #pragma unroll
@@ -159,11 +187,11 @@ __device__ __forceinline__ void add_lazy(uint32_t (&x)[L], const uint32_t (&y)[L
   x[L - 1] += y[L - 1] + c;
 }
 
-template <int L>
+template <typename Src = FromGlobal, int L>
 __device__ __forceinline__ void add_const(uint32_t (&x)[L], const int32_t* __restrict__ c) {
   uint32_t y[L];
 #pragma unroll
-  for (int k = 0; k < L; ++k) y[k] = ldc(c + k);
+  for (int k = 0; k < L; ++k) y[k] = Src::load(c + k);
   add_lazy(x, y);
 }
 
@@ -294,6 +322,36 @@ __device__ __forceinline__ void mont_sqr(uint32_t (&out)[L], const uint32_t (&a)
     redc_step(acc, m);
   }
   carry_out(out, acc);
+}
+
+// x^alpha on N elements in lockstep by MSB-first square-and-multiply over
+// the bits of alpha (a runtime value: any PoseidonConfig's alpha runs),
+// squaring with mont_sqr: kernel 1's S-box (N = t in a full round, element 0
+// alone in a partial one) and the probe ablation's.  The bit loop stays
+// rolled, so the chain inlines one squaring and one multiply per element.
+// The words equal mont_pow's, which squares with mont_mul.
+template <int N, int L>
+__device__ __forceinline__ void pow_sqr(uint32_t (&x)[N][L], uint32_t alpha, const Modulus<L>& m) {
+  uint32_t base[N][L];
+#pragma unroll
+  for (int e = 0; e < N; ++e)
+#pragma unroll
+    for (int k = 0; k < L; ++k) base[e][k] = x[e][k];
+#pragma unroll 1
+  for (int bit = 30 - __clz(static_cast<int>(alpha)); bit >= 0; --bit) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) mont_sqr(x[e], x[e], m);
+    if ((alpha >> bit) & 1u) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) mont_mul(x[e], x[e], base[e], m);
+    }
+  }
+}
+
+// pow_sqr on one element.
+template <int L>
+__device__ __forceinline__ void pow_sqr1(uint32_t (&x)[L], uint32_t alpha, const Modulus<L>& m) {
+  pow_sqr<1, L>(reinterpret_cast<uint32_t(&)[1][L]>(x), alpha, m);
 }
 
 // Dynamic shared memory of one block's pow_window tables: the odd powers

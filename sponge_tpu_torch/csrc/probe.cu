@@ -33,15 +33,18 @@
 // sponge_probe_ablation replaces bench/latency_accounting_probe.py (main,
 // body ablation_kernel): kernel 1's BLS12-381 rate-2 round schedule cut to
 // nested prefixes, ``mode`` 0 copy (load and store), 1 ark (every round adds
-// its round constants, carried), 2 pow (also the S-boxes: t per full round,
-// one per partial round); modes 1 and 2 end with one Montgomery product by 1
-// and the conditional subtraction, so the output is canonical.  Kernel 1
-// itself is the full row.  Values stay below 45p of R = 565p
-// (ops/probe.py checks it with the kernels' bound replay).
+// its round constants, carried), 2 pow (also the S-boxes, by kernel 1's own
+// routine pow_sqr: the t elements of a full round in lockstep, element 0 of
+// a partial round), 3 full_mds (also every full round's MDS, mat_apply);
+// modes 1 to 3 end with one Montgomery product by 1 and the conditional
+// subtraction, so the output is canonical.  Kernel 1 itself is the full
+// row: what it spends beyond full_mds is the sparse phase's linear layers,
+// its c_r adds and D.  Values stay below 45p of R = 565p (ops/probe.py
+// checks it with the kernels' bound replay).
 //
 // What bounds them: integer issue (chains), the same as kernel 1 (ablation).
 // Constant buffers: chains m | k, or p (11) | c (11) for kMont; ablation
-// p (L) | one = R mod p (L) | ark (rounds, t, L).
+// p (L) | one = R mod p (L) | ark (rounds, t, L) | mds (t, t, L).
 
 #include "mont.cuh"
 
@@ -162,27 +165,34 @@ int dispatch_chains(const int32_t* in, int32_t* out, long long B, int chains, in
 }
 
 template <int T, int L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)  // as kernel 1
     ablation_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
                     int mode, uint32_t alpha, int full_rounds, int partial_rounds,
                     const int32_t* __restrict__ consts, uint32_t n0inv) {
+  // the constants staged in shared memory, as kernel 1 does
+  extern __shared__ int32_t c[];
+  stage_constants(c, consts, 2 * L + (full_rounds + partial_rounds + T) * T * L);
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= B) return;
   Modulus<L> m;
-  load_modulus(m, consts, n0inv);
+  load_modulus<FromShared>(m, c, n0inv);
   const int32_t* one = consts + L;
-  const int32_t* ark = one + L;
+  const int32_t* ark = c + 2 * L;
+  const int32_t* mds = ark + (full_rounds + partial_rounds) * T * L;
   const int half = full_rounds / 2;
   uint32_t x[T][L];
   load_state<T, L>(x, in, B, b);
   if (mode > 0) {
 #pragma unroll 1
     for (int r = 0; r < full_rounds + partial_rounds; ++r) {
-      const bool full = r < half || r >= half + partial_rounds;
 #pragma unroll
-      for (int e = 0; e < T; ++e) {
-        add_const(x[e], ark + (r * T + e) * L);
-        if (mode > 1 && (full || e == 0)) mont_pow(x[e], alpha, m);
+      for (int e = 0; e < T; ++e) add_const<FromShared>(x[e], ark + (r * T + e) * L);
+      if (mode < 2) continue;
+      if (r < half || r >= half + partial_rounds) {
+        pow_sqr<T, L>(x, alpha, m);
+        if (mode > 2) mat_apply<T, L, FromShared>(x, mds, m);
+      } else {
+        pow_sqr1<L>(x[0], alpha, m);
       }
     }
 #pragma unroll
@@ -219,7 +229,9 @@ extern "C" int sponge_probe_ablation(const int32_t* in, int32_t* out, long long 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (t != 3 || L != 11) return -1;
   const unsigned blocks = static_cast<unsigned>((B + sponge::kThreads - 1) / sponge::kThreads);
-  sponge::ablation_kernel<3, 11><<<blocks, sponge::kThreads, 0, s>>>(
+  const size_t bytes = sizeof(int32_t) * (2 * L + (full_rounds + partial_rounds + t) * t * L);
+  if (const int err = sponge::allow_dynamic_shared(sponge::ablation_kernel<3, 11>, bytes)) return err;
+  sponge::ablation_kernel<3, 11><<<blocks, sponge::kThreads, bytes, s>>>(
       in, out, B, mode, static_cast<uint32_t>(alpha), full_rounds, partial_rounds, consts, n0inv);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,7 +26,7 @@ import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
-from ctypes import POINTER, c_int, c_longlong, c_uint, c_void_p
+from ctypes import POINTER, c_int, c_longlong, c_uint, c_ulonglong, c_void_p
 
 import torch
 
@@ -105,9 +105,10 @@ SIGNATURES = {
     # rounds, inverse-alpha window and schedule length, post-PHT reduction,
     # constants, n0inv
     "sponge_anemoi": [c_int, c_int, c_int, c_int, c_void_p, c_uint],
-    # rounds, bars, Bar chunk count, Mersenne body, scaled Concrete, plan
-    # (host int[6]: fold counts, bit length, Mersenne shift), constants, n0inv
-    "sponge_monolith": [c_int, c_int, c_int, c_int, c_int, POINTER(c_int), c_void_p, c_uint],
+    # rounds, bars, Bar chunk pattern (ops/monolith.py chunk_pattern),
+    # Mersenne body, circulant Concrete, plan (host int[6]: fold counts, bit
+    # length, Mersenne shift), constants, n0inv
+    "sponge_monolith": [c_int, c_int, c_ulonglong, c_int, c_int, POINTER(c_int), c_void_p, c_uint],
     # op, loop iterations, constants, clocks (device int64[2] or null), n0inv
     "sponge_probe_chains": [c_int, c_int, c_void_p, c_void_p, c_uint],
     # mode, alpha, full rounds, partial rounds, constants, n0inv

@@ -99,6 +99,8 @@ def simulate(cfg: PoseidonConfig, optimized: bool):
         for _ in range(cfg.partial_rounds - 1):
             xs = [sim.add(x, p) for x in xs]
             out0 = sim.dot(xs)
+            # kernel 1 adds x_i into the columns of col0_i * x0 before the
+            # carry (sparse_linear): the same value as the product plus x_i
             rest = [sim.add(sim.mul(xs[0], p), x) for x in xs[1:]]
             xs = [sim.sbox(out0)] + rest
         xs = [sim.dot(xs)] * cfg.t
@@ -140,6 +142,8 @@ def check_kernel_bounds(cfg: PoseidonConfig, optimized: bool) -> int:
         raise ValueError(f"{fs.name} t={cfg.t}: output bound {vout / fs.modulus:.2f}p >= 2p")
     if column_bound(cfg.t, fs.nlimbs) >= 1 << 63:
         raise ValueError(f"{fs.name} t={cfg.t}: REDC columns can overflow 63 bits")
+    if optimized and sqr_column_bound(fs.nlimbs) >= 1 << 63:  # kernel 1 squares with mont_sqr
+        raise ValueError(f"{fs.name}: squaring columns can overflow 63 bits")
     return vmax
 
 
@@ -530,9 +534,10 @@ MONOLITH_SITES = ("sq", "add", "conc", "rc")
 class MonolithPlan:
     """How kernel 4 runs one config: the body (``"generic"``: Montgomery
     limbs; ``"mersenne"``: one canonical word per element, no Montgomery
-    form inside), the Concrete (``"scaled"``: plain small-integer entries
-    times limb words in 64-bit columns; ``"dense"``: a lazily summed row of
-    constant products), the fold count at each site of ``MONOLITH_SITES``
+    form inside), the Concrete (``"scaled"``: a circulant of plain
+    small-integer entries, its first row held in registers, times limb words
+    in 64-bit columns; ``"dense"``: a lazily summed row of constant
+    products), the fold count at each site of ``MONOLITH_SITES``
     (rho-folds for the generic body, 2^n = 1 folds for the Mersenne body),
     the shift s with R mod p = 2^s (Mersenne body), and the largest value
     and 32-bit limb word bound reached."""
@@ -561,9 +566,9 @@ def mersenne_rot_shift(fs) -> int | None:
 class _MonolithReplay(_Replay):
     """Kernel 4's generic body on exclusive (value, limb word) bounds: Bars
     (a product by plain 1, the conditional subtraction, chi on canonical
-    bits, a product by R^2), Bricks from i = t-1 down (each square and each
-    sum rho-folded), the Concrete and + rc (folded), then the exit product
-    by the Montgomery form of 1.  With ``folds=None`` each site's count grows
+    bits, a product by R^2), Bricks from i = t-1 down (each square by
+    ``mont_sqr``, each square and each sum rho-folded), the Concrete and
+    + rc (folded), then the exit product by the Montgomery form of 1.  With ``folds=None`` each site's count grows
     to what its instances need; with fixed counts every constraint is
     checked."""
 
@@ -617,7 +622,7 @@ class _MonolithReplay(_Replay):
                 xs[e] = self.mul(self.const, self.const)  # canonical bits times R^2
             new = list(xs)
             for i in range(t - 1, 0, -1):
-                sq = self.fold(self.mul(xs[i - 1], xs[i - 1]), "sq")
+                sq = self.fold(self.sqr(xs[i - 1]), "sq")
                 new[i] = self.fold(self.add(xs[i], sq), "add")
             xs = [self.fold(self.add(x, self.const), "rc") for x in self.concrete_layer(new)]
         for x in xs:
@@ -678,8 +683,9 @@ def _generic_plan(cfg, concrete: str) -> MonolithPlan:
 def check_monolith_bounds(cfg) -> MonolithPlan:
     """Kernel 4's plan for ``cfg``: the Mersenne body where
     ``mersenne_rot_shift`` applies, else the generic body; the scaled
-    Concrete where every matrix entry is a small integer and the replay
-    admits it, else the dense one; the fold counts derived by a replay of
+    Concrete where the matrix is a circulant of small integers (the kernel
+    keeps its first row in registers) and the replay admits it, else the
+    dense one; the fold counts derived by a replay of
     the body that brings every value under R at every site, then taken down
     site by site as far as a replay with the counts fixed admits (values may
     pass R between sites while every word stays below 2^32 and every
@@ -687,7 +693,9 @@ def check_monolith_bounds(cfg) -> MonolithPlan:
     ValueError if no plan is exact (a value could reach R, a word 2^32, a
     column 2^63 or 2^64)."""
     s = mersenne_rot_shift(cfg.field)
-    kinds = ("scaled", "dense") if cfg.concrete_small_entries() is not None else ("dense",)
+    t, first = cfg.t, cfg.concrete[0]
+    circulant = all(cfg.concrete[i][j] == first[(j - i) % t] for i in range(t) for j in range(t))
+    kinds = ("scaled", "dense") if circulant and cfg.concrete_small_entries() is not None else ("dense",)
     err = None
     for kind in kinds:
         try:

@@ -4,7 +4,9 @@ Counterpart of ``sponge_tpu/ops/pallas_monolith.py`` (``monolith_kernel_fn``):
 an opening Concrete, then rounds of Bars, Bricks, Concrete and + rc.  The
 CUDA kernel is ``csrc/monolith.cu``; its body (generic Montgomery limbs, or
 one canonical word per element over a Mersenne prime), its Concrete kind
-and its fold counts come from ``ops/bounds.py`` ``check_monolith_bounds``.
+and its fold counts come from ``ops/bounds.py`` ``check_monolith_bounds``,
+its Bar chunk pattern from ``chunk_pattern`` (the kernel applies chi to all
+the chunks of a word at once; ``chi_word`` is that Bar in Python).
 ``monolith_permute_plain`` computes the same function with int64 tensor
 ops, canonical after every layer, in Montgomery form for every field.
 
@@ -69,14 +71,84 @@ def monolith_permute_plain(cfg: MonolithConfig, consts: torch.Tensor, state: tor
     return x.int()
 
 
+# Kernel 4 unrolls each site's fold loop this far (csrc/monolith.cu kMaxFolds).
+MAX_FOLDS = 4
+
+# The Bar chunk patterns kernel 4 is compiled for, by limb count
+# (csrc/monolith.cu kChunksGoldilocks, kChunks31, kChunksBabyBear).
+KERNEL_CHUNK_PATTERNS = {3: frozenset({0x88888888}), 2: frozenset({0x7888, 0x43888})}
+
+
+def plan_code(folds) -> int:
+    """The fold counts of a plan packed 2 bits a site (csrc/monolith.cu
+    ``plan_code``, kernel 4's FOLDS template argument); -1 where a count
+    passes 3."""
+    return -1 if max(folds) > 3 else sum(f << (2 * i) for i, f in enumerate(folds))
+
+
+def chunk_pattern(fs) -> int:
+    """The field's Bar chunk widths (``bar_chunks``) as 4-bit digits, the
+    lowest chunk first: kernel 4's compile-time Bar pattern."""
+    return sum(w << (4 * i) for i, w in enumerate(bar_chunks(fs)))
+
+
+def _masks(chunks, lo: int, n: int):
+    """(bits of every chunk, bits of the odd-width chunks, {(width, r):
+    (keep, wrap)} of every width present) for the word holding bits
+    [lo, lo + n): csrc/monolith.cu chunk_mask."""
+    every = odd = 0
+    spans, o = [], 0
+    for w in chunks:
+        if lo <= o and o + w <= lo + n:
+            spans.append((o - lo, w))
+            every |= ((1 << w) - 1) << (o - lo)
+            if w & 1:
+                odd |= ((1 << w) - 1) << (o - lo)
+        o += w
+    rots = {}
+    for w in {w for _, w in spans}:
+        for rot in (1, 2, 3):
+            r = rot % w
+            keep = sum(((1 << w) - 1) >> r << r << off for off, k in spans if k == w)
+            wrap = sum(((1 << r) - 1) << off for off, k in spans if k == w)
+            rots[w, rot] = (keep, wrap)
+    return every, odd, rots
+
+
+def chi_word(chunks, lo: int, n: int, y):
+    """``csrc/monolith.cu`` ``chi_word``: ``chunk_sbox`` on every chunk of
+    ``chunks`` inside the word of bits [lo, lo + n), at once, with shifts and
+    masks (each chunk rotates within itself; an odd chunk's rot-3 term is
+    forced to ones).  ``y`` is an int or an integer array of such words."""
+    every, odd, rots = _masks(tuple(chunks), lo, n)
+
+    def rot(v, r):
+        out = 0
+        for (w, rr), (keep, wrap) in rots.items():
+            if rr == r:
+                k = r % w
+                out = out | ((v << k) & keep) | ((v >> (w - k)) & wrap)
+        return out
+
+    z = y ^ (rot(y ^ every, 1) & rot(y, 2) & (rot(y, 3) | odd))
+    return rot(z, 1)
+
+
 def _launch_args(cfg: MonolithConfig, consts: torch.Tensor):
     """The plan, then kernel 4's own C arguments."""
     plan = check_monolith_bounds(cfg)
+    pattern = chunk_pattern(cfg.field)
+    if pattern not in KERNEL_CHUNK_PATTERNS.get(cfg.field.nlimbs, ()):
+        raise NotImplementedError(
+            f"no CUDA kernel instantiation of sponge_monolith for the Bar chunks {bar_chunks(cfg.field)} "
+            f"at L={cfg.field.nlimbs}"
+        )
+    if max(plan.folds) > MAX_FOLDS:
+        raise ValueError(f"Monolith kernel, {cfg.field.name}: the plan's folds {plan.folds} pass {MAX_FOLDS}")
     words = (*plan.folds, cfg.field.modulus_bit_size, plan.shift or 0)
     return (
-        cfg.rounds, cfg.bars, len(bar_chunks(cfg.field)), int(plan.body == "mersenne"),
-        int(plan.concrete == "scaled"), (ctypes.c_int * len(words))(*words), consts.data_ptr(),
-        cfg.field.n0inv,
+        cfg.rounds, cfg.bars, pattern, int(plan.body == "mersenne"), int(plan.concrete == "scaled"),
+        (ctypes.c_int * len(words))(*words), consts.data_ptr(), cfg.field.n0inv,
     )
 
 

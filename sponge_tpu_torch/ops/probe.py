@@ -10,7 +10,9 @@ they answer what the kernels' bounds rest on:
   and at many (issue rate); ``mont11`` is the Montgomery product by a
   constant at BLS12-381 width, as one chain of 64 or two of 32.
 * ``probe_ablation``: kernel 1's round schedule cut to nested prefixes
-  (``ABLATION_MODES``).
+  (``ABLATION_MODES``): copy, round constants, the S-boxes (kernel 1's own
+  ``pow_sqr``), the full rounds' MDS; kernel 1 itself adds the sparse
+  phase.
 
 Each plain version replays the same arithmetic with int64 tensor ops: the
 32-bit chains with explicit 2^32 and 2^64 masking (products split at 16 bits
@@ -35,7 +37,7 @@ from .bounds import _Replay
 OPS = {"mul": 0, "mad": 1, "add": 2, "wide": 3, "mont11": 4}
 WORDS = {"mul": 1, "mad": 1, "add": 1, "wide": 2, "mont11": 11}
 UNROLL = 16  # steps per loop iteration of the 32-bit chains (csrc/probe.cu kUnroll)
-ABLATION_MODES = {"copy": 0, "ark": 1, "pow": 2}
+ABLATION_MODES = {"copy": 0, "ark": 1, "pow": 2, "full_mds": 3}
 _M16, _M32 = (1 << 16) - 1, (1 << 32) - 1
 
 
@@ -129,29 +131,37 @@ probe_chains.launches = 0
 
 
 def ablation_constants(cfg: PoseidonConfig) -> np.ndarray:
-    """p (L) | R mod p (L) | ark (rounds, t, L): plain, plain, Montgomery."""
+    """p (L) | R mod p (L) | ark (rounds, t, L) | mds (t, t, L): plain,
+    plain, Montgomery, Montgomery."""
     fs = cfg.field
-    parts = [fs.int_to_limbs(fs.modulus), fs.int_to_limbs(fs.r_mod_p), mont_limb_rows(fs, cfg.ark)]
+    parts = [
+        fs.int_to_limbs(fs.modulus), fs.int_to_limbs(fs.r_mod_p), mont_limb_rows(fs, cfg.ark),
+        mont_limb_rows(fs, cfg.mds),
+    ]
     return np.concatenate([np.asarray(a).reshape(-1) for a in parts]).astype(np.int32)
 
 
 @functools.lru_cache(maxsize=None)
 def check_ablation_bounds(cfg: PoseidonConfig) -> int:
-    """Replay the ``pow`` prefix (the widest) on value bounds: every round
-    adds its constants to every element, full rounds raise all t elements to
-    alpha, partial rounds element 0, then the exit product by 1.  Raises
+    """Replay the ``pow`` and ``full_mds`` prefixes on value bounds: every
+    round adds its constants to every element, full rounds raise all t
+    elements to alpha (``full_mds``: then the MDS rows, one REDC each),
+    partial rounds element 0, then the exit product by 1.  Raises
     ValueError if a value could reach R or the output 2p; returns the
     largest value bound."""
     fs = cfg.field
-    sim = _Replay(f"kernel 1 ablation, {fs.name} t={cfg.t}", fs)
+    sim = _Replay(f"kernel 1 ablation, {fs.name} t={cfg.t}", fs, terms=cfg.t)
     half = cfg.full_rounds // 2
-    xs = [sim.const] * cfg.t
-    for r in range(cfg.rounds):
-        full = r < half or r >= half + cfg.partial_rounds
-        xs = [sim.add(x, sim.const) for x in xs]
-        xs = [sim.pow(x, cfg.alpha) if full or e == 0 else x for e, x in enumerate(xs)]
-    for x in xs:
-        sim.exit(x)
+    for mds in (False, True):
+        xs = [sim.const] * cfg.t
+        for r in range(cfg.rounds):
+            full = r < half or r >= half + cfg.partial_rounds
+            xs = [sim.add(x, sim.const) for x in xs]
+            xs = [sim.pow(x, cfg.alpha) if full or e == 0 else x for e, x in enumerate(xs)]
+            if full and mds:
+                xs = [sim.row(xs) for _ in xs]
+        for x in xs:
+            sim.exit(x)
     return sim.vmax
 
 
@@ -162,14 +172,18 @@ def ablation_plain(cfg: PoseidonConfig, mode: str, consts: torch.Tensor, state: 
     if ABLATION_MODES[mode] == 0:
         return state.clone()
     L = fs.nlimbs
-    ark = consts[2 * L :].long().reshape(cfg.rounds, t, L, 1)
+    ark = consts[2 * L : 2 * L + cfg.rounds * t * L].long().reshape(cfg.rounds, t, L, 1)
+    mds = consts[2 * L + cfg.rounds * t * L :].long().reshape(t, t, L, 1)
     half = cfg.full_rounds // 2
     x = state.long()
     for r in range(cfg.rounds):
         x = mont.mont_add(fs, x, ark[r])
-        if mode == "pow":
-            n = t if r < half or r >= half + cfg.partial_rounds else 1
+        if ABLATION_MODES[mode] >= 2:
+            full = r < half or r >= half + cfg.partial_rounds
+            n = t if full else 1
             x = torch.cat([mont.mont_pow(fs, x[:n], cfg.alpha), x[n:]])
+            if full and mode == "full_mds":
+                x = mont.mont_dot(fs, mds, x)
     return x.int()
 
 

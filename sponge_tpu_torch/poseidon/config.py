@@ -7,6 +7,7 @@ device form (24-bit Montgomery limb planes) is built by ``device_constants``.
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -115,8 +116,9 @@ def kernel_constants(cfg: PoseidonConfig) -> np.ndarray:
 
 
 def layout_size(layout) -> int:
-    """Words in a flat constant buffer laid out by ``layout``."""
-    return sum(int(np.prod(shape)) for _, shape in layout)
+    """Words in a flat constant buffer laid out by ``layout`` (every kernel
+    launch checks its buffer against it: plain ints, no numpy call)."""
+    return sum(math.prod(shape) for _, shape in layout)
 
 
 def unpack_layout(layout, buf):

@@ -38,7 +38,13 @@ from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
 from sponge_tpu_torch.monolith.config import bar_chunks, bar_int, chunk_sbox, kernel_constants
 from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops.bounds import _MonolithReplay, check_monolith_bounds, mersenne_rot_shift
-from sponge_tpu_torch.ops.monolith import monolith_permute, monolith_permute_plain
+from sponge_tpu_torch.ops.monolith import (
+    KERNEL_CHUNK_PATTERNS,
+    chi_word,
+    chunk_pattern,
+    monolith_permute,
+    monolith_permute_plain,
+)
 
 M13 = interop.field_for_modulus((1 << 13) - 1)  # the port's field of tests/test_monolith.py's tiny_m13
 JAX_M13 = JaxFieldSpec(name="tiny_m13", modulus=(1 << 13) - 1, generator=17)
@@ -249,25 +255,58 @@ def test_plan_refusals():
                     _MonolithReplay(port_config(name), "scaled", folds[:i] + (folds[i] - 1,) + folds[i + 1 :]).run()
 
 
+# ---- the word-parallel Bar (csrc/monolith.cu chi_word) ----
+
+BAR_FIELDS = {"gl": st.GOLDILOCKS_FR, "m31": st.MERSENNE31_FR, "bb": st.BABYBEAR_FR, "kb": st.KOALABEAR_FR}
+
+
+@pytest.mark.parametrize("word", ["limbs", "word32"])
+@pytest.mark.parametrize("field", list(BAR_FIELDS))
+def test_word_parallel_bar_matches_chunk_sbox(field, word):
+    """``chi_word`` on the generic body's 24-bit limb words or on 32-bit
+    words (the Mersenne body's one word; two at Goldilocks): each chunk of each
+    word runs through all 2^w values of its width, the other chunks random,
+    and must come out as ``chunk_sbox`` with the other chunks as
+    ``chunk_sbox`` leaves them; whole values must come out as ``bar_int``.
+    Every shipped field's pattern is one the kernel is compiled for."""
+    fs = BAR_FIELDS[field]
+    chunks = bar_chunks(fs)
+    assert chunk_pattern(fs) in KERNEL_CHUNK_PATTERNS[fs.nlimbs]
+    if word == "word32":
+        words = [(32 * k, 32) for k in range(-(-fs.modulus_bit_size // 32))]
+    else:
+        words = [(24 * k, 24) for k in range(fs.nlimbs)]
+    rng = np.random.default_rng(31)
+    offsets = np.cumsum((0,) + chunks[:-1])
+    for lo, n in words:
+        inside = [(int(o), w) for o, w in zip(offsets, chunks) if lo <= o and o + w <= lo + n]
+        assert inside, (lo, n)
+        for o, w in inside:
+            base = np.zeros(1 << w, dtype=np.int64)
+            for o2, w2 in inside:
+                if o2 != o:
+                    base |= rng.integers(0, 1 << w2, 1 << w).astype(np.int64) << (o2 - lo)
+            y = base | (np.arange(1 << w, dtype=np.int64) << (o - lo))
+            got = chi_word(chunks, lo, n, y)
+            for o2, w2 in inside:
+                part = (y >> (o2 - lo)) & ((1 << w2) - 1)
+                want = np.asarray([chunk_sbox(int(v), w2) for v in part])
+                assert np.array_equal((got >> (o2 - lo)) & ((1 << w2) - 1), want), (lo, o2, w2)
+            assert not (got & ~sum(((1 << w2) - 1) << (o2 - lo) for o2, w2 in inside)).any()
+    vals = [0, 1, fs.modulus - 1, fs.modulus - 2] + [int(v) % fs.modulus for v in rng.integers(0, 2**62, 300)]
+    for v in vals:
+        assert sum(chi_word(chunks, lo, n, (v >> lo) & ((1 << n) - 1)) << lo for lo, n in words) == bar_int(fs, v)
+
+
 # ---- word-by-word emulation of csrc/monolith.cu ----
-
-
-def chi_word(y, k):
-    """``chi_chunk`` on 32-bit words."""
-    mask = (1 << k) - 1
-
-    def rot(v, r):
-        r %= k
-        return ((v << r) | (v >> (k - r))) & mask
-
-    nb = y ^ mask
-    z = y ^ (rot(nb, 1) & rot(y, 2)) if k & 1 else y ^ (rot(nb, 1) & rot(y, 2) & rot(y, 3))
-    return rot(z, 1)
 
 
 class Kernel4(Words):
     """``csrc/monolith.cu`` for one lane: ``monolith_kernel`` (generic body)
-    or ``monolith_mersenne_kernel``, as the plan picks."""
+    or ``monolith_mersenne_kernel``, as the plan picks: Bars by the REDC of
+    the element alone and ``chi_word`` on each limb word (the Mersenne body:
+    on its one word), Bricks squared by ``sqr``, the circulant Concrete
+    indexed from its first row."""
 
     def __init__(self, cfg):
         super().__init__(cfg.field)
@@ -302,24 +341,25 @@ class Kernel4(Words):
         return self.carry_out(acc)
 
     def bar_limbs(self, x):
-        out, c, bit = [], 0, 0
-        for k in range(self.L):
-            o = 0
-            while c < len(self.chunks) and bit < 24 * (k + 1):
-                w, off = self.chunks[c], bit - 24 * k
-                o |= chi_word((x[k] >> off) & ((1 << w) - 1), w) << off
-                bit, c = bit + w, c + 1
-            out.append(o)
-        return out
+        return [chi_word(self.chunks, 24 * k, 24, v) for k, v in enumerate(x)]
+
+    def redc(self, x):
+        """``mont_redc``: the REDC of x alone (= ``mont_mul`` by plain 1)."""
+        acc = list(x)
+        for _ in range(self.L):
+            acc = self.redc_step(acc)
+        return self.carry_out(acc)
 
     def concrete(self, x):
+        t = self.cfg.t
         if self.plan.concrete == "dense":
-            return [self.fold(self.mont_row(x, self.mat[i]), self.f_conc) for i in range(self.cfg.t)]
+            return [self.fold(self.mont_row(x, self.mat[i]), self.f_conc) for i in range(t)]
+        row = [c[0] for c in self.mat[0]]  # the circulant's first row, plain
         out = []
-        for i in range(self.cfg.t):
+        for i in range(t):
             acc = [0] * self.L
-            for j in range(self.cfg.t):
-                acc = [a + self.mat[i][j][0] * w for a, w in zip(acc, x[j])]
+            for j in range(t):
+                acc = [a + row[(j - i) % t] * w for a, w in zip(acc, x[j])]
             out.append(self.fold_cols(acc, self.f_conc))
         return out
 
@@ -330,10 +370,11 @@ class Kernel4(Words):
         x = self.concrete(x)
         for r in range(cfg.rounds):
             for e in range(cfg.bars):
-                plain = self.store(self.mont_mul(x[e], self.one))  # reduce_once
+                plain = self.store(self.redc(x[e]))  # reduce_once
+                assert plain == self.store(self.mont_mul(x[e], self.one))
                 x[e] = self.mont_mul(self.bar_limbs(plain), self.r2)
             for i in range(cfg.t - 1, 0, -1):
-                sq = self.fold(self.mont_mul(x[i - 1], x[i - 1]), self.f_sq)
+                sq = self.fold(self.sqr(x[i - 1]), self.f_sq)
                 x[i] = self.fold(self.add_lazy(x[i], sq), self.f_add)
             x = [self.fold(self.add_lazy(v, c), self.f_rc) for v, c in zip(self.concrete(x), self.rc[r])]
         return [self.store(self.mont_mul(v, self.rho)) for v in x]
@@ -355,16 +396,16 @@ class Kernel4(Words):
             return ((v << r) | (v >> (n - r))) & p
 
         def concrete(x):
-            return [reduce(sum(word(self.mat[i][j]) * x[j] for j in range(cfg.t)), self.f_conc) for i in range(cfg.t)]
+            t = cfg.t
+            if self.plan.concrete == "dense":
+                return [reduce(sum(word(self.mat[i][j]) * x[j] for j in range(t)), self.f_conc) for i in range(t)]
+            row = [word(c) for c in self.mat[0]]  # the circulant's first row
+            return [reduce(sum(row[(j - i) % t] * x[j] for j in range(t)), self.f_conc) for i in range(t)]
 
         x = concrete([rotl(word(ls), n - s) for ls in limbs])
         for r in range(cfg.rounds):
             for e in range(cfg.bars):
-                o, bit = 0, 0
-                for w in self.chunks:
-                    o |= chi_word((x[e] >> bit) & ((1 << w) - 1), w) << bit
-                    bit += w
-                x[e] = o
+                x[e] = chi_word(self.chunks, 0, 32, x[e])
             for i in range(cfg.t - 1, 0, -1):
                 x[i] = reduce(x[i] + reduce(x[i - 1] * x[i - 1], self.f_sq), self.f_add)
             x = [reduce(v + word(c), self.f_rc) for v, c in zip(concrete(x), self.rc[r])]

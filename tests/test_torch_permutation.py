@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import TINY_FR, tiny_poseidon_config
+from test_torch_gmimc import _M64, Words, emulate
 
 import sponge_tpu
 import sponge_tpu_torch as st
@@ -31,7 +32,7 @@ from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops.bounds import check_kernel_bounds
 from sponge_tpu_torch.ops.poseidon_dense import permute_dense, permute_dense_plain
 from sponge_tpu_torch.ops.poseidon_opt import permute_opt, permute_opt_plain
-from sponge_tpu_torch.poseidon.config import PoseidonConfig
+from sponge_tpu_torch.poseidon.config import PoseidonConfig, constant_layout, kernel_constants
 from sponge_tpu_torch.poseidon.oracle import OraclePoseidonSponge
 
 TINY = {
@@ -231,3 +232,124 @@ def test_value_bounds_refuse_overflowing_config():
     check_kernel_bounds(cfg, False)
     with pytest.raises(ValueError, match="reach R"):
         check_kernel_bounds(cfg, True)
+
+
+# ---- word-by-word emulation of csrc/poseidon_opt.cu ----
+
+
+class Kernel1(Words):
+    """``csrc/poseidon_opt.cu`` for one lane: the stage loop (the linear
+    layer of the stage before: D after the partial phase, the MDS after a
+    full round; then a full round's round constants and ``pow_sqr`` on all
+    t elements in lockstep, or the partial phase), each sparse round's
+    ``sparse_linear`` (the row0 dot and both col0 products accumulated side
+    by side, each REDC step in turn, x_i added into its product's columns
+    before the carry), then ``store``.  ``vmax`` is the largest value any
+    element reached."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg.field)
+        self.cfg, self.vmax = cfg, 0
+        buf, off, self.c = [int(v) for v in kernel_constants(cfg)], 0, {}
+        L = self.L
+        for name, shape in constant_layout(cfg):
+            n = int(np.prod(shape))
+            flat = buf[off : off + n]
+            off += n
+            if len(shape) == 3:  # (rows, entries, L)
+                flat = [[flat[(r * shape[1] + e) * L :][:L] for e in range(shape[1])] for r in range(shape[0])]
+            self.c[name] = flat
+
+    def _see(self, xs):
+        self.vmax = max(self.vmax, *(sum(w << (24 * k) for k, w in enumerate(v)) for v in xs))
+        return xs
+
+    def add(self, xs, consts):
+        return self._see([self.add_lazy(v, c) for v, c in zip(xs, consts)])
+
+    def pow_sqr(self, xs):
+        """``pow_sqr``: MSB-first over the bits of alpha, every element
+        squared by ``sqr``, then multiplied by its input where the bit is
+        set."""
+        base = list(xs)
+        for bit in bin(self.cfg.alpha)[3:]:
+            xs = self._see([self.sqr(v) for v in xs])
+            if bit == "1":
+                xs = self._see([self.mont_mul(v, b) for v, b in zip(xs, base)])
+        return xs
+
+    def mat_apply(self, xs, mat):
+        return self._see([self.mont_row(xs, row) for row in mat])
+
+    def sparse_linear(self, xs, row, col):
+        L, t = self.L, self.cfg.t
+        acc = [[0] * L for _ in range(t)]
+        for i in range(L):
+            for j in range(t):
+                acc[0] = [(a + w * row[j][i]) & _M64 for a, w in zip(acc[0], xs[j])]
+            for e in range(1, t):
+                acc[e] = [(a + w * col[e - 1][i]) & _M64 for a, w in zip(acc[e], xs[0])]
+            acc = [self.redc_step(a) for a in acc]
+        for e in range(1, t):
+            acc[e] = [a + w for a, w in zip(acc[e], xs[e])]
+        self.colmax = max(self.colmax, *(a for col in acc for a in col))
+        return self._see([self.carry_out(a) for a in acc])
+
+    def permute(self, x):
+        cfg, c = self.cfg, self.c
+        half, F, P = cfg.full_rounds // 2, cfg.full_rounds, cfg.partial_rounds
+        for s in range(F + 2):
+            if s > 0:
+                x = self.mat_apply(x, c["dense"] if s == half + 1 else c["mds"])
+            if s > F:
+                break
+            if s != half:
+                x = self.pow_sqr(self.add(x, c["ark"][s if s < half else s + P - 1]))
+                continue
+            x = self.add(x, c["ark"][half])
+            for r in range(P):
+                x = self.pow_sqr(x[:1]) + x[1:]
+                if r == P - 1:
+                    break
+                x = self.sparse_linear(self.add(x, c["chat"][r]), c["row0"][r], c["col0"][r])
+        return [self.store(v) for v in x]
+
+
+def _bls_cut():
+    """BLS12-381 Fr rate 2 with its own constants, rounds cut to R_F = 4,
+    R_P = 6 (every stage of the kernel: two full rounds each side, the first
+    partial round, five sparse rounds, D)."""
+    bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
+    return PoseidonConfig(field=bls.field, full_rounds=4, partial_rounds=6, alpha=bls.alpha,
+                          ark=bls.ark[:10], mds=bls.mds, rate=2)
+
+
+KERNEL1 = {
+    "tiny-alpha5": lambda: interop.config_from_jax(tiny_poseidon_config(**TINY["alpha5"])),
+    "tiny-alpha17": lambda: interop.config_from_jax(tiny_poseidon_config(**TINY["alpha17"])),
+    "bls12_381-cut": _bls_cut,
+    "bls12_381-r2": lambda: st.get_default_poseidon_parameters(st.BLS12_381_FR, 2),
+    "bn254-r2": lambda: st.get_default_poseidon_parameters(st.BN254_FR, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL1))
+def test_kernel_emulation_matches_oracle(name):
+    """Kernel 1's word order on random lanes and on lanes of 0, 1, p-1, p-2
+    against the oracle; every column below 2^63 and every value below the
+    replay's bound (``check_kernel_bounds``), which the lanes come within 4x
+    of (the replay takes every value at its worst)."""
+    cfg = KERNEL1[name]()
+    vals = lanes(cfg.field.modulus, cfg.t, 20, 29)
+    kernel = Kernel1(cfg)
+    got = emulate(cfg, kernel, vals)
+    want = []
+    for b in range(len(vals[0])):
+        o = OraclePoseidonSponge(cfg)
+        o.state = [row[b] for row in vals]
+        o.permute()
+        want.append(o.state)
+    assert got == [list(col) for col in zip(*want)]
+    assert kernel.colmax < 1 << 63
+    vmax = check_kernel_bounds(cfg, True)
+    assert vmax // 4 < kernel.vmax < vmax

@@ -91,8 +91,10 @@ def test_ablation_plain_matches_python_ints(mode):
         full = r < half or r >= half + cfg.partial_rounds
         for e in range(cfg.t):
             want[e] = [(v + cfg.ark[r][e]) % p for v in want[e]]
-            if mode == "pow" and (full or e == 0):
+            if mode in ("pow", "full_mds") and (full or e == 0):
                 want[e] = [pow(v, cfg.alpha, p) for v in want[e]]
+        if mode == "full_mds" and full:
+            want = [[sum(c * want[j][b] for j, c in enumerate(row)) % p for b in range(2)] for row in cfg.mds]
     assert mont_tensor_to_ints(fs, out) == want
     assert probe.check_ablation_bounds(cfg) < 45 * p  # 33p: far below R = 565p
 
