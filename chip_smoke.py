@@ -31,7 +31,14 @@ permutations at B = 2^20, a lazy GMiMC sponge, a 2^14-leaf Griffin Merkle
 root; Monolith: the Goldilocks t = 12 and Mersenne31 t = 16 permutations at
 B = 2^20, a lazy Monolith-31 sponge, a 2^20-leaf wide-digest Goldilocks
 Merkle tree with 2^14 proofs opened and verified, a narrow BLS12-381 tree
-with one proof), and times each kernel beside its plain version with CUDA
+with one proof; sharded, Jive and checkpoints, in a world-size-1 NCCL group:
+the sharded permutation at B = 2^20 and transcript at 2^16 lanes, the
+sharded Merkle root over 2^24 BLS12-381 leaves with 2^14 sharded proofs,
+the sharded wide Monolith root, Jive-mode trees over 2^20 Anemoi t = 2
+and Griffin Goldilocks t = 8 leaves with proofs and the sharded Jive
+root, a Merkle level and a 2^16-lane sponge saved and resumed, the
+parity-gated scaling report, a profiler trace of the sharded root with
+the device's busy share, and the torchrun CLI in a subprocess), and times each kernel beside its plain version with CUDA
 events (kernel 5 at BLS12-381 also with its inverse S-box at windows 3 and
 4, in turns).  The plain version's timed run takes the path's own 2^20-lane input
 (for the BLS12-381 inverse-S-box families, Rescue, Griffin and Anemoi, 2^14
@@ -133,17 +140,8 @@ def lane_ints(fs, plane, b):
     return [fs.mont_plane_to_ints(plane[e, :, b : b + 1].cpu().numpy())[0] for e in range(plane.shape[0])]
 
 
-def oracle_for(cfg):
-    """A fresh scalar oracle sponge of the config's family."""
-    import sponge_tpu_torch as st
-
-    if isinstance(cfg, st.PoseidonConfig):
-        return st.OraclePoseidonSponge(cfg)
-    return cfg.oracle_sponge()
-
-
 def oracle_permute(cfg, vals):
-    o = oracle_for(cfg)
+    o = cfg.oracle_sponge()
     o.state = list(vals)
     o.permute()
     return o.state
@@ -666,6 +664,10 @@ def main():
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
+    start = time.perf_counter()
+
+    def elapsed(phase):
+        say("elapsed", f"{time.perf_counter() - start:.1f} s at the start of {phase}")
 
     # ---- 1. environment and build ----
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -682,6 +684,7 @@ def main():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             say("ptxas", line.strip())
 
+    elapsed("the probes")
     # ---- 2. the probes: the integer rates every bound below rests on ----
     rates = {"wide": SMS * WIDE_PER_CLOCK * sm_clock_hz, "narrow": SMS * IMAD_PER_CLOCK * sm_clock_hz}
     probe_entries = probe_phase(st, dev, rng, gpu, rates)
@@ -724,6 +727,7 @@ def main():
     census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("monolith_permute", mo_gl),
                                          ("monolith_permute", mo_m31)])
 
+    elapsed("the golden vectors")
     # ---- 3. golden vectors through the sponge on the card ----
     goldens = [
         ("Poseidon", bls, [0, 1, 2], 3,
@@ -768,6 +772,7 @@ def main():
         check(out[b] == o.squeeze_native_field_elements(1)[0], f"fixture lane {b}")
     say("golden", "reference test fixture (R_P = 29): 64 compressions == oracle")
 
+    elapsed("the kernel checks")
     # ---- 4. each kernel against its plain version ----
     kernels = {
         "poseidon_permute_opt": dict(
@@ -861,6 +866,7 @@ def main():
                 f"at B={B} incl. 64 edge lanes; 64 lanes == oracle; {bound_text}",
             )
 
+    elapsed("the Poseidon path")
     # ---- 5. the Poseidon path (kernels 1 and 2), launches counted ----
     fs = bls.field
     perm = permutation_for(bls, dev)
@@ -905,6 +911,7 @@ def main():
 
     check_merkle(bls, leaves, root, "Poseidon")
 
+    elapsed("the Poseidon2/Rescue path")
     # ---- 6. the Poseidon2 and Rescue-Prime path (kernels 3 and 5), launches counted ----
     p2_states = {
         cfg.field.name: with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
@@ -952,6 +959,7 @@ def main():
         check(r_bits[b] == o.squeeze_bits(260), f"Rescue sponge lane {b}: squeeze_bits")
     say("sponge", f"lazy Rescue-Prime sponge B={B_CHECK}: native/bytes/bits squeezes == oracle on 8 lanes")
 
+    elapsed("the GMiMC/Griffin/Anemoi path")
     # ---- 7. the GMiMC, Griffin and Anemoi path (kernels 8, 6 and 7), launches counted ----
     fam_cfgs = (m_bls, g_bls, a_bls, m_gl, g_gl, a_gl)
     fam_states = {
@@ -995,6 +1003,7 @@ def main():
     say("sponge", f"lazy GMiMC sponge B={B_CHECK}: native/bytes/bits squeezes == oracle on 8 lanes")
     check_merkle(g_gl, g_leaves, g_root, "Griffin")
 
+    elapsed("the Monolith path")
     # ---- 8. the Monolith path (kernel 4) with the Merkle API, launches counted ----
     mo_states = {
         id(cfg): with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
@@ -1060,7 +1069,14 @@ def main():
     say("merkle", f"narrow merkle_tree / merkle_open / merkle_verify over 2^14 {fs.name} Poseidon leaves: the "
         f"proof verifies, a wrong leaf fails")
 
-    # ---- 9. timing at the paths' shapes, beside each kernel's bound; the plain
+    elapsed("the sharded/Jive/checkpoint path")
+    # ---- 9. the sharded, Jive and checkpoint path (kernels 1, 4, 6 and 7), launches counted ----
+    launches5 = sharded_phase(st, dev, rng, gpu, kernels, bls, mo_gl, g_gl, a_bls1)
+    for name in SHARDED_PATH_KERNELS:
+        launches[name] += launches5[name]
+
+    elapsed("the timing")
+    # ---- 10. timing at the paths' shapes, beside each kernel's bound; the plain
     # version's timed run is on the path's own input lanes and must equal the
     # path's output there ----
     def time_kernel(name, cfg, big, lanes, path_out=None):
@@ -1115,10 +1131,18 @@ def main():
         kernels[name].update(time_kernel(name, cfg, fam_states[id(cfg)], lanes, fam_out[id(cfg)]))
     for name, cfg in (("gmimc_permute", m_gl), ("griffin_permute", g_gl), ("anemoi_permute", a_gl)):
         time_kernel(name, cfg, fam_states[id(cfg)], every, fam_out[id(cfg)])  # the path's other width
+    # the Jive path's Anemoi width, t = 2 (one Flystel pair): the kernel alone beside its bound
+    a2_state = random_plane(fs, (a_bls1.t, fs.nlimbs, B_MAIN), rng, dev)
+    a2_consts = kernels["anemoi_permute"]["perm"](a_bls1, dev).consts
+    a2_ms, _ = time_ms(lambda: anemoi_permute(a_bls1, a2_consts, a2_state))
+    a2_bound, a2_by = kernel_bound("anemoi_permute", a_bls1, B_MAIN, rates)
+    say("time", f"anemoi_permute {fs.name} t={a_bls1.t} B={B_MAIN} (the Jive width): kernel {a2_ms:.3f} ms; bound "
+        f"{a2_bound:.3f} ms ({a2_by}) [{gpu}]")
     kernels["monolith_permute"].update(time_kernel("monolith_permute", mo_gl, mo_states[id(mo_gl)], every,
                                                    mo_out[id(mo_gl)]))
     time_kernel("monolith_permute", mo_m31, mo_states[id(mo_m31)], every, mo_out[id(mo_m31)])
 
+    elapsed("the summary")
     for name, entry in probe_entries.items():
         kernels[name] = entry
         launches[name] = entry["launches"]
@@ -1167,7 +1191,7 @@ def check_merkle(cfg, leaves, root, family):
     while len(level) > 1:
         nxt = []
         for i in range(0, len(level), 2):
-            o = oracle_for(cfg)
+            o = cfg.oracle_sponge()
             o.absorb_field_elements(level[i : i + 2])
             nxt.append(o.squeeze_native_field_elements(1)[0])
         level = nxt
@@ -1190,7 +1214,7 @@ def check_merkle_wide(cfg, leaves, root):
     while len(level) > 1:
         nxt = []
         for i in range(0, len(level), 2):
-            o = oracle_for(cfg)
+            o = cfg.oracle_sponge()
             o.absorb_field_elements(level[i] + level[i + 1])
             nxt.append(o.squeeze_native_field_elements(d))
         level = nxt
@@ -1199,6 +1223,198 @@ def check_merkle_wide(cfg, leaves, root):
     n = f"2^{leaves.shape[-1].bit_length() - 1}"
     say("merkle", f"wide-digest (d = {d}) {fs.name} t={cfg.t} root over {n} leaves: kernel == plain; root over "
         f"2^10 leaves == oracle")
+
+
+SHARDED_PATH_KERNELS = ("poseidon_permute_opt", "monolith_permute", "griffin_permute", "anemoi_permute")
+B_TREE = 1 << 24  # BASELINE.json's Merkle workload
+K_PROOFS = 1 << 14
+CHECKPOINT_DEPTH = 10
+
+
+def jive_oracle(cfg, vals):
+    """One Jive_2 node by the oracle permutation: vals = left ‖ right."""
+    out, d, p = oracle_permute(cfg, vals), cfg.t // 2, cfg.field.modulus
+    return [(vals[j] + vals[d + j] + out[j] + out[d + j]) % p for j in range(d)]
+
+
+def check_jive_levels(cfg, levels, rng, what):
+    """Nodes at both ends and two random ones of every level == the oracle
+    replay of their two children (the top level is the root)."""
+    fs = cfg.field
+    for i in range(1, len(levels)):
+        n = levels[i].shape[-1]
+        for j in sorted({0, n - 1, int(rng.integers(n)), int(rng.integers(n))}):
+            kids = lane_ints(fs, levels[i - 1], 2 * j) + lane_ints(fs, levels[i - 1], 2 * j + 1)
+            check(lane_ints(fs, levels[i], j) == jive_oracle(cfg, kids), f"{what}: level {i} node {j} != oracle")
+
+
+def sharded_phase(st, dev, rng, gpu, kernels, bls, mo_gl, g_gl, a_bls1):
+    """The data-parallel layer in a world-size-1 NCCL group, Jive-mode trees
+    and checkpoints.  Zeroes the launch counters, drives the path, reads the
+    counters (kernels 1, 4, 6 and 7 must have run), then checks every result
+    against the unsharded functions, the plain versions and the oracle, and
+    times the path: the sharded 2^24-leaf root, the 2^20-leaf Jive roots,
+    the scaling report, a profiler trace of the sharded root with its busy
+    share, and the torchrun CLI.  Returns the path's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from sponge_tpu_torch import checkpoint as ck
+    from sponge_tpu_torch import hash as h
+    from sponge_tpu_torch.parallel import (
+        multihost,
+        sharded_merkle_root,
+        sharded_merkle_root_jive,
+        sharded_merkle_root_wide,
+        sharded_merkle_verify_batch,
+        sharded_permute_fn,
+        sharded_transcript_fn,
+    )
+    from sponge_tpu_torch.transcript import Absorb, SqueezeNative
+    from sponge_tpu_torch.utils import profiling
+
+    fs, gl = bls.field, g_gl.field
+    multihost.initialize()  # no launcher: a world-size-1 NCCL group on cuda:0
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "not a world-size-1 NCCL group")
+    mesh = multihost.global_mesh()
+    say("sharded", f"process group: backend {dist.get_backend()}, world size 1, mesh {mesh}")
+    state = with_edges(fs, random_plane(fs, (bls.t, fs.nlimbs, B_MAIN), rng, dev))
+    steps = (Absorb(3), SqueezeNative(2), Absorb(1), SqueezeNative(3))
+    elems = random_plane(fs, (4, fs.nlimbs, B_CHECK), rng, dev)
+    leaves = random_plane(fs, (fs.nlimbs, B_TREE), rng, dev)
+    levels = h.merkle_tree(bls, leaves)  # the unsharded reference
+    root = levels[-1][:, 0]
+    idx = torch.from_numpy(np.concatenate([[0, B_TREE - 1], rng.choice(B_TREE, K_PROOFS - 2, replace=False)]))
+    paths = h.merkle_open_batch(levels, idx)
+    proof_leaves = leaves[:, idx.to(dev)].clone()
+    proof_leaves[:, 77] = leaves[:, int(idx[78])]  # a canonical leaf that is not this proof's
+    d = h.default_digest_elems(mo_gl)
+    wide = random_plane(gl, (d, gl.nlimbs, B_MAIN), rng, dev)
+    a_leaves = random_plane(a_bls1.field, (a_bls1.t // 2, a_bls1.field.nlimbs, B_MAIN), rng, dev)
+    g_leaves = random_plane(gl, (g_gl.t // 2, gl.nlimbs, B_MAIN), rng, dev)
+    g_idx = torch.from_numpy(np.concatenate([[0, B_MAIN - 1], rng.choice(B_MAIN, K_PROOFS - 2, replace=False)]))
+    sponge_vals = random_plane(fs, (3, fs.nlimbs, B_CHECK), rng, dev)
+    work = pathlib.Path(__file__).resolve().parent / "build"
+    work.mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=work))
+
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    sh_out = sharded_permute_fn(bls, mesh)(state)
+    sh_tr = sharded_transcript_fn(bls, steps, mesh)(elems)
+    sh_root = sharded_merkle_root(bls, leaves, mesh)
+    sh_ok = sharded_merkle_verify_batch(bls, root, proof_leaves, paths, idx, mesh)
+    sh_wide = sharded_merkle_root_wide(mo_gl, wide, mesh)
+    a_levels = h.merkle_tree_jive(a_bls1, a_leaves)
+    g_levels = h.merkle_tree_jive(g_gl, g_leaves)
+    g_paths = h.merkle_open_batch_wide(g_levels, g_idx)
+    g_bad = g_paths.clone()
+    g_bad[5, :, :, 11] = g_leaves[..., 0]
+    g_ok = h.merkle_verify_batch_jive(g_gl, g_levels[-1][..., 0], g_leaves[..., g_idx.to(dev)], g_paths, g_idx)
+    g_refused = h.merkle_verify_batch_jive(g_gl, g_levels[-1][..., 0], g_leaves[..., g_idx.to(dev)], g_bad, g_idx)
+    sh_jive = sharded_merkle_root_jive(g_gl, g_leaves, mesh)
+    ck.save_merkle_level(tmp / "level.npz", bls, levels[CHECKPOINT_DEPTH], CHECKPOINT_DEPTH)
+    level, depth = ck.load_merkle_level(tmp / "level.npz", bls, device=dev)
+    resumed_root = h.merkle_root(bls, level)
+    sponge = st.PoseidonSponge(bls, batch_size=B_CHECK, device=dev)
+    sponge.absorb(b"checkpointed transcript")
+    sponge.absorb_element_plane(sponge_vals[:2])
+    sponge.squeeze_native_field_elements(1)
+    sponge.absorb_element_plane(sponge_vals[2:])
+    ck.save_sponge(tmp / "sponge.npz", sponge)
+    loaded = ck.load_sponge(tmp / "sponge.npz", bls, device=dev)
+    want_sq, got_sq = sponge.squeeze_native_field_elements(4), loaded.squeeze_native_field_elements(4)
+    report = multihost.scaling_report(bls, B_MAIN)
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for name in SHARDED_PATH_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the sharded/Jive/checkpoint path")
+    say("launches", "sharded/Jive/checkpoint path: " + json.dumps(launches))
+
+    check(torch.equal(sh_out, st.batched_permute(bls, state)), "sharded_permute_fn != batched_permute")
+    check(torch.equal(sh_tr, st.compile_transcript(bls, steps)(elems)), "sharded_transcript_fn != compile_transcript")
+    say("sharded", f"sharded_permute_fn {fs.name} rate 2 at B=2^20 == batched_permute; sharded_transcript_fn "
+        f"(absorb 3, squeeze 2, absorb 1, squeeze 3) at 2^16 lanes == compile_transcript")
+    check(torch.equal(sh_root, root), "sharded_merkle_root over 2^24 leaves != merkle_root")
+    check(not bool(sh_ok[77]) and bool(sh_ok[:77].all()) and bool(sh_ok[78:].all()),
+          "sharded_merkle_verify_batch: only the tampered proof must fail")
+    check(depth == CHECKPOINT_DEPTH and torch.equal(level, levels[CHECKPOINT_DEPTH])
+          and torch.equal(resumed_root, root), "Merkle level checkpoint: resume != root")
+    say("sharded", f"sharded_merkle_root over 2^24 {fs.name} leaves (738 MB) == merkle_root; "
+        f"sharded_merkle_verify_batch: {K_PROOFS} proofs (leaves 0 and 2^24-1 among them) verify, the tampered one "
+        f"fails alone; level {CHECKPOINT_DEPTH} saved, loaded and resumed to the same root")
+    check(torch.equal(sh_wide, h.merkle_root_wide(mo_gl, wide)), "sharded_merkle_root_wide != merkle_root_wide")
+    say("sharded", f"sharded_merkle_root_wide Monolith {gl.name} t={mo_gl.t} d={d} over 2^20 leaves == "
+        f"merkle_root_wide")
+    check(want_sq == got_sq, "sponge checkpoint: the loaded sponge squeezes differently")
+    say("checkpoint", f"PoseidonSponge B={B_CHECK} saved mid-transcript ({loaded.mode}, index {loaded.index}), "
+        f"loaded on the card: the same 4 squeezes on every lane")
+
+    check(torch.equal(sh_jive, g_levels[-1][..., 0]), "sharded_merkle_root_jive != merkle_root_jive")
+    check(bool(g_ok.all()), f"Jive proofs: {int((~g_ok).sum())} failed")
+    check(not bool(g_refused[11]) and bool(g_refused[:11].all()) and bool(g_refused[12:].all()),
+          "a tampered Jive proof: only its own lane must fail")
+    for cfg, lv, what in ((a_bls1, a_levels, "Anemoi"), (g_gl, g_levels, "Griffin")):
+        check_jive_levels(cfg, lv, rng, f"{what} Jive tree")
+    sub = 1 << 10
+    check(torch.equal(h.merkle_root_jive(g_gl, g_leaves[..., :sub], backend="plain"), g_levels[10][..., 0]),
+          "Griffin Jive root over 2^10 leaves: kernel != plain")
+    say("jive", f"merkle_tree_jive Anemoi {fs.name} t={a_bls1.t} and Griffin {gl.name} t={g_gl.t} (d = 4) over "
+        f"2^20 leaves: 4 nodes of every level == oracle (the roots included); Griffin 2^10-leaf subtree root == "
+        f"plain; {K_PROOFS} Griffin proofs verify, one tampered fails alone; sharded_merkle_root_jive == "
+        f"merkle_root_jive")
+    for cfg in (a_bls1, g_gl):
+        cf = cfg.field
+        x = with_edges(cf, random_plane(cf, (cfg.t, cf.nlimbs, K_PROOFS), rng, dev))
+        half = cfg.t // 2
+        got = h.jive_compress_pairs(cfg, x[:half], x[half:])
+        plain = h.jive_compress_pairs(cfg, x[:half], x[half:], backend="plain")
+        check(torch.equal(got, plain), f"jive_compress_pairs {cf.name} t={cfg.t}: kernel != plain")
+        for b in (0, 1, 2, 63, K_PROOFS - 1):
+            check(lane_ints(cf, got, b) == jive_oracle(cfg, lane_ints(cf, x, b)), f"Jive node {b} != oracle")
+        say("jive", f"jive_compress_pairs {cf.name} t={cfg.t}: torch.equal(kernel, plain) on {K_PROOFS} lanes incl. "
+            f"64 edge lanes (0, 1, p-1, p-2); 5 nodes == oracle permutation + the four-term sum")
+
+    check(report["devices"] == 1 and report["perms_per_sec"] > 0, f"scaling_report: {report}")
+    say("time", f"scaling_report (parity-gated) world size 1, 2^20 lanes: {report['perms_per_sec']:,.0f} perms/s "
+        f"per device [{gpu}]")
+    for what, fn in (
+        ("sharded_merkle_root 2^24 BLS12-381 leaves", lambda: sharded_merkle_root(bls, leaves, mesh)),
+        ("merkle_root 2^24 BLS12-381 leaves (unsharded)", lambda: h.merkle_root(bls, leaves)),
+        (f"merkle_root_jive Anemoi t={a_bls1.t} 2^20 leaves", lambda: h.merkle_root_jive(a_bls1, a_leaves)),
+        (f"merkle_root_jive Griffin {gl.name} t={g_gl.t} 2^20 leaves", lambda: h.merkle_root_jive(g_gl, g_leaves)),
+        (f"sharded_merkle_root_jive Griffin {gl.name} 2^20 leaves",
+         lambda: sharded_merkle_root_jive(g_gl, g_leaves, mesh)),
+    ):
+        ms, _ = time_ms(fn, reps=2)
+        say("time", f"{what}: {ms:.3f} ms [{gpu}]")
+
+    with profiling.trace(tmp / "trace"):
+        with profiling.annotate("sharded_merkle_root_2^24"):
+            traced = sharded_merkle_root(bls, leaves, mesh)
+    check(torch.equal(traced, root), "traced sharded root != merkle_root")
+    busy = profiling.device_busy_share(tmp / "trace")
+    names = ", ".join(f"{n.split('(')[0].split('<')[0].replace('void ', '')} {us / 1e3:.3f} ms"
+                      for n, us in sorted(busy["kernels"].items(), key=lambda kv: -kv[1])[:4])
+    check(any("poseidon_opt_kernel" in n for n in busy["kernels"]), "kernel 1 is not among the trace's CUDA kernels")
+    say("trace", f"sharded_merkle_root 2^24 under torch.profiler: device busy {busy['busy_share'] * 100:.1f}% of "
+        f"{busy['window_us'] / 1e3:.3f} ms ({busy['kernel_us'] / 1e3:.3f} ms in kernels); top kernels: {names} [{gpu}]")
+
+    cli = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node=1",
+         "-m", "sponge_tpu_torch.parallel.multihost", "--batch-per-device", str(B_MAIN)],
+        capture_output=True, text=True, timeout=300, cwd=pathlib.Path(__file__).resolve().parent,
+    )
+    check(cli.returncode == 0, f"torchrun multihost CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    cli_report = json.loads(cli.stdout.strip().splitlines()[-1])
+    check(cli_report["devices"] == 1 and cli_report["perms_per_sec"] > 0, f"CLI report {cli_report}")
+    say("time", f"torchrun --nproc-per-node=1 -m sponge_tpu_torch.parallel.multihost (2^20 lanes): "
+        f"{cli_report['perms_per_sec']:,.0f} perms/s [{gpu}]")
+    dist.destroy_process_group()
+    shutil.rmtree(tmp)
+    return launches
 
 
 if __name__ == "__main__":

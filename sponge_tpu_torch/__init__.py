@@ -9,6 +9,8 @@ transcript and hashing surface over ``(t, L, B)`` int32 Montgomery planes of
 (``csrc/anemoi.cu``) and Monolith (``csrc/monolith.cu``), each with a plain
 PyTorch version for CPU tensors.
 Every family's config drives every entry point a ``PoseidonConfig`` does.
+``sponge_tpu_torch.parallel`` shards the lanes over a ``torch.distributed``
+group; ``checkpoint`` and ``utils.profiling`` save state and trace runs.
 It imports neither JAX nor ``sponge_tpu``.
 """
 
@@ -31,6 +33,8 @@ from .absorb import (
     TEPoint,
     Usize,
     WithLength,
+    collect_sponge_bytes,
+    collect_sponge_field_elements,
     field_cast,
     to_sponge_bytes,
     to_sponge_field_elements,
@@ -84,11 +88,14 @@ from .poseidon.oracle import (
     OraclePoseidonSponge,
     SpongeState,
     Truncated,
+    field_element_size_num_bits,
+    field_element_size_sum,
 )
 from .poseidon.params import (
     find_poseidon_ark_and_mds,
     get_default_poseidon_parameters,
     poseidon_test_fixture,
+    register_default_table,
 )
 from .poseidon.permutation import (
     PoseidonPermutation,
@@ -132,8 +139,12 @@ __all__ = [
     "BLS12_381_FR",
     "BLS12_381_FR_L13",
     "BN254_FR",
+    "collect_sponge_bytes",
+    "collect_sponge_field_elements",
     "compile_transcript",
     "field_cast",
+    "field_element_size_num_bits",
+    "field_element_size_sum",
     "FieldSpec",
     "find_poseidon_ark_and_mds",
     "Fp",
@@ -187,6 +198,7 @@ __all__ = [
     "PoseidonPermutation",
     "PoseidonSponge",
     "rescue_round_count",
+    "register_default_table",
     "RescueConfig",
     "RescuePermutation",
     "smallest_alpha",

@@ -255,3 +255,21 @@ def to_sponge_bytes(x, dest: Optional[bytearray] = None) -> bytes:
         raise TypeError(f"not absorbable: {type(x)!r}")
     return bytes(out)
 
+
+
+def collect_sponge_bytes(*items) -> bytes:
+    """The byte wire format of several values, concatenated
+    (``collect_sponge_bytes!``)."""
+    out = bytearray()
+    for item in items:
+        to_sponge_bytes(item, out)
+    return bytes(out)
+
+
+def collect_sponge_field_elements(fs: FieldSpec, *items) -> list:
+    """The field-element wire format of several values, concatenated
+    (``collect_sponge_field_elements!``)."""
+    out = []
+    for item in items:
+        to_sponge_field_elements(item, fs, out)
+    return out

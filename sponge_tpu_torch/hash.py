@@ -2,16 +2,18 @@
 
 Counterpart of ``sponge_tpu/hash.py:23-506``: batched 2-to-1 compression
 (one permutation per node), fixed-length hashing of element blocks, the
-Merkle root and tree with batched opening and verification, and the same
-over wide digests (d-element nodes, for small fields).  Every config of the
-port drives them.  The kernels take any batch width, so levels are neither
-chunked nor padded (the JAX package pads to reuse XLA compilations).
+Merkle root and tree with batched opening and verification, the same over
+wide digests (d-element nodes, for small fields), and Jive-mode trees
+(``sponge_tpu/hash.py:509-619``).  Every config of the port drives them.
+The kernels take any batch width, so levels are neither chunked nor padded
+(the JAX package pads to reuse XLA compilations).
 """
 
 from __future__ import annotations
 
 import torch
 
+from .ops import montgomery as mont
 from .poseidon.permutation import SpongeConfig, batched_permute, zero_state
 from .transcript import add_rows
 
@@ -151,17 +153,23 @@ def compress_digest_pairs(
     return hash_elements(cfg, torch.cat([left, right]), num_outputs=left.shape[0], backend=backend)
 
 
-def merkle_tree_wide(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> list:
-    """All levels of a wide-digest tree, leaves first: [(d, L, N), ...,
-    (d, L, 1)]; N a power of two."""
+def _tree_levels(cfg, leaves: torch.Tensor, backend: str, compress) -> list:
+    """[(d, L, N), ..., (d, L, 1)]: each level compresses adjacent pairs of
+    the one below with ``compress``; N a power of two."""
     d, L, N = leaves.shape
     if N < 1 or N & (N - 1):
         raise ValueError("leaf count must be a power of two")
     levels = [leaves]
     while levels[-1].shape[-1] > 1:
         pairs = levels[-1].reshape(d, L, levels[-1].shape[-1] // 2, 2)
-        levels.append(compress_digest_pairs(cfg, pairs[..., 0], pairs[..., 1], backend))
+        levels.append(compress(cfg, pairs[..., 0], pairs[..., 1], backend))
     return levels
+
+
+def merkle_tree_wide(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> list:
+    """All levels of a wide-digest tree, leaves first: [(d, L, N), ...,
+    (d, L, 1)]; N a power of two."""
+    return _tree_levels(cfg, leaves, backend, compress_digest_pairs)
 
 
 def merkle_root_wide(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> torch.Tensor:
@@ -176,12 +184,12 @@ merkle_open_batch_wide = merkle_open_batch
 
 def merkle_verify_batch_wide(
     cfg: SpongeConfig, root: torch.Tensor, leaves: torch.Tensor, paths: torch.Tensor, indices,
-    backend: str = "auto",
+    backend: str = "auto", compress=compress_digest_pairs,
 ) -> torch.Tensor:
     """Verify K wide-digest proofs: ``root`` (d, L), ``leaves`` (d, L, K),
     ``paths`` (depth, d, L, K) -> (K,) bool: K roots recomputed, one batched
-    compression per level.  The port's planes are canonical, so equal limbs
-    are equal values."""
+    ``compress`` per level (``jive_compress_pairs`` for a Jive tree).  The
+    port's planes are canonical, so equal limbs are equal values."""
     depth = paths.shape[0]
     idx = _indices(indices, 1 << depth, f"path depth {depth}", leaves.device)
     cur = leaves
@@ -189,6 +197,52 @@ def merkle_verify_batch_wide(
         is_left = (idx & 1) == 0  # the lane is the left child
         left = torch.where(is_left, cur, paths[d])
         right = torch.where(is_left, paths[d], cur)
-        cur = compress_digest_pairs(cfg, left, right, backend)
+        cur = compress(cfg, left, right, backend)
         idx = idx >> 1
     return (cur == root[..., None]).reshape(-1, cur.shape[-1]).all(0)
+
+
+# ---- Jive mode: the Anemoi paper's Merkle compression (ePrint 2022/840 §4) ----
+#
+# Jive_2 maps the whole t-element state to d = t/2 digest elements with one
+# permutation and a feed-forward sum, with no capacity: a t = 2 permutation
+# compresses two one-element digests.  Any even-width config drives it.
+
+
+def jive_compress_pairs(
+    cfg: SpongeConfig, left: torch.Tensor, right: torch.Tensor, backend: str = "auto"
+) -> torch.Tensor:
+    """(d, L, B) x (d, L, B) -> (d, L, B), d = t/2:
+    ``digest_j = x_j + x_{d+j} + P(x)_j + P(x)_{d+j}`` with x = left ‖ right.
+    The sum is reduced mod p, so the output is canonical (the JAX package's
+    stays below 2p)."""
+    d = left.shape[0]
+    if cfg.t != 2 * d:
+        raise ValueError(f"Jive_2 needs t = 2 * digest width; got t={cfg.t}, d={d}")
+    fs = cfg.field
+    x = torch.cat([left, right])
+    px = batched_permute(cfg, x, backend)
+    inputs = mont.mont_add(fs, x[:d], x[d:])
+    outputs = mont.mont_add(fs, px[:d], px[d:])
+    return mont.mont_add(fs, inputs, outputs).int()
+
+
+def merkle_tree_jive(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> list:
+    """All levels of a Jive-mode tree, leaves first: [(d, L, N), ...,
+    (d, L, 1)], d = t/2, N a power of two.  Open proofs with
+    ``merkle_open_batch_wide``; check them with ``merkle_verify_batch_jive``."""
+    return _tree_levels(cfg, leaves, backend, jive_compress_pairs)
+
+
+def merkle_root_jive(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """(d, L, N) digest plane -> (d, L) Jive-mode root, one permutation per node."""
+    return merkle_tree_jive(cfg, leaves, backend)[-1][..., 0]
+
+
+def merkle_verify_batch_jive(
+    cfg: SpongeConfig, root: torch.Tensor, leaves: torch.Tensor, paths: torch.Tensor, indices,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """``merkle_verify_batch_wide`` with the Jive_2 compression: root (d, L),
+    leaves (d, L, K), paths (depth, d, L, K) -> (K,) bool."""
+    return merkle_verify_batch_wide(cfg, root, leaves, paths, indices, backend, jive_compress_pairs)

@@ -54,6 +54,13 @@ class PoseidonConfig:
     def rounds(self) -> int:
         return self.full_rounds + self.partial_rounds
 
+    def oracle_sponge(self):
+        """A scalar python-int duplex sponge over this permutation: the
+        hook every family config has."""
+        from .oracle import OraclePoseidonSponge
+
+        return OraclePoseidonSponge(self)
+
 
 def mont_limb_rows(fs: FieldSpec, rows) -> np.ndarray:
     """Nested int rows -> int32 array of Montgomery limbs, limb axis last."""

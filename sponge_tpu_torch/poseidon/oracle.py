@@ -38,6 +38,12 @@ def field_element_size_num_bits(size, fs: FieldSpec) -> int:
     return fs.modulus_bit_size - 1
 
 
+def field_element_size_sum(sizes, fs: FieldSpec) -> int:
+    """``FieldElementSize::sum``: the bits a size list yields (each size
+    ``field_element_size_num_bits``)."""
+    return sum(field_element_size_num_bits(s, fs) for s in sizes)
+
+
 def bits_le_to_bytes(bits) -> bytes:
     """LE bit chunks -> bytes, as in the non-native squeeze."""
     out = bytearray()

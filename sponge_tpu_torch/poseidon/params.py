@@ -164,6 +164,42 @@ _DEFAULT_CAPACITY = {
     "koalabear_fr": 8,
 }
 
+
+def register_default_table(
+    fs: FieldSpec,
+    table,
+    capacity: int = 1,
+    optimized_for_weights_table=None,
+) -> None:
+    """Register default Poseidon tables for a user-supplied field, so that
+    ``get_default_poseidon_parameters`` serves it (the hook of the
+    reference's ``PoseidonDefaultConfig`` trait).
+
+    ``table``: rows ``(rate, alpha, full_rounds, partial_rounds,
+    skip_matrices)``; ``optimized_for_weights_table`` defaults to ``table``;
+    ``capacity`` in state elements.  Registering a field name again, or a
+    shipped field's name, replaces its tables.
+    """
+
+    def validated(t):
+        rows = tuple(tuple(int(v) for v in row) for row in t)
+        for row in rows:
+            if len(row) != 5:
+                raise ValueError(
+                    "table rows must be (rate, alpha, full_rounds, partial_rounds,"
+                    f" skip_matrices); got {row}"
+                )
+        return rows
+
+    rows = validated(table)
+    weights = rows if optimized_for_weights_table is None else validated(optimized_for_weights_table)
+    if capacity < 1:
+        raise ValueError("capacity must be >= 1")
+    _DEFAULT_TABLES[fs.name] = {False: rows, True: weights}
+    _DEFAULT_CAPACITY[fs.name] = capacity
+    get_default_poseidon_parameters.cache_clear()  # it caches by field, not by table
+
+
 _VECTORS = pathlib.Path(__file__).resolve().parents[2] / "vectors"
 
 

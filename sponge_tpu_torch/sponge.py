@@ -125,6 +125,19 @@ class PoseidonSponge:
         col = ints_to_mont_tensor(fs, [[e] for e in elems], self.device)  # (k, L, 1)
         self.absorb_element_plane(col.expand(len(elems), fs.nlimbs, self.batch_size))
 
+    def absorb_stream(self, chunks) -> int:
+        """Absorb an iterable of inputs chunk by chunk, in bounded memory.
+        A chunk is a pre-encoded (k, L, B) Montgomery element plane (a 3-D
+        tensor) or anything ``absorb`` takes.  Returns the number of chunks."""
+        n = 0
+        for chunk in chunks:
+            if isinstance(chunk, torch.Tensor) and chunk.dim() == 3:
+                self.absorb_element_plane(chunk)
+            else:
+                self.absorb(chunk)
+            n += 1
+        return n
+
     def absorb_element_plane(self, elems: torch.Tensor):
         """Absorb a pre-encoded (k, L, B) canonical Montgomery element plane."""
         if elems.shape[0] == 0:
