@@ -38,7 +38,15 @@ the sharded wide Monolith root, Jive-mode trees over 2^20 Anemoi t = 2
 and Griffin Goldilocks t = 8 leaves with proofs and the sharded Jive
 root, a Merkle level and a 2^16-lane sponge saved and resumed, the
 parity-gated scaling report, a profiler trace of the sharded root with
-the device's busy share, and the torchrun CLI in a subprocess), and times each kernel beside its plain version with CUDA
+the device's busy share, and the torchrun CLI in a subprocess; the host
+runtime, the tracer and the examples: the native C++ host libraries must
+build, the Fiat-Shamir example at 2^20 transcripts with 4,096 of them
+verified by ``host_run_schedule``, the Merkle example at 2^20 Goldilocks
+leaves with 2^14 proofs, the family tour, each tour config's permutation at
+2^16 states against ``host_permute_states`` on every lane, and a random
+lazy-sponge schedule whose lane the R1CS tracer reproduces, with the host
+side's times beside the card's on ``[host]``/``[codec]`` lines), and times
+each kernel beside its plain version with CUDA
 events (kernel 5 at BLS12-381 also with its inverse S-box at windows 3 and
 4, in turns).  The plain version's timed run takes the path's own 2^20-lane input
 (for the BLS12-381 inverse-S-box families, Rescue, Griffin and Anemoi, 2^14
@@ -54,8 +62,11 @@ prints no result.  It imports nothing of JAX or sponge_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -1075,8 +1086,14 @@ def main():
     for name in SHARDED_PATH_KERNELS:
         launches[name] += launches5[name]
 
+    elapsed("the host runtime/tracer/examples path")
+    # ---- 10. the host runtime, the tracer and the examples (kernels 1, 3-8), launches counted ----
+    launches6 = host_phase(st, dev, rng, gpu, kernels)
+    for name in HOST_PATH_KERNELS:
+        launches[name] += launches6[name]
+
     elapsed("the timing")
-    # ---- 10. timing at the paths' shapes, beside each kernel's bound; the plain
+    # ---- 11. timing at the paths' shapes, beside each kernel's bound; the plain
     # version's timed run is on the path's own input lanes and must equal the
     # path's output there ----
     def time_kernel(name, cfg, big, lanes, path_out=None):
@@ -1414,6 +1431,229 @@ def sharded_phase(st, dev, rng, gpu, kernels, bls, mo_gl, g_gl, a_bls1):
         f"{cli_report['perms_per_sec']:,.0f} perms/s [{gpu}]")
     dist.destroy_process_group()
     shutil.rmtree(tmp)
+    return launches
+
+
+HOST_PATH_KERNELS = ("poseidon_permute_opt", "poseidon2_permute", "rescue_permute", "monolith_permute",
+                     "griffin_permute", "anemoi_permute", "gmimc_permute")
+B_HOST = 1 << 16  # states per family through the host runtime and the card
+FS_LANES = 1 << 20  # Fiat-Shamir transcripts on the card
+FS_VERIFY = 4096  # of them verified on the host, half from each end
+MERKLE_PROOFS = 1 << 14
+MEDIAN_REPS = 1000
+
+
+def cpu_model() -> str:
+    """The host CPU's model (``/proc/cpuinfo``) and its logical CPU count."""
+    found = re.search(r"^model name\s*:\s*(.+)$", pathlib.Path("/proc/cpuinfo").read_text(), re.M)
+    return f"{found.group(1).strip() if found else 'not reported'} x {os.cpu_count()}"
+
+
+def median_us(fn, reps=MEDIAN_REPS):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e6
+
+
+def run_example(main, **kwargs):
+    """Call an example's ``main`` and return (its result, its printed lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(**kwargs)
+    return result, buf.getvalue().splitlines()
+
+
+def host_phase(st, dev, rng, gpu, kernels):
+    """The verifier's side and the examples.  Refuses a missing native
+    library (no hidden fallback to the oracle), zeroes the launch counters,
+    drives the Fiat-Shamir example at 2^20 transcripts, the Merkle example
+    at 2^20 Goldilocks leaves with 2^14 proofs, the family tour, every tour
+    config's permutation at 2^16 states and a random schedule of the lazy
+    sponge, and reads the counters (kernels 1 and 3-8 must have run).  Then
+    it checks the card against the host runtime (4,096 transcripts, every
+    lane of the 2^16 states per family), the native codec against the pure
+    path, and the tracer against the card's lane, and times the host side
+    beside the card.  Returns the path's launch counts."""
+    import shutil
+    import tempfile
+
+    from sponge_tpu_torch.examples import family_tour, fiat_shamir, merkle_commitment
+    from sponge_tpu_torch.fields import ints_to_limbs, limbs_to_ints
+    from sponge_tpu_torch.ops import montgomery as mont
+    from sponge_tpu_torch.poseidon import host
+    from sponge_tpu_torch.tracer import ConstraintSystem, FpVar, PoseidonSpongeVar
+    from sponge_tpu_torch.transcript import compile_transcript
+    from sponge_tpu_torch.utils import native, profiling
+
+    where = f"[{gpu}; host {cpu_model()}]"
+    tour = family_tour.configs()
+    t0 = time.perf_counter()
+    check(native.get_poseidon_lib() is not None, "the native host runtime did not build (no C++ compiler?)")
+    check(native.get_lib() is not None, "the native codec did not build")
+    for name, cfg in tour:
+        check(host.host_available(cfg), f"host runtime unavailable for {name}")
+    say("host", f"native host runtime and codec built with the system C++ compiler in "
+        f"{time.perf_counter() - t0:.1f} s; host_available for all {len(tour)} tour configs")
+
+    bls = tour[0][1]
+    fs = bls.field
+    states = {name: with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_HOST), rng, dev))
+              for name, cfg in tour}
+    steps, k_abs = [], 0
+    for i in range(10):
+        n = int(rng.integers(1, 6))
+        steps.append(("absorb" if i % 2 == 0 else "squeeze", n))
+        k_abs += n if i % 2 == 0 else 0
+    sponge_elems = random_plane(fs, (k_abs, fs.nlimbs, B_CHECK), rng, dev)
+
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    (msgs, fs_elems, challenges), fs_lines = run_example(fiat_shamir.main, device=dev, lanes=FS_LANES)
+    root, mk_lines = run_example(merkle_commitment.main, device=dev, lanes=B_MAIN, proofs=MERKLE_PROOFS)
+    tour_out, tour_lines = run_example(family_tour.main, device=dev)
+    outs = {name: st.batched_permute(cfg, states[name]) for name, cfg in tour}
+    sponge = st.PoseidonSponge(bls, batch_size=B_CHECK, device=dev)
+    squeezed, pos = [], 0
+    for kind, n in steps:
+        if kind == "absorb":
+            sponge.absorb_element_plane(sponge_elems[pos : pos + n])
+            pos += n
+        else:
+            squeezed.append(sponge.squeeze_native_plane(n))
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for name in HOST_PATH_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the host runtime/tracer/examples path")
+    say("launches", "host runtime/tracer/examples path: " + json.dumps(launches))
+
+    # the examples printed their load-bearing lines (each after its own check)
+    for lines, want in ((fs_lines, "challenges match the device transcript lane"),
+                        (mk_lines, f"opened+verified {MERKLE_PROOFS} proofs"),
+                        *((tour_lines, f"{name}: challenge=") for name, _ in tour)):
+        check(any(want in line for line in lines), f"an example did not print {want!r}")
+    for line in fs_lines + mk_lines + tour_lines:
+        say("example", line.strip())
+
+    # Fiat-Shamir: the codec against the pure path, then 4,096 transcripts on the host
+    sample = [int(v) for v in msgs[:, : 1 << 12].reshape(-1)]  # 2^14 of the absorbed values
+    plane = fs.ints_to_mont_plane(sample)
+    check(np.array_equal(plane, ints_to_limbs(fs, [fs.to_mont(x) for x in sample])), "native encode != pure")
+    check(fs.mont_plane_to_ints(plane) == sample, "native decode != pure")
+    lanes = np.concatenate([np.arange(FS_VERIFY // 2), np.arange(FS_LANES - FS_VERIFY // 2, FS_LANES)])
+    sel = torch.from_numpy(lanes).to(dev)
+    card = list(zip(*(limbs_to_ints(fs, row.index_select(-1, sel).cpu().numpy()) for row in challenges)))
+    for j, b in enumerate(lanes):
+        got, _ = host.host_run_schedule(bls, fiat_shamir.STEPS, [int(v) for v in msgs[:, b]])
+        check(got == list(card[j]), f"Fiat-Shamir lane {b}: host {got} != card {card[j]}")
+    for j in list(range(8)) + list(range(FS_VERIFY - 8, FS_VERIFY)):
+        want = fiat_shamir.oracle_challenges(bls, [int(v) for v in msgs[:, lanes[j]]])
+        check(want == list(card[j]), f"Fiat-Shamir lane {lanes[j]}: oracle != card")
+    say("host", f"Fiat-Shamir {fs.name} rate 2 (absorb 3, squeeze 2, absorb 1, squeeze 1) at B={FS_LANES} on the "
+        f"card: {FS_VERIFY} lanes ({FS_VERIFY // 2} from each end) == host_run_schedule, 16 == oracle; the native "
+        f"codec == the pure path on {len(sample)} absorbed values")
+
+    # every tour config: the host runtime on all 2^16 states against the card
+    for name, cfg in tour:
+        cf = cfg.field
+        ins = [limbs_to_ints(cf, row) for row in mont.from_mont(cf, states[name]).int().cpu().numpy()]
+        want = [limbs_to_ints(cf, row) for row in mont.from_mont(cf, outs[name]).int().cpu().numpy()]
+        got = host.host_permute_states(cfg, [v for lane in zip(*ins) for v in lane])
+        flat_want = [v for lane in zip(*want) for v in lane]
+        bad = [i // cfg.t for i, (a, b) in enumerate(zip(got, flat_want)) if a != b]
+        check(len(got) == len(flat_want) and not bad, f"{name}: host != card on lanes {bad[:8]}")
+        say("host", f"{name} t={cfg.t}: host_permute_states == batched_permute on the card on all {B_HOST} "
+            f"lanes (lanes 0-63 hold 0, 1, p-1, p-2 in every element position)")
+
+    # the tracer against the card: one lane of the random schedule
+    lane = int(rng.integers(0, B_CHECK))
+    lane_vals = limbs_to_ints(fs, mont.from_mont(fs, sponge_elems[..., lane : lane + 1]).int()[..., 0].cpu().numpy().T)
+    cs = ConstraintSystem(fs)
+    var = PoseidonSpongeVar(cs, bls)
+    traced, pos = [], 0
+    for kind, n in steps:
+        if kind == "absorb":
+            var.absorb([FpVar.new_witness(cs, v) for v in lane_vals[pos : pos + n]])
+            pos += n
+        else:
+            traced.append([e.value for e in var.squeeze_field_elements(n)])
+    on_card = [limbs_to_ints(fs, sq[..., lane].cpu().numpy().T) for sq in squeezed]
+    check(traced == on_card, f"tracer lane {lane}: {traced} != card {on_card}")
+    check(cs.is_satisfied(), "the traced constraint system is not satisfied")
+    cs1 = ConstraintSystem(fs)
+    one = PoseidonSpongeVar(cs1, bls)
+    one.state = [FpVar.new_witness(cs1, v) for v in lane_vals[: bls.t]]
+    one.permute()
+    per_perm = 5 * (bls.full_rounds * bls.t + bls.partial_rounds)
+    check(cs1.num_constraints == per_perm == 275, f"one permutation costs {cs1.num_constraints} constraints")
+    check([e.value for e in one.state] == oracle_permute(bls, lane_vals[: bls.t]), "traced permutation != oracle")
+    say("tracer", f"PoseidonSpongeVar over a random schedule ({', '.join(f'{k} {n}' for k, n in steps)}) on lane "
+        f"{lane}: squeezed witness values == the card's PoseidonSponge lane of B={B_CHECK}; "
+        f"{cs.num_constraints} constraints, {cs.num_witness_variables} witnesses, satisfied; one permutation "
+        f"= {cs1.num_constraints} constraints (5 * (R_F * t + R_P))")
+
+    # timings: where a verifier should stay on the host and where it should batch onto the card
+    hs, o = st.HostPoseidonSponge(bls), st.OraclePoseidonSponge(bls)
+    hs.state = o.state = list(lane_vals[: bls.t])
+    host_us, oracle_us = median_us(hs.permute), median_us(o.permute)
+    say("host", f"one {fs.name} rate-2 permutation: HostPoseidonSponge.permute {host_us:.2f} us, "
+        f"OraclePoseidonSponge.permute {oracle_us:.1f} us (median of {MEDIAN_REPS}; "
+        f"{oracle_us / host_us:.0f}x) {where}")
+    absorbed = [int(v) for v in msgs[:, 0]]
+    sched_us = median_us(lambda: host.host_run_schedule(bls, fiat_shamir.STEPS, absorbed))
+    plan = compile_transcript(bls, fiat_shamir.SCHEDULE)
+    ms1, _ = time_ms(lambda: plan(fs_elems[..., :1]), reps=20)
+    ms_big, _ = time_ms(lambda: plan(fs_elems), reps=3)
+    say("host", f"Fiat-Shamir transcript (4 permutations): host_run_schedule {sched_us:.2f} us per transcript "
+        f"(median of {MEDIAN_REPS}); the card's compiled transcript {ms1:.3f} ms at B=1, {ms_big:.3f} ms at "
+        f"B={FS_LANES} = {ms_big * 1e6 / FS_LANES:.1f} ns per transcript {where}")
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=pathlib.Path(__file__).resolve().parent / "build"))
+    with profiling.trace(tmp):
+        traced = plan(fs_elems)
+    check(torch.equal(traced, challenges), "traced transcript != the example's challenges")
+    busy = profiling.device_busy_share(tmp)
+    shutil.rmtree(tmp)
+    k1_us = sum(us for n, us in busy["kernels"].items() if "poseidon_opt_kernel" in n)
+    check(k1_us > 0, "kernel 1 is not among the transcript trace's CUDA kernels")
+    say("trace", f"compiled transcript at B={FS_LANES} under torch.profiler: window {busy['window_us'] / 1e3:.3f} ms, "
+        f"kernel 1 {k1_us / 1e3:.3f} ms, other CUDA kernels {(busy['kernel_us'] - k1_us) / 1e3:.3f} ms "
+        f"({len(busy['kernels']) - 1} kinds), device busy {busy['busy_share'] * 100:.1f}% [{gpu}]")
+    big = states[tour[0][0]]
+    ins = [limbs_to_ints(fs, row) for row in mont.from_mont(fs, big).int().cpu().numpy()]
+    flat = [v for lane_ in zip(*ins) for v in lane_]
+    threads = min(os.cpu_count() or 1, 16)
+    t0 = time.perf_counter()
+    host.host_permute_states(bls, flat)
+    e2e_s = time.perf_counter() - t0
+    words = np.ascontiguousarray(host._to_mont_words(fs.modulus, flat))
+    t0 = time.perf_counter()
+    host._call_permute(native.get_poseidon_lib(), bls, words, B_HOST, threads)
+    native_s = time.perf_counter() - t0
+    say("host", f"host_permute_states {fs.name} rate 2 at {B_HOST} states, {threads} threads: {B_HOST / e2e_s:,.0f} "
+        f"perms/s with the Python word conversion, {B_HOST / native_s:,.0f} perms/s in the native call alone "
+        f"{where}")
+    vals = [int(v) % fs.modulus for v in rng.integers(0, 1 << 62, size=B_MAIN)]
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    t0 = time.perf_counter()
+    enc = native.encode_mont_plane_native(fs, buf, B_MAIN)
+    enc_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc_pure = ints_to_limbs(fs, [fs.to_mont(v) for v in vals])
+    enc_pure_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = native.decode_mont_plane_native(fs, enc)
+    dec_native = time.perf_counter() - t0
+    r_inv, p = fs.r_inv, fs.modulus
+    t0 = time.perf_counter()
+    dec_pure = [v * r_inv % p for v in limbs_to_ints(fs, enc_pure)]
+    dec_pure_s = time.perf_counter() - t0
+    check(np.array_equal(enc, enc_pure) and dec_pure == vals
+          and raw == buf, "native and pure codecs disagree on 2^20 values")
+    say("codec", f"{B_MAIN} {fs.name} values: encode native {enc_native:.3f} s, pure {enc_pure_s:.3f} s; decode native "
+        f"{dec_native:.3f} s, pure {dec_pure_s:.3f} s (the 32-byte buffer's build not counted; results equal) "
+        f"{where}")
     return launches
 
 

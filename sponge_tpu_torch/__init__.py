@@ -11,6 +11,10 @@ PyTorch version for CPU tensors.
 Every family's config drives every entry point a ``PoseidonConfig`` does.
 ``sponge_tpu_torch.parallel`` shards the lanes over a ``torch.distributed``
 group; ``checkpoint`` and ``utils.profiling`` save state and trace runs.
+The verifier's side runs on the host: the ``Host*Sponge`` classes and
+``host_run_schedule`` (``poseidon/host.py``, C++ in ``csrc/host/``, built
+with the system compiler at first use); ``tracer`` records a sponge's R1CS
+and ``examples`` holds three runnable walk-throughs.
 It imports neither JAX nor ``sponge_tpu``.
 """
 
@@ -81,6 +85,17 @@ from .monolith.oracle import OracleMonolithSponge
 from .monolith.params import generate_monolith_parameters, get_default_monolith_parameters
 from .monolith.permutation import MonolithPermutation, batched_monolith_permute
 from .poseidon.config import PoseidonConfig
+from .poseidon.host import (
+    HostAnemoiSponge,
+    HostGmimcSponge,
+    HostGriffinSponge,
+    HostMonolithSponge,
+    HostPoseidon2Sponge,
+    HostPoseidonSponge,
+    HostRescueSponge,
+    host_available,
+    host_run_schedule,
+)
 from .poseidon.oracle import (
     ABSORBING,
     FULL,
@@ -170,6 +185,15 @@ __all__ = [
     "griffin_default_rounds",
     "GriffinConfig",
     "GriffinPermutation",
+    "host_available",
+    "host_run_schedule",
+    "HostAnemoiSponge",
+    "HostGmimcSponge",
+    "HostGriffinSponge",
+    "HostMonolithSponge",
+    "HostPoseidon2Sponge",
+    "HostPoseidonSponge",
+    "HostRescueSponge",
     "I128",
     "I16",
     "I32",

@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 from .fields import FieldSpec
+from .utils import native
 
 
 class _TypedInt(int):
@@ -126,7 +127,12 @@ class TEPoint:
 
 
 def bytes_to_field_elements(data: bytes, fs: FieldSpec) -> list:
-    """Pack bytes into chunks of ``(MODULUS_BIT_SIZE - 1) / 8`` LE bytes."""
+    """Pack bytes into chunks of ``(MODULUS_BIT_SIZE - 1) / 8`` LE bytes
+    (1 KiB and more through the native packer when it is built)."""
+    if len(data) >= 1024:
+        packed = native.pack_bytes_to_elements_native(fs, data)
+        if packed is not None:
+            return packed
     max_size = (fs.modulus_bit_size - 1) // 8
     return [
         int.from_bytes(data[i : i + max_size], "little")

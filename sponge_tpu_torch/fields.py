@@ -27,6 +27,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .utils import native
+
 LIMB_BITS = 24
 LIMB_MASK = (1 << LIMB_BITS) - 1
 _LIMB_BYTES = LIMB_BITS // 8
@@ -103,11 +105,32 @@ class FieldSpec:
     # ---- batch codecs: python ints <-> (..., L, B) numpy planes ----
 
     def ints_to_mont_plane(self, xs) -> np.ndarray:
-        """Sequence of ints -> (nlimbs, B) int32 Montgomery limb plane."""
-        return ints_to_limbs(self, [self.to_mont(int(x)) for x in xs])
+        """Sequence of ints -> (nlimbs, B) int32 Montgomery limb plane.
+
+        The 253-256-bit fields go through the native codec
+        (``csrc/host/host_codec.cc``: one word-CIOS multiply per element)
+        when it is built; every other case takes the pure-Python path.
+        """
+        xs = [int(x) % self.modulus for x in xs]
+        if len(xs) >= 8 and native.codec_field(self):
+            buf = b"".join(x.to_bytes(32, "little") for x in xs)
+            out = native.encode_mont_plane_native(self, buf, len(xs))
+            if out is not None:
+                return out
+        return ints_to_limbs(self, [self.to_mont(x) for x in xs])
 
     def mont_plane_to_ints(self, plane) -> list:
-        """(nlimbs, B) Montgomery limb plane -> list of canonical ints."""
+        """(nlimbs, B) canonical Montgomery limb plane -> list of canonical
+        ints (through the native codec where ``ints_to_mont_plane`` uses it)."""
+        plane = np.asarray(plane)
+        if plane.ndim == 2 and plane.shape[-1] >= 8 and native.codec_field(self):
+            _check_canonical_limbs(self, plane)
+            raw = native.decode_mont_plane_native(self, plane)
+            if raw is not None:
+                return [
+                    int.from_bytes(raw[i * 32 : (i + 1) * 32], "little")
+                    for i in range(plane.shape[-1])
+                ]
         return [self.from_mont(v) for v in limbs_to_ints(self, plane)]
 
     # ---- byte codecs matching ark-ff semantics ----
@@ -140,13 +163,17 @@ def ints_to_limbs(fs: FieldSpec, xs) -> np.ndarray:
     return np.ascontiguousarray(limbs.T)
 
 
-def limbs_to_ints(fs: FieldSpec, plane) -> list:
-    """(L, B) plane of canonical 24-bit limbs -> list of ints."""
-    plane = np.asarray(plane)
+def _check_canonical_limbs(fs: FieldSpec, plane: np.ndarray) -> None:
     if plane.shape[0] != fs.nlimbs:
         raise ValueError(f"expected {fs.nlimbs} limbs, got shape {plane.shape}")
     if plane.size and (plane.min() < 0 or plane.max() > LIMB_MASK):
         raise ValueError("limb plane is not canonical (limbs must be < 2^24)")
+
+
+def limbs_to_ints(fs: FieldSpec, plane) -> list:
+    """(L, B) plane of canonical 24-bit limbs -> list of ints."""
+    plane = np.asarray(plane)
+    _check_canonical_limbs(fs, plane)
     lanes = plane.T.astype(np.uint32)  # (B, L)
     by = np.stack([(lanes >> s) & 0xFF for s in (0, 8, 16)], axis=-1)
     raw = by.astype(np.uint8).tobytes()

@@ -239,3 +239,16 @@ class OraclePoseidonSponge:
         new.mode = self.mode
         new.index = self.index
         return new
+
+    # ---- SpongeExt ----
+
+    def into_state(self) -> SpongeState:
+        return SpongeState(state=list(self.state), mode=self.mode, index=self.index)
+
+    @classmethod
+    def from_state(cls, state: SpongeState, cfg: PoseidonConfig) -> "OraclePoseidonSponge":
+        new = cls(cfg)
+        new.state = list(state.state)
+        new.mode = state.mode
+        new.index = state.index
+        return new

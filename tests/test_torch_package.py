@@ -1,7 +1,7 @@
 """The port's package boundary: it imports neither JAX nor ``sponge_tpu``,
 builds nothing and joins no process group on import, keys its kernel build
-on the sources and reports nvcc's errors, and the public surface has the
-JAX package's names but for the host runtime's."""
+on the sources and reports nvcc's errors, and the public surface has all
+the JAX package's names, the tracer's included."""
 
 import shutil
 import subprocess
@@ -11,7 +11,9 @@ from pathlib import Path
 import pytest
 
 import sponge_tpu
+import sponge_tpu.tracer
 import sponge_tpu_torch
+import sponge_tpu_torch.tracer
 from sponge_tpu_torch.ops import _build
 
 REPO = Path(__file__).resolve().parents[1]
@@ -57,19 +59,16 @@ def test_public_names_mirror_jax_package():
         assert hasattr(sponge_tpu, name) and hasattr(sponge_tpu_torch, name), name
 
 
-# The JAX package's public names that the port does not have yet: the native
-# host runtime (poseidon/host.py).
-NOT_YET_PORTED = {
-    "HostAnemoiSponge", "HostGmimcSponge", "HostGriffinSponge", "HostMonolithSponge",
-    "HostPoseidon2Sponge", "HostPoseidonSponge", "HostRescueSponge", "host_available",
-    "host_run_schedule",
-}
+# The JAX package's public names that the port does not have: none.
+NOT_YET_PORTED = set()
 
 
 def test_public_names_cover_jax_package_but_the_host_runtime():
     missing = set(sponge_tpu.__all__) - set(sponge_tpu_torch.__all__)
-    assert missing == NOT_YET_PORTED
+    assert missing == NOT_YET_PORTED == set()
     assert all(hasattr(sponge_tpu_torch, name) for name in sponge_tpu_torch.__all__)
+    assert sponge_tpu_torch.tracer.__all__ == sponge_tpu.tracer.__all__
+    assert all(hasattr(sponge_tpu_torch.tracer, name) for name in sponge_tpu_torch.tracer.__all__)
 
 
 def test_distributed_checkpoint_and_profiling_modules_leave_jax_out():
@@ -78,7 +77,12 @@ def test_distributed_checkpoint_and_profiling_modules_leave_jax_out():
         "import sponge_tpu_torch.parallel, sponge_tpu_torch.parallel.mesh\n"
         "import sponge_tpu_torch.parallel.sharded, sponge_tpu_torch.parallel.merkle\n"
         "import sponge_tpu_torch.parallel.multihost, sponge_tpu_torch.checkpoint\n"
-        "import sponge_tpu_torch.utils.profiling\n"
+        "import sponge_tpu_torch.utils.profiling, sponge_tpu_torch.utils.native\n"
+        "import sponge_tpu_torch.poseidon.host, sponge_tpu_torch.tracer\n"
+        "import sponge_tpu_torch.examples.fiat_shamir, sponge_tpu_torch.examples.merkle_commitment\n"
+        "import sponge_tpu_torch.examples.family_tour\n"
+        "from sponge_tpu_torch.utils import native\n"
+        "assert native.get_lib.cache_info().currsize == native.get_poseidon_lib.cache_info().currsize == 0\n"
         "import torch.distributed as dist\n"
         "assert not dist.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'sponge_tpu'))\n"
