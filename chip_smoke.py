@@ -9,10 +9,11 @@ per source, in parallel): Poseidon (kernels 1 and 2), Poseidon2 (kernel 3),
 Monolith (kernel 4), Rescue-Prime (kernel 5), Griffin-pi (kernel 6), Anemoi
 (kernel 7), GMiMC-erf (kernel 8) and the two probe kernels, and prints the
 window, table bytes, registers and spills of each instantiation of kernels
-5 and 7 (failing if the compiled registers would pick another window than
-the shipped one), and for kernels 1 and 4 every instantiation's registers,
-spills and blocks per SM and a static SASS census of the timed ones beside
-the limb products the bound counts.  It first runs
+5, 6 and 7 (failing if the compiled registers would pick another window
+than the shipped one) and kernel 3's registers and staged bytes per body,
+and for kernels 1, 3, 4 and 6 every instantiation's registers, spills and
+blocks per SM and a static SASS census of the timed ones beside the
+products the bound counts.  It first runs
 the probes (launches counted): the dependent latency and the saturated issue
 rate of 32-bit and widening multiply-adds against their peaks, their SASS
 instruction counts, one chain of 64 Montgomery products against two of 32,
@@ -25,8 +26,8 @@ golden vectors through the sponge on the card, drives four paths at full
 size with the launch counters zeroed just before each and read just after
 (Poseidon: the batched BLS12-381 Fr rate-2 permutation at B = 2^20, the lazy
 sponge, a 2^20-leaf Merkle root; Poseidon2 and Rescue: the BLS12-381 and
-BabyBear permutations at B = 2^20, a 2^20-leaf Poseidon2 Merkle root, a lazy
-Rescue sponge; GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks
+BabyBear permutations and the KoalaBear Poseidon2 one at B = 2^20, a
+2^20-leaf Poseidon2 Merkle root, a lazy Rescue sponge; GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks
 permutations at B = 2^20, a lazy GMiMC sponge, a 2^14-leaf Griffin Merkle
 root; Monolith: the Goldilocks t = 12 and Mersenne31 t = 16 permutations at
 B = 2^20, a lazy Monolith-31 sponge, a 2^20-leaf wide-digest Goldilocks
@@ -51,18 +52,22 @@ events (kernel 5 at BLS12-381 also with its inverse S-box at windows 3 and
 4, in turns).  The plain version's timed run takes the path's own 2^20-lane input
 (for the BLS12-381 inverse-S-box families, Rescue, Griffin and Anemoi, 2^14
 lanes from both ends of it) and must equal the path's output there.  Each
-kernel's bound is the larger of the limb products the function needs
-(``limb_products``: widening and 32-bit multiply-adds) over the card's
-integer peaks and its state bytes over the memory rate.  Each phase prints
+kernel's bound is the larger of the products the function needs
+(``limb_products``: widening and 32-bit multiply-adds; one word per element
+at a field below 2^31, the limb count's bound printed beside) over the
+card's integer peaks and its state bytes over the memory rate.  Each phase prints
 one line; any failure raises and exits non-zero.  Before the last line come a JSON summary
 of the kernels and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
-prints no result.  It imports nothing of JAX or sponge_tpu.
+prints no result.  ``--only NAME[,NAME]`` (names of its kernel table) runs
+the build, the window and census lines and the named kernels' checks and
+timings alone, to compare two trees in one call.  It imports nothing of JAX or sponge_tpu.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -192,6 +197,18 @@ def monolith_plan_text(plan):
     return f"{plan.body} body, {plan.concrete} Concrete, folds (sq, add, conc, rc) {plan.folds}{shift}"
 
 
+def p2_plan_text(cfg, plan):
+    """Kernel 3's plan (``ops/bounds.py`` ``P2Plan``)."""
+    if plan.body == "word":
+        return (f"one-word body, {'structured' if plan.structured else 'dense'} M_E, largest row sum "
+                f"{plan.vmax / cfg.field.modulus:.1f}p, largest word {plan.wmax / 2**32:.3f} x 2^32")
+    rounds = sum(1 for pre, sbox in plan.folds[:-1] if pre or sbox)
+    return (f"limb body, folds in {rounds} of {cfg.rounds} rounds (most {max(f[0] for f in plan.folds)} before "
+            f"the S-boxes, {max(f[1] for f in plan.folds)} after each product), {plan.min_folds} folds a "
+            f"permutation needs, largest value before a fold {plan.vmax / cfg.field.r:.1f}R, largest limb word "
+            f"{plan.wmax / 2**24:.1f} x 2^24")
+
+
 def plan_text(cfg, plan):
     """A family kernel's replay (``ops/bounds.py`` ``KernelPlan``)."""
     return (f"{value_bound_text(cfg, plan.vmax)}, largest limb word {plan.wmax / 2**24:.1f} x 2^24, "
@@ -226,21 +243,29 @@ def chain_products(e, sq, mul):
     return best
 
 
-def limb_products(name, cfg):
-    """(wide, narrow): the integer multiplies one permutation needs on limbs
-    (the bound's work, not any kernel's schedule).  Wide ones are
-    32 x 32 -> 64-bit multiply-adds (IMAD.WIDE.U32: every Montgomery
-    column), narrow ones 32-bit (IMAD: small-integer scalings of limb words
-    and rho-folds, each c * rho_k below 2^32).  A Montgomery product is
-    2 L^2 limb products (a * b and the REDC's q * p), a REDC alone (a
-    product by plain 1) L^2 + L, a squaring L (L + 1) / 2 + L^2, a lazily
-    summed row dot (t + 1) L^2; each power x^e
-    takes its cheapest window chain (``chain_products``).  Poseidon2's and
-    Griffin's small-integer matrix entries and scalings are one narrow
-    product per limb, and Poseidon2 takes only the rho-folds its values
-    need (``P2Plan.min_folds``), L each.  Monolith's generic body: per
-    barred element per round a REDC out of Montgomery form and a product by
-    R^2 back, t-1 squarings per
+def limb_products(name, cfg, one_word=True):
+    """(wide, narrow): the integer multiplies one permutation needs (the
+    bound's work, not any kernel's schedule).  Wide ones are 32 x 32 ->
+    64-bit multiply-adds (IMAD.WIDE.U32: every Montgomery column), narrow
+    ones 32-bit (IMAD: small-integer scalings of limb words, rho-folds and
+    Montgomery quotients).  On limbs a Montgomery product is 2 L^2 limb
+    products (a * b and the REDC's q * p), a REDC alone (a product by plain
+    1) L^2 + L, a squaring L (L + 1) / 2 + L^2, a lazily summed row dot
+    (t + 1) L^2; each power x^e takes its cheapest window chain
+    (``chain_products``).  Poseidon2's and Griffin's small-integer matrix
+    entries and scalings are one narrow product per limb, and Poseidon2
+    takes only the rho-folds its values need (``P2Plan.min_folds``), L
+    each.  With ``one_word`` (the default) a field below 2^31 keeps one
+    32-bit word per element: a Montgomery product or a squaring is 2 wide
+    (a * b, q * p) and 1 narrow (q), a REDC or the reduction of a 64-bit
+    sum 1 wide and 1 narrow, a row dot t wide products and one REDC, a
+    small-integer scaling one product (wide where the sum can pass 2^32),
+    Poseidon2's M_E the fewer of its dense rows and, where the matrix is
+    circ(2 M4, ..., M4), its addition chain's operations (narrow), plus a
+    reduction per row, and the plane's R = 2^48 is converted to one word and
+    back (2 t products); ``one_word=False`` is the count before (limbs at
+    every field).  Monolith's generic body: per barred element per round a
+    REDC out of Montgomery form and a product by R^2 back, t-1 squarings per
     round, t^2 L wide scalings per scaled Concrete (the entry times a limb
     word, summed in 64-bit columns) and L per fold of its high part, or t
     lazily summed rows per dense Concrete, L narrow products per 32-bit fold
@@ -250,12 +275,13 @@ def limb_products(name, cfg):
         check_anemoi_bounds,
         check_griffin_bounds,
         check_monolith_bounds,
+        m4_structured,
         p2_plan,
     )
 
     t, L = cfg.t, cfg.field.nlimbs
-    mm, sq, row, redc = 2 * L * L, L * (L + 1) // 2 + L * L, (t + 1) * L * L, L * L + L
     if name == "monolith_permute":
+        mm, sq, row, redc = 2 * L * L, L * (L + 1) // 2 + L * L, (t + 1) * L * L, L * L + L
         plan, R, u = check_monolith_bounds(cfg), cfg.rounds, cfg.bars
         if plan.body == "mersenne":
             return R * (t - 1) + (R + 1) * t * t, 0
@@ -265,42 +291,82 @@ def limb_products(name, cfg):
         wide = (R + 1) * conc + R * (u * (redc + mm) + (t - 1) * sq) + t * mm
         narrow = R * ((t - 1) * (f_sq + f_add) + t * f_rc) * L + (0 if scaled else (R + 1) * t * f_conc * L)
         return wide, narrow
-    sb = chain_products(cfg.alpha, sq, mm)
+    p = cfg.field.modulus
+    word = one_word and p < 1 << 31
+
+    def add(*terms):  # sums of (count, (wide, narrow)) terms
+        return sum(n * c[0] for n, c in terms), sum(n * c[1] for n, c in terms)
+
+    if word:
+        mm = sq = (2, 1)
+        redc = (1, 1)  # a REDC, or the reduction of a 64-bit sum
+
+        def row_of(n):  # n products summed in 64 bits, one REDC
+            return n + 1, 1
+
+        def power(e):
+            return 2 * chain_products(e, 1, 1), chain_products(e, 1, 1)
+
+        def scaling(total):  # one small-integer scaling of a word, summed to ``total`` times p
+            return (1, 0) if total * (p - 1) >= 1 << 32 else (0, 1)
+
+        lw, io = 1, 2 * t  # words per element; the entry's and exit's products
+    else:
+        mm, sq = (2 * L * L, 0), (L * (L + 1) // 2 + L * L, 0)
+
+        def row_of(n):
+            return (n + 1) * L * L, 0
+
+        def power(e):
+            return chain_products(e, sq[0], mm[0]), 0
+
+        def scaling(total):
+            return 0, 1
+
+        lw, io = L, t
+    row = row_of(t)
+    sb = power(cfg.alpha)
     if name in ("poseidon_permute_opt", "poseidon_permute_dense"):
-        full = cfg.full_rounds * (t * sb + t * row)
+        full = add((cfg.full_rounds * t, sb), (cfg.full_rounds * t, row))
         if name == "poseidon_permute_dense":
-            return full + cfg.partial_rounds * (sb + t * row), 0
-        sparse = (cfg.partial_rounds - 1) * (row + (t - 1) * mm + sb)
-        return full + sb + sparse + t * row, 0
+            return add((1, full), (cfg.partial_rounds, sb), (cfg.partial_rounds * t, row))
+        return add((1, full), (1, sb), (cfg.partial_rounds - 1, row), ((cfg.partial_rounds - 1) * (t - 1), mm),
+                   (cfg.partial_rounds - 1, sb), (t, row))
     if name == "poseidon2_permute":
-        wide = cfg.full_rounds * t * sb + cfg.partial_rounds * (sb + (0 if cfg.small_diag else t * mm)) + t * mm
+        row_sum = max(sum(r) for r in cfg.mat_e)
+        if word:
+            dense = add((t * t, scaling(row_sum)), (t, redc))
+            k = t // 4
+            chain = add((8 * k + 4 * (k - 1) + t, (0, 1)), (t, redc)) if m4_structured(cfg.mat_e) else dense
+            ext = min(dense, chain, key=lambda c: 2 * c[0] + c[1])
+            diag = (t, scaling(t + max(cfg.diag_m1))) if cfg.small_diag else (t, mm)
+            return add((cfg.full_rounds * t, sb), (cfg.full_rounds + 1, ext), (cfg.partial_rounds, sb),
+                       (cfg.partial_rounds, (diag[0] * diag[1][0], diag[0] * diag[1][1])),
+                       (cfg.partial_rounds, redc), (io, mm))
+        wide = cfg.full_rounds * t * sb[0] + cfg.partial_rounds * (sb[0] + (0 if cfg.small_diag else t * mm[0]))
         narrow = (cfg.full_rounds + 1) * t * t * L + (cfg.partial_rounds * t * L if cfg.small_diag else 0)
-        return wide, narrow + p2_plan(cfg).min_folds * L
+        return wide + t * mm[0], narrow + p2_plan(cfg).min_folds * L
     if name == "rescue_permute":
-        per_round = t * (sb + chain_products(cfg.inv_alpha, sq, mm)) + 2 * t * row
-        return cfg.rounds * per_round + t * mm, 0
+        per_round = add((t, sb), (t, power(cfg.inv_alpha)), (2 * t, row))
+        return add((cfg.rounds, per_round), (io, mm))
     if name == "gmimc_permute":  # the deferred adds are not products
-        return cfg.rounds * sb + t * mm, 0
+        return add((cfg.rounds, sb), (io, mm))
     if name == "griffin_permute":
         # gates: (i-1) y0 scaled limb by limb (narrow), L_i^2, alpha_i L_i,
         # x_i quad; the post-linear reduction only where the plan needs it
-        gates_wide = (t - 2) * (sq + 2 * mm)
-        gates_narrow = (t - 3) * L
-        linear_wide = t * mm if check_griffin_bounds(cfg).reduce else 0
-        wide = (cfg.rounds + 1) * linear_wide + cfg.rounds * (
-            chain_products(cfg.inv_alpha, sq, mm) + sb + gates_wide
-        ) + t * mm
-        return wide, (cfg.rounds + 1) * t * t * L + cfg.rounds * gates_narrow
+        gates = add((t - 2, sq), (2 * (t - 2), mm), ((t - 3) * lw, (0, 1)))
+        linear = add((t * t * lw, scaling(max(sum(r) for r in cfg.mat_e))),
+                     (t if check_griffin_bounds(cfg).reduce else 0, mm))
+        per_round = add((1, power(cfg.inv_alpha)), (1, sb), (1, gates))
+        return add((cfg.rounds + 1, linear), (cfg.rounds, per_round), (io, mm))
     if name == "anemoi_permute":
         # per pair: y^2, g y^2, u^(1/alpha), v^2, g v^2 (subtractions are
         # additions); M_x rows lazily summed where l > 1; the post-PHT
         # reduction only where the plan needs it
         lc = cfg.l
-        diffusion = (2 * lc * (lc + 1) * L * L if lc > 1 else 0) + (
-            t * mm if check_anemoi_bounds(cfg).reduce else 0
-        )
-        per_round = lc * (2 * sq + 2 * mm + chain_products(cfg.inv_alpha, sq, mm)) + diffusion
-        return cfg.rounds * per_round + diffusion + t * mm, 0
+        diffusion = add((2 * lc if lc > 1 else 0, row_of(lc)), (t if check_anemoi_bounds(cfg).reduce else 0, mm))
+        per_round = add((lc, add((2, sq), (2, mm), (1, power(cfg.inv_alpha)))), (1, diffusion))
+        return add((cfg.rounds, per_round), (1, diffusion), (io, mm))
     raise ValueError(name)
 
 
@@ -314,10 +380,11 @@ def bound(work, state_bytes, rates):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def kernel_bound(name, cfg, batch, rates):
+def kernel_bound(name, cfg, batch, rates, one_word=True):
     """``bound`` of one permutation call at ``batch`` lanes: the state read
-    once and written once."""
-    wide, narrow = limb_products(name, cfg)
+    once and written once (``limb_products``'s count, ``one_word`` as
+    there)."""
+    wide, narrow = limb_products(name, cfg, one_word)
     return bound((wide * batch, narrow * batch), 2 * cfg.t * cfg.field.nlimbs * 4 * batch, rates)
 
 
@@ -356,39 +423,59 @@ def ptxas_entries(report):
 
 
 def window_phase(cfgs, report):
-    """Kernels 5 and 7 per instantiated config: the windows
-    (``rescue.config.windows``, ``anemoi.config.window``), the table's
-    shared bytes per block, the compiled registers and spills, and the
-    blocks per SM.  Fails unless the window rule picks the shipped windows
-    at the compiled registers too (``_build.REGISTERS`` is the rule's
-    input)."""
+    """Kernels 5, 6 and 7 per instantiated config: the windows
+    (``rescue.config.windows``, ``griffin.config.window``,
+    ``anemoi.config.window``), the table's shared bytes per block, the
+    compiled registers and spills, and the blocks per SM (kernel 6 with its
+    staged constants).  Fails unless the window rule picks the shipped
+    windows at the compiled registers too (``_build.REGISTERS`` is the
+    rule's input).  Kernel 3 raises only x^alpha (no window, no table): its
+    line gives the body, the registers, spills and blocks per SM with its
+    staged constants."""
     import sponge_tpu_torch as st
     from sponge_tpu_torch.anemoi.config import window
+    from sponge_tpu_torch.griffin.config import window as griffin_window
     from sponge_tpu_torch.ops import _build
+    from sponge_tpu_torch.ops.bounds import check_p2_bounds
     from sponge_tpu_torch.ops.montgomery import blocks_per_sm, window_for, window_table_bytes
     from sponge_tpu_torch.rescue.config import windows
 
     entries = ptxas_entries(report)
+
+    def compiled(base, want):
+        found = [v for k, v in entries.items() if f"{base}I" in k and template_args(k) == want]
+        check(len(found) == 1, f"ptxas report: {len(found)} entries for {base} {want}")
+        return found[0]
+
     for cfg in cfgs:
         t, L = cfg.t, cfg.field.nlimbs
-        rescue = isinstance(cfg, st.RescueConfig)
-        symbol, kernel = ("sponge_rescue", "rescue_kernel") if rescue else ("sponge_anemoi", "anemoi_kernel")
-        chains = t if rescue else t // 2
-        key = f"{kernel}ILi{t}ELi{L}E"
-        found = [v for k, v in entries.items() if key in k]
-        check(len(found) == 1, f"ptxas report: {len(found)} entries for {key}")
-        regs, spill_st, spill_ld = found[0]
-        exps = (cfg.alpha, cfg.inv_alpha) if rescue else (cfg.inv_alpha,)
-        shipped = windows(cfg) if rescue else (window(cfg),)
-        compiled = tuple(window_for(e, L, chains, regs) for e in exps)
-        check(compiled == shipped, f"{key}: {regs} registers give windows {compiled}, the shipped ones are {shipped} "
-              f"(at {_build.registers(symbol, t, L)} registers in _build.REGISTERS)")
+        if isinstance(cfg, st.Poseidon2Config):
+            base, want, shared = census_instance("poseidon2_permute", cfg)
+            regs, spill_st, spill_ld = compiled(base, want)
+            say("window", f"{base} {want} {cfg.field.name} t={t}: x^{cfg.alpha} only, no window table "
+                f"({check_p2_bounds(cfg).body} body); ptxas {regs} registers, spills {spill_st} B stored, "
+                f"{spill_ld} B loaded; {shared:,} B of staged constants, {blocks_per_sm(regs, shared)} blocks per SM")
+            continue
+        if isinstance(cfg, st.RescueConfig):
+            symbol, kernel, chains = "sponge_rescue", "rescue_kernel", t
+            exps, shipped = (cfg.alpha, cfg.inv_alpha), windows(cfg)
+        elif isinstance(cfg, st.GriffinConfig):
+            symbol, kernel, chains = "sponge_griffin", "griffin_kernel", 1
+            exps, shipped = (cfg.inv_alpha,), (griffin_window(cfg),)
+        else:
+            symbol, kernel, chains = "sponge_anemoi", "anemoi_kernel", t // 2
+            exps, shipped = (cfg.inv_alpha,), (window(cfg),)
+        regs, spill_st, spill_ld = compiled(kernel, (t, L))
+        got = tuple(window_for(e, L, chains, regs) for e in exps)
+        check(got == shipped, f"{kernel} ({t}, {L}): {regs} registers give windows {got}, the shipped ones are "
+              f"{shipped} (at {_build.registers(symbol, t, L)} registers in _build.REGISTERS)")
         table = window_table_bytes(chains, L, max(shipped))
-        say("window", f"{kernel} {cfg.field.name} t={t} L={L}: w {'(alpha, 1/alpha) ' if rescue else ''}"
-            f"{shipped if rescue else shipped[0]}, table {table:,} B of shared memory per block; ptxas "
-            f"{regs} registers ({_build.registers(symbol, t, L)} recorded), spills {spill_st} B stored, "
-            f"{spill_ld} B loaded; {blocks_per_sm(regs, table)} blocks per SM ({blocks_per_sm(regs, 0)} by "
-            f"registers alone)")
+        shared = census_instance("griffin_permute", cfg)[2] if kernel == "griffin_kernel" else table
+        say("window", f"{kernel} {cfg.field.name} t={t} L={L}: w "
+            f"{'(alpha, 1/alpha) ' + str(shipped) if len(shipped) > 1 else shipped[0]}, table {table:,} B of shared "
+            f"memory per block ({shared:,} B with the staged constants); ptxas {regs} registers "
+            f"({_build.registers(symbol, t, L)} recorded), spills {spill_st} B stored, {spill_ld} B loaded; "
+            f"{blocks_per_sm(regs, shared)} blocks per SM ({blocks_per_sm(regs, 0)} by registers alone)")
 
 
 CENSUS_OPS = ("IMAD.WIDE.U32", "IMAD", "IADD3", "LOP3", "SHF", "MOV", "LDG")
@@ -416,43 +503,77 @@ def template_args(mangled):
     return tuple(int(v.replace("n", "-")) for v in args)
 
 
+CENSUS_KERNELS = (
+    ("kernel 1", "poseidon_opt_kernel"),
+    ("kernel 3, limb body", "poseidon2_kernel"),
+    ("kernel 3, one-word body", "poseidon2_word_kernel"),
+    ("kernel 4, generic body", "monolith_kernel"),
+    ("kernel 4, Mersenne body", "monolith_mersenne_kernel"),
+    ("kernel 6", "griffin_kernel"),
+)
+
+
+def census_instance(name, cfg):
+    """(kernel name, template arguments, bytes of shared memory per block)
+    of the instantiation that runs ``cfg``: kernels 1, 3, 4 and 6 stage
+    their constants in shared memory (kernel 3's limb body its limb
+    sections, its one-word body the word section), kernel 6 its window
+    table after them."""
+    from sponge_tpu_torch.griffin.config import constant_layout as griffin_layout
+    from sponge_tpu_torch.griffin.config import window as griffin_window
+    from sponge_tpu_torch.monolith.config import constant_layout as monolith_layout
+    from sponge_tpu_torch.ops.bounds import check_monolith_bounds, check_p2_bounds
+    from sponge_tpu_torch.ops.monolith import chunk_pattern, plan_code
+    from sponge_tpu_torch.ops.montgomery import window_table_bytes
+    from sponge_tpu_torch.poseidon.config import constant_layout, layout_size
+    from sponge_tpu_torch.poseidon2.config import LIMB_SECTIONS
+    from sponge_tpu_torch.poseidon2.config import constant_layout as p2_layout
+
+    t, L = cfg.t, cfg.field.nlimbs
+    if name == "poseidon_permute_opt":
+        return "poseidon_opt_kernel", (t, L), 4 * layout_size(constant_layout(cfg))
+    if name == "monolith_permute":
+        plan = check_monolith_bounds(cfg)
+        want = (t, L, chunk_pattern(cfg.field), int(plan.concrete == "scaled"), plan_code(plan.folds))
+        base = "monolith_mersenne_kernel" if plan.body == "mersenne" else "monolith_kernel"
+        return base, want, 4 * layout_size(monolith_layout(cfg))
+    if name == "poseidon2_permute":
+        plan, layout = check_p2_bounds(cfg), p2_layout(cfg)
+        limb_words = layout_size(layout[:LIMB_SECTIONS])
+        if plan.body == "word":
+            return "poseidon2_word_kernel", (t, int(plan.structured)), 4 * (layout_size(layout) - limb_words)
+        return "poseidon2_kernel", (t, L), 4 * limb_words
+    if name == "griffin_permute":
+        table = window_table_bytes(1, L, griffin_window(cfg))
+        return "griffin_kernel", (t, L), 4 * layout_size(griffin_layout(cfg)) + table
+    raise ValueError(name)
+
+
 def census_phase(report, cfgs):
-    """Kernels 1 and 4: every instantiation's ptxas registers, spills and
-    blocks per SM of 128 threads by registers; then for the instantiation
-    each path times (``cfgs``: (name, config) pairs) its blocks per SM with
-    the constants it stages in shared memory and the static SASS census
+    """Kernels 1, 3, 4 and 6: every instantiation's ptxas registers, spills
+    and blocks per SM of 128 threads by registers; then for the
+    instantiation each path times (``cfgs``: (name, config) pairs) its
+    blocks per SM with the shared memory it takes and the static SASS census
     (``CENSUS_OPS``, the code of one kernel, loops counted once) beside the
     limb products one permutation needs (``limb_products``)."""
-    from sponge_tpu_torch.monolith.config import constant_layout as monolith_layout
     from sponge_tpu_torch.ops import _build
-    from sponge_tpu_torch.ops.bounds import check_monolith_bounds
-    from sponge_tpu_torch.ops.monolith import chunk_pattern, plan_code
     from sponge_tpu_torch.ops.montgomery import blocks_per_sm
-    from sponge_tpu_torch.poseidon.config import constant_layout, layout_size
 
     entries = ptxas_entries(report)
-    for kernel, key in (("kernel 1", "poseidon_opt_kernelI"), ("kernel 4, generic body", "monolith_kernelI"),
-                        ("kernel 4, Mersenne body", "monolith_mersenne_kernelI")):
-        found = sorted((template_args(k), v) for k, v in entries.items() if key in k)
+    for kernel, base in CENSUS_KERNELS:
+        found = sorted((template_args(k), v) for k, v in entries.items() if f"{base}I" in k)
         say("census", f"{kernel}, per instantiation (template arguments: registers, spill stores/loads B, blocks "
             f"per SM): " + "; ".join(f"{args}: {r}, {st}/{ld}, {blocks_per_sm(r, 0)}" for args, (r, st, ld) in found))
     lib = _build.library_path()
     for name, cfg in cfgs:
-        t, L = cfg.t, cfg.field.nlimbs
-        if name == "poseidon_permute_opt":
-            want, base = (t, L), "poseidon_opt_kernel"
-        else:
-            plan = check_monolith_bounds(cfg)
-            want = (t, L, chunk_pattern(cfg.field), int(plan.concrete == "scaled"), plan_code(plan.folds))
-            base = "monolith_mersenne_kernel" if plan.body == "mersenne" else "monolith_kernel"
+        base, want, shared = census_instance(name, cfg)
         found = [k for k in entries if f"{base}I" in k and template_args(k) == want]
         check(len(found) == 1, f"census: {len(found)} ptxas entries for {base} {want}")
         counts = census(sass_counts(lib, found[0]))
         wide, narrow = limb_products(name, cfg)
-        regs = entries[found[0]][0]
-        shared = 4 * layout_size((constant_layout if name == "poseidon_permute_opt" else monolith_layout)(cfg))
-        say("census", f"{name} {cfg.field.name} t={t}: {regs} registers, {shared:,} B of shared constants, "
-            f"{blocks_per_sm(regs, shared)} blocks per SM; static SASS "
+        regs, spill_st, spill_ld = entries[found[0]]
+        say("census", f"{name} {cfg.field.name} t={cfg.t} ({base} {want}): {regs} registers, spills {spill_st}/"
+            f"{spill_ld} B, {shared:,} B of shared memory, {blocks_per_sm(regs, shared)} blocks per SM; static SASS "
             + ", ".join(f"{k} {v}" for k, v in counts.items())
             + f"; the bound's limb products per permutation: {wide:,} wide, {narrow:,} 32-bit")
 
@@ -634,7 +755,15 @@ def probe_phase(st, dev, rng, gpu, peak):
     }
 
 
-def main():
+def main(argv):
+    """The whole drive with no arguments; ``--only NAME[,NAME]`` (names of
+    the ``kernels`` table) builds, prints the window and census lines, holds
+    the named kernels against their plain versions and the oracle, and
+    times them at the paths' widths, with no probe phase and no path."""
+    only = set(argv[1].split(",")) if argv[:1] == ["--only"] and len(argv) == 2 else None
+    if argv and only is None:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -661,8 +790,8 @@ def main():
         check_griffin_bounds,
         check_kernel_bounds,
         check_monolith_bounds,
+        check_p2_bounds,
         check_rescue_bounds,
-        p2_plan,
     )
     from sponge_tpu_torch.ops.gmimc import gmimc_permute, gmimc_permute_plain
     from sponge_tpu_torch.ops.griffin import griffin_permute, griffin_permute_plain
@@ -698,7 +827,7 @@ def main():
     elapsed("the probes")
     # ---- 2. the probes: the integer rates every bound below rests on ----
     rates = {"wide": SMS * WIDE_PER_CLOCK * sm_clock_hz, "narrow": SMS * IMAD_PER_CLOCK * sm_clock_hz}
-    probe_entries = probe_phase(st, dev, rng, gpu, rates)
+    probe_entries = probe_phase(st, dev, rng, gpu, rates) if only is None else {}
     flat_rates = {k: SMS * IMAD_PER_CLOCK * sm_clock_hz for k in ("wide", "narrow")}
 
     bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
@@ -710,6 +839,15 @@ def main():
     p2_bls = st.get_default_poseidon2_parameters(st.BLS12_381_FR, 2)
     p2_bn = st.get_default_poseidon2_parameters(st.BN254_FR, 2)
     p2_bb = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    p2_kb = st.get_default_poseidon2_parameters(st.KOALABEAR_FR, 8)
+    p2_m31 = st.get_default_poseidon2_parameters(st.MERSENNE31_FR, 8)
+    # kernel 3's one-word body with dense M_E rows: the BabyBear and 25-bit
+    # t = 8 configs with their matrices' rows reversed (no longer
+    # circ(2 M4, M4, ...)), and the 25-bit t = 3 config
+    p2_bb_dense = dataclasses.replace(p2_bb, mat_e=tuple(reversed(p2_bb.mat_e)))
+    p2_25 = st.generate_poseidon2_parameters(fr25, 7, 5, 4, 4)
+    p2_25_dense = dataclasses.replace(p2_25, mat_e=tuple(reversed(p2_25.mat_e)))
+    p2_25_t3 = st.generate_poseidon2_parameters(fr25, 2, 5, 4, 8)
     p2_tiny = st.generate_poseidon2_parameters(tiny_fs, 2, 5, 4, 8)
     p2_low = st.generate_poseidon2_parameters(low_fs, 7, 5, 4, 4)
     r_bls = st.get_default_rescue_parameters(st.BLS12_381_FR, 2)
@@ -734,9 +872,13 @@ def main():
     mo_bb = st.get_default_monolith_parameters(st.BABYBEAR_FR)
     mo_kb4 = st.generate_monolith_parameters(st.KOALABEAR_FR, 2, 2, 6, 2)
     mo_m314 = st.generate_monolith_parameters(st.MERSENNE31_FR, 2, 2, 6, 2)
-    window_phase([r_bls, r_bb, r_25, a_bls, a_bls1, a_gl, a_25], _build.ptxas_report())
+    window_phase([r_bls, r_bb, r_25, g_bls, g_gl, g_25, a_bls, a_bls1, a_gl, a_25, p2_bls, p2_bb, p2_bb_dense,
+                  p2_25, p2_25_dense, p2_25_t3, p2_tiny, p2_low], _build.ptxas_report())
     census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("monolith_permute", mo_gl),
-                                         ("monolith_permute", mo_m31)])
+                                         ("monolith_permute", mo_m31), ("poseidon2_permute", p2_bls),
+                                         ("poseidon2_permute", p2_bb), ("poseidon2_permute", p2_kb),
+                                         ("poseidon2_permute", p2_bb_dense), ("griffin_permute", g_bls),
+                                         ("griffin_permute", g_gl)])
 
     elapsed("the golden vectors")
     # ---- 3. golden vectors through the sponge on the card ----
@@ -803,12 +945,9 @@ def main():
         "poseidon2_permute": dict(
             wrapper=permute_p2, plain=permute_p2_plain,
             perm=functools.partial(family_permutation_for, st.Poseidon2Permutation),
-            bound=lambda cfg: (
-                f"folds per site {p2_plan(cfg).folds}, largest value before a fold "
-                f"{p2_plan(cfg).vmax / cfg.field.r:.1f}R, largest limb word "
-                f"{p2_plan(cfg).wmax / 2**24:.1f} x 2^24"
-            ),
-            configs=[p2_bls, p2_bn, p2_bb, p2_tiny, p2_low],
+            bound=lambda cfg: p2_plan_text(cfg, check_p2_bounds(cfg)),
+            configs=[p2_bls, p2_bn, p2_bb, p2_kb, p2_m31, p2_bb_dense, p2_25, p2_25_dense, p2_25_t3, p2_tiny,
+                     p2_low],
             source="sponge_tpu_torch/csrc/poseidon2.cu",
             replaces="sponge_tpu/ops/pallas_p2.py:314",
         ),
@@ -856,6 +995,8 @@ def main():
     for k in kernels.values():
         k["max_abs_err"] = 0
     for name, k in kernels.items():
+        if only is not None and name not in only:
+            continue
         for cfg in k["configs"]:
             B = B_LADDER_PLAIN if id(cfg) in ladder_plain else B_CHECK
             perm = k["perm"](cfg, dev)
@@ -876,6 +1017,57 @@ def main():
                 f"{name} {cfg.field.name} t={cfg.t} L={cfg.field.nlimbs}: torch.equal(kernel, plain) "
                 f"at B={B} incl. 64 edge lanes; 64 lanes == oracle; {bound_text}",
             )
+
+    # timing at the paths' shapes, beside each kernel's bound; the plain
+    # version's timed run is on the path's own input lanes and must equal the
+    # path's output there
+    def time_kernel(name, cfg, big, lanes, path_out=None):
+        k = kernels[name]
+        consts = k["perm"](cfg, dev).consts
+        small = big[..., lanes]
+        ms, _ = time_ms(lambda: k["wrapper"](cfg, consts, big))
+        # a launch-bound plain ladder: one warm call and one timed
+        reps = 1 if id(cfg) in ladder_plain else 3
+        plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small), reps)
+        n = small.shape[-1]
+        if path_out is not None:
+            check(
+                torch.equal(path_out[..., lanes], plain_out),
+                f"{name} {cfg.field.name}: the path's output at B={big.shape[-1]} != plain on {n} lanes",
+            )
+            say("main", f"{name} {cfg.field.name} t={cfg.t}: path output at B={big.shape[-1]} "
+                f"== plain on {n} lanes")
+        out = dict(ms=ms, plain_ms=plain_ms, plain_batch=n)
+        out["bound_ms"], out["bound_by"] = kernel_bound(name, cfg, big.shape[-1], rates)
+        flat_ms, _ = kernel_bound(name, cfg, big.shape[-1], flat_rates)
+        limb_ms, _ = kernel_bound(name, cfg, big.shape[-1], rates, one_word=False)
+        wide, narrow = limb_products(name, cfg)
+        recount = (f"; by the limb count before the one-word recount {limb_ms:.3f} ms, {limb_ms / ms:.1%} of it"
+                   if limb_ms != out["bound_ms"] else "")
+        say(
+            "time",
+            f"{name} {cfg.field.name} t={cfg.t} B={big.shape[-1]}: kernel {ms:.3f} ms = "
+            f"{big.shape[-1] / ms * 1e3:,.0f} perms/s; bound {out['bound_ms']:.3f} ms "
+            f"({out['bound_by']}, {out['bound_ms'] / ms:.1%} of it; {wide:,} wide + {narrow:,} 32-bit products "
+            f"per permutation at the peaks of {WIDE_PER_CLOCK} and {IMAD_PER_CLOCK} per clock per SM; "
+            f"{flat_ms:.3f} ms at {IMAD_PER_CLOCK} for both{recount}); "
+            f"plain torch {plain_ms:.1f} ms at B={n} = {n / plain_ms * 1e3:,.0f} perms/s [{gpu}]",
+        )
+        return out
+
+    every = slice(None)
+    half = B_LADDER_PLAIN // 2  # the ladder families' plain lanes: both ends of the 2^20 plane
+    ends = torch.cat([torch.arange(half), torch.arange(B_MAIN - half, B_MAIN)]).to(dev)
+    if only is not None:
+        for name, cfg, lanes in (("poseidon2_permute", p2_bls, every), ("poseidon2_permute", p2_bb, every),
+                                 ("poseidon2_permute", p2_kb, every), ("poseidon2_permute", p2_bb_dense, every),
+                                 ("griffin_permute", g_bls, ends), ("griffin_permute", g_gl, every)):
+            if name in only:
+                k = kernels[name]
+                big = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
+                time_kernel(name, cfg, big, lanes, k["wrapper"](cfg, k["perm"](cfg, dev).consts, big))
+        elapsed("the end")
+        return 0
 
     elapsed("the Poseidon path")
     # ---- 5. the Poseidon path (kernels 1 and 2), launches counted ----
@@ -926,14 +1118,14 @@ def main():
     # ---- 6. the Poseidon2 and Rescue-Prime path (kernels 3 and 5), launches counted ----
     p2_states = {
         cfg.field.name: with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
-        for cfg in (p2_bls, p2_bb)
+        for cfg in (p2_bls, p2_bb, p2_kb)
     }
     r_state = with_edges(fs, random_plane(fs, (r_bls.t, fs.nlimbs, B_MAIN), rng, dev))
     p2_leaves = random_plane(fs, (fs.nlimbs, B_MAIN), rng, dev)
     r_lane_vals = random_plane(fs, (2, fs.nlimbs, B_CHECK), rng, dev)
     for k in kernels.values():
         k["wrapper"].launches = 0
-    p2_out = {cfg.field.name: st.batched_permute(cfg, p2_states[cfg.field.name]) for cfg in (p2_bls, p2_bb)}
+    p2_out = {cfg.field.name: st.batched_permute(cfg, p2_states[cfg.field.name]) for cfg in (p2_bls, p2_bb, p2_kb)}
     p2_root = merkle_root(p2_bls, p2_leaves)
     r_out = st.batched_permute(r_bls, r_state)
     r_sponge = st.LazyPoseidonSponge(r_bls, batch_size=B_CHECK, device=dev)
@@ -950,7 +1142,7 @@ def main():
         launches[name] = launches2[name]
     say("launches", "Poseidon2/Rescue path: " + json.dumps(launches2))
 
-    for cfg in (p2_bls, p2_bb):
+    for cfg in (p2_bls, p2_bb, p2_kb):
         name = cfg.field.name
         check(p2_out[name].shape == p2_states[name].shape, f"Poseidon2 {name}: output shape")
         check_lanes_vs_oracle(cfg, p2_states[name], p2_out[name], main_sample, f"Poseidon2 {name} B=2^20")
@@ -1093,53 +1285,21 @@ def main():
         launches[name] += launches6[name]
 
     elapsed("the timing")
-    # ---- 11. timing at the paths' shapes, beside each kernel's bound; the plain
-    # version's timed run is on the path's own input lanes and must equal the
-    # path's output there ----
-    def time_kernel(name, cfg, big, lanes, path_out=None):
-        k = kernels[name]
-        consts = k["perm"](cfg, dev).consts
-        small = big[..., lanes]
-        ms, _ = time_ms(lambda: k["wrapper"](cfg, consts, big))
-        # a launch-bound plain ladder: one warm call and one timed
-        reps = 1 if id(cfg) in ladder_plain else 3
-        plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small), reps)
-        n = small.shape[-1]
-        if path_out is not None:
-            check(
-                torch.equal(path_out[..., lanes], plain_out),
-                f"{name} {cfg.field.name}: the path's output at B={big.shape[-1]} != plain on {n} lanes",
-            )
-            say("main", f"{name} {cfg.field.name} t={cfg.t}: path output at B={big.shape[-1]} "
-                f"== plain on {n} lanes")
-        out = dict(ms=ms, plain_ms=plain_ms, plain_batch=n)
-        out["bound_ms"], out["bound_by"] = kernel_bound(name, cfg, big.shape[-1], rates)
-        flat_ms, _ = kernel_bound(name, cfg, big.shape[-1], flat_rates)
-        wide, narrow = limb_products(name, cfg)
-        say(
-            "time",
-            f"{name} {cfg.field.name} t={cfg.t} B={big.shape[-1]}: kernel {ms:.3f} ms = "
-            f"{big.shape[-1] / ms * 1e3:,.0f} perms/s; bound {out['bound_ms']:.3f} ms "
-            f"({out['bound_by']}, {wide:,} wide + {narrow:,} 32-bit limb products per permutation at the "
-            f"peaks of {WIDE_PER_CLOCK} and {IMAD_PER_CLOCK} per clock per SM; {flat_ms:.3f} ms at "
-            f"{IMAD_PER_CLOCK} for both); "
-            f"plain torch {plain_ms:.1f} ms at B={n} = {n / plain_ms * 1e3:,.0f} perms/s [{gpu}]",
-        )
-        return out
-
-    every = slice(None)
-    half = B_LADDER_PLAIN // 2  # the ladder families' plain lanes: both ends of the 2^20 plane
-    ends = torch.cat([torch.arange(half), torch.arange(B_MAIN - half, B_MAIN)]).to(dev)
+    # ---- 11. timing at the paths' shapes (time_kernel) ----
     kernels["poseidon_permute_opt"].update(time_kernel("poseidon_permute_opt", bls, state, every, out))
     kernels["poseidon_permute_dense"].update(time_kernel("poseidon_permute_dense", bls, state, every, parity))
     k1, k2 = kernels["poseidon_permute_opt"]["ms"], kernels["poseidon_permute_dense"]["ms"]
     say("time", f"kernel 1 (\"auto\") {k1:.3f} ms against kernel 2 (\"dense\") {k2:.3f} ms on the same input: "
         f"kernel 1 {'faster' if k1 < k2 else 'not faster'} ({k2 / k1:.3f}x) [{gpu}]")
-    for cfg in (p2_bls, p2_bb):
+    for cfg in (p2_bls, p2_bb, p2_kb):
         name = cfg.field.name
         timed = time_kernel("poseidon2_permute", cfg, p2_states[name], every, p2_out[name])
-        if cfg is p2_bls:  # BabyBear t = 16 is the path's other width, not in the summary line
+        if cfg is p2_bls:  # BabyBear and KoalaBear t = 16 are the path's other widths, not in the summary line
             kernels["poseidon2_permute"].update(timed)
+    # the one-word body with dense M_E rows beside the structured chain (the choice the census explains)
+    time_kernel("poseidon2_permute", p2_bb_dense, p2_states[p2_bb.field.name], every,
+                kernels["poseidon2_permute"]["wrapper"](p2_bb_dense, family_permutation_for(
+                    st.Poseidon2Permutation, p2_bb_dense, dev).consts, p2_states[p2_bb.field.name]))
     kernels["rescue_permute"].update(time_kernel("rescue_permute", r_bls, r_state, ends, r_out))
     window_comparison(r_bls, r_state, r_out, gpu)
     time_kernel("rescue_permute", r_bb, p2_states[p2_bb.field.name], slice(0, B_CHECK))
@@ -1658,4 +1818,4 @@ def host_phase(st, dev, rng, gpu, kernels):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

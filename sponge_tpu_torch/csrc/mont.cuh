@@ -1,7 +1,7 @@
 // Montgomery arithmetic on 24-bit limbs in 32-bit words, one field element per
 // thread, shared by the port's kernels (poseidon_opt.cu, poseidon_dense.cu,
-// poseidon2.cu, rescue.cu, gmimc.cu, griffin.cu, anemoi.cu, monolith.cu,
-// probe.cu).
+// poseidon2.cu's limb body, rescue.cu, gmimc.cu, griffin.cu, anemoi.cu,
+// monolith.cu, probe.cu).
 //
 // An element is L little-endian limbs below 2^24 in Montgomery form with
 // R = 2^(24 L).  A product or a row dot product is accumulated in L 64-bit
@@ -10,18 +10,19 @@
 // add.  A column holds at most (terms + 1) * L such products plus a carry,
 // below 2^55 for every instantiated config.  All limb loops are unrolled
 // except the outer loop of mont_mul_const (the constant is read from memory
-// with the loop index), which kernels 2, 3, 5, 6, 7 and 8 and the probes
-// keep; kernels 1 and 4 no longer call it (they stage their constants in
-// shared memory; kernel 1's sparse round runs its constant products fully
-// unrolled in poseidon_opt.cu sparse_linear).  Results are carried back into
+// with the loop index), which kernels 2, 5, 7 and 8 and the probes keep;
+// kernels 1, 3, 4 and 6 stage their constants in shared memory and run
+// their constant products fully unrolled (mont_mul_staged; kernel 1's
+// sparse round in poseidon_opt.cu sparse_linear).  Results are carried back into
 // 24-bit limbs but only lazily reduced (value < a*b/R + p); the Python side
 // (sponge_tpu_torch/ops/bounds.py) simulates each kernel's schedule and
 // refuses a config whose values could reach R or end at 2p or more.
-// Kernels 5 and 7 square with mont_sqr and raise to long exponents with
-// pow_window, whose odd-power table sits in dynamic shared memory; kernel 1
-// and the probe ablation raise to alpha with pow_sqr (mont_sqr, the t
-// elements of a full round in lockstep); kernels 2, 3, 6 and 8 keep
-// mont_pow and pow_ladder.
+// Kernels 5, 6 and 7 square with mont_sqr and raise to long exponents with
+// pow_window, whose odd-power table sits in dynamic shared memory; kernels
+// 1 and 6 and the probe ablation raise to alpha with pow_sqr (mont_sqr, the
+// t elements of a full round in lockstep), kernel 3's limb body with the
+// same chain and its folds (poseidon2.cu p2_sbox); kernels 2 and 8 keep
+// mont_pow.
 #pragma once
 
 #include <cstdint>
@@ -46,8 +47,8 @@ __device__ __forceinline__ uint32_t ldc(const int32_t* __restrict__ c) {
 }
 
 // Where a routine reads the constant buffer: the read-only global path, or
-// shared memory the kernel staged the buffer in (kernels 1 and 4 and the
-// probe ablation).  A word read from shared memory lands in an ordinary
+// shared memory the kernel staged the buffer in (kernels 1, 3, 4 and 6 and
+// the probe ablation).  A word read from shared memory lands in an ordinary
 // register; one read from global memory at a warp-uniform address may be
 // kept in a uniform register, and an IMAD.WIDE.U32 with a uniform operand
 // takes no 64-bit addend, so a modulus held that way costs every REDC
@@ -138,6 +139,18 @@ __device__ __forceinline__ void mont_mul_const(uint32_t (&out)[L], const uint32_
   carry_out(out, acc);
 }
 
+// out = a * c / R (mod p) with c an element of the constants staged in
+// shared memory, fully unrolled (the constant's limbs are read into
+// registers first): kernels 3 and 6.
+template <int L>
+__device__ __forceinline__ void mont_mul_staged(uint32_t (&out)[L], const uint32_t (&a)[L],
+                                                const int32_t* c, const Modulus<L>& m) {
+  uint32_t cr[L];
+#pragma unroll
+  for (int k = 0; k < L; ++k) cr[k] = FromShared::load(c + k);
+  mont_mul(out, a, cr, m);
+}
+
 // out = (sum_j x[j] * c[j]) / R (mod p): one matrix row against the whole
 // state, the T products summed lazily in the same columns, one REDC.
 // c points at T constants of L limbs each.
@@ -209,26 +222,32 @@ __device__ __forceinline__ void carry_pass(uint32_t (&x)[L]) {
   x[L - 1] += c;
 }
 
-// n top-carry rho-folds of a carried value: c = value / R leaves as
-// c * (rho - R) with rho = R mod p (plain limbs), which keeps the value mod p
-// and brings it toward R.  ops/bounds.py p2_plan counts the folds each site
-// needs and bounds c * rho_k below 2^32.
+// One top-carry rho-fold of a carried value: c = value / R leaves as
+// c * (rho - R) with rho = R mod p (plain limbs, staged in shared memory),
+// which keeps the value mod p and brings it toward R.  ops/bounds.py p2_plan
+// counts the folds each site needs and bounds c * rho_k below 2^32.
 template <int L>
-__device__ __forceinline__ void fold(uint32_t (&x)[L], const int32_t* __restrict__ rho, int n) {
-#pragma unroll 1
-  for (int f = 0; f < n; ++f) {
-    const uint32_t c = x[L - 1] >> kLimbBits;
-    x[L - 1] &= kLimbMask;
-    uint32_t y[L];
+__device__ __forceinline__ void fold_once(uint32_t (&x)[L], const int32_t* rho) {
+  const uint32_t c = x[L - 1] >> kLimbBits;
+  x[L - 1] &= kLimbMask;
+  uint32_t y[L];
 #pragma unroll
-    for (int k = 0; k < L; ++k) y[k] = c * ldc(rho + k);
-    add_lazy(x, y);
-  }
+  for (int k = 0; k < L; ++k) y[k] = c * FromShared::load(rho + k);
+  add_lazy(x, y);
+}
+
+// n <= MAX rho-folds, n warp-uniform: MAX unrolled folds, each behind a
+// uniform branch, so no fold loop runs.
+template <int MAX, int L>
+__device__ __forceinline__ void fold_upto(uint32_t (&x)[L], const int32_t* rho, int n) {
+#pragma unroll
+  for (int f = 0; f < MAX; ++f)
+    if (f < n) fold_once(x, rho);
 }
 
 // x = E x for a t x t matrix of small non-negative integers (plain int32 in
 // the constant buffer), limb by limb in 32-bit words: no carry, no REDC.
-template <int T, int L>
+template <int T, int L, typename Src = FromGlobal>
 __device__ __forceinline__ void small_mat_apply(uint32_t (&x)[T][L],
                                                 const int32_t* __restrict__ mat) {
   uint32_t y[T][L];
@@ -238,7 +257,7 @@ __device__ __forceinline__ void small_mat_apply(uint32_t (&x)[T][L],
     for (int k = 0; k < L; ++k) y[i][k] = 0;
 #pragma unroll
     for (int j = 0; j < T; ++j) {
-      const uint32_t e = ldc(mat + i * T + j);
+      const uint32_t e = Src::load(mat + i * T + j);
 #pragma unroll
       for (int k = 0; k < L; ++k) y[i][k] += e * x[j][k];
     }
@@ -259,43 +278,6 @@ __device__ __forceinline__ void mont_pow(uint32_t (&x)[L], uint32_t alpha, const
   for (int bit = 30 - __clz(static_cast<int>(alpha)); bit >= 0; --bit) {
     mont_mul(x, x, x, m);
     if ((alpha >> bit) & 1u) mont_mul(x, x, base, m);
-  }
-}
-
-// x^e by the run-length ladder (ops/montgomery.py ladder_schedule) on N
-// elements in lockstep: entry g > 0 of the schedule is g squarings and one
-// multiply by the element's input, g < 0 is -g squarings.  The schedule is
-// read by loop index (a warp-uniform broadcast) and both loops stay rolled,
-// so a 254-bit exponent costs one inlined squaring and one multiply body per
-// element.  Each product is followed by ``folds`` rho-folds (see fold()).
-template <int N, int L>
-__device__ __forceinline__ void pow_ladder(uint32_t (&x)[N][L], const int32_t* __restrict__ runs,
-                                           int n_runs, const Modulus<L>& m,
-                                           const int32_t* __restrict__ rho, int folds) {
-  uint32_t base[N][L];
-#pragma unroll
-  for (int e = 0; e < N; ++e)
-#pragma unroll
-    for (int k = 0; k < L; ++k) base[e][k] = x[e][k];
-#pragma unroll 1
-  for (int i = 0; i < n_runs; ++i) {
-    const int g = __ldg(runs + i);
-    const int squarings = g < 0 ? -g : g;
-#pragma unroll 1
-    for (int s = 0; s < squarings; ++s) {
-#pragma unroll
-      for (int e = 0; e < N; ++e) {
-        mont_mul(x[e], x[e], x[e], m);
-        fold(x[e], rho, folds);
-      }
-    }
-    if (g > 0) {
-#pragma unroll
-      for (int e = 0; e < N; ++e) {
-        mont_mul(x[e], x[e], base[e], m);
-        fold(x[e], rho, folds);
-      }
-    }
   }
 }
 
@@ -396,7 +378,7 @@ __device__ __forceinline__ void window_entry(uint32_t (&dst)[L], const uint32_t 
 // (ops/montgomery.py window_schedule): ``sched`` holds the table index j of
 // the leading window (x^(2j+1) seeds the accumulator), then per further
 // window (squarings, j), j = -1 for squarings alone; it is read by loop
-// index, a warp-uniform broadcast.  The odd powers x^3 .. x^(2^w - 1) of
+// index through Src (global or staged), a warp-uniform broadcast.  The odd powers x^3 .. x^(2^w - 1) of
 // each element sit in this thread's slots of dynamic shared memory
 // (``table`` = the block's table + threadIdx.x, limbs kThreads words apart,
 // so a warp's 32 accesses fall in 32 banks); x itself stays in registers.
@@ -406,7 +388,7 @@ __device__ __forceinline__ void window_entry(uint32_t (&dst)[L], const uint32_t 
 // (E = 2^(w-1) entries), each storing its power; the last reads x^2 before
 // it overwrites it with x^(2E-1).  One squaring and E - 1 multiplies build
 // the table; ops/bounds.py _Replay.pow_window replays this order.
-template <int N, int L>
+template <int N, int L, typename Src = FromGlobal>
 __device__ __forceinline__ void pow_window(uint32_t (&x)[N][L], const int32_t* __restrict__ sched,
                                            int n_sched, int w, uint32_t* table,
                                            const Modulus<L>& m) {
@@ -427,13 +409,13 @@ __device__ __forceinline__ void pow_window(uint32_t (&x)[N][L], const int32_t* _
       store = k == 0 ? entries - 1 : k;
     } else {
       if (s == 0) {
-        const int seed = __ldg(sched);
+        const int seed = static_cast<int>(Src::load(sched));
 #pragma unroll
         for (int e = 0; e < N; ++e) window_entry(x[e], base[e], table, e, entries, seed);
       }
       if (s == steps) break;
-      squarings = __ldg(sched + 1 + 2 * s);
-      j = __ldg(sched + 2 + 2 * s);
+      squarings = static_cast<int>(Src::load(sched + 1 + 2 * s));
+      j = static_cast<int>(Src::load(sched + 2 + 2 * s));
     }
 #pragma unroll 1
     for (int r = 0; r < squarings; ++r) {

@@ -29,7 +29,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..fields import FieldSpec
-from ..ops.montgomery import ladder_schedule
+from ..ops._build import registers
+from ..ops.montgomery import window_for, window_schedule
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 
@@ -110,11 +111,25 @@ class GriffinConfig:
         return OracleGriffinSponge(self)
 
 
+@functools.lru_cache(maxsize=None)
+def window(cfg: GriffinConfig) -> int:
+    """Kernel 6's window (``montgomery.window_for``) for x_0^(1/alpha): one
+    chain per lane at the kernel's registers."""
+    L = cfg.field.nlimbs
+    return window_for(cfg.inv_alpha, L, 1, registers("sponge_griffin", cfg.t, L))
+
+
+def schedule(cfg: GriffinConfig) -> list[int]:
+    """``montgomery.window_schedule`` of 1/alpha at ``window``."""
+    return window_schedule(cfg.inv_alpha, window(cfg))
+
+
 def constant_layout(cfg: GriffinConfig):
     """Sections of the flat int32 constant buffer, in order, limb axis last:
     the modulus and R mod p (plain limbs), the round constants with a zero
     last row and the gates' (alpha_i, beta_i) for i = 2..t-1 (Montgomery
-    limbs), M_E (plain ints) and the ladder schedule of 1/alpha."""
+    limbs), M_E (plain ints) and the window schedule of 1/alpha
+    (``schedule``)."""
     t, L = cfg.t, cfg.field.nlimbs
     return [
         ("p", (L,)),
@@ -123,7 +138,7 @@ def constant_layout(cfg: GriffinConfig):
         ("qa", (t - 2, L)),
         ("qb", (t - 2, L)),
         ("mat_e", (t, t)),
-        ("inv_runs", (len(ladder_schedule(cfg.inv_alpha)),)),
+        ("inv_window", (len(schedule(cfg)),)),
     ]
 
 
@@ -139,7 +154,7 @@ def kernel_constants(cfg: GriffinConfig) -> np.ndarray:
         mont_limb_rows(fs, [[a for a, _ in quads]]),
         mont_limb_rows(fs, [[b for _, b in quads]]),
         np.asarray(cfg.mat_e, dtype=np.int64),
-        np.asarray(ladder_schedule(cfg.inv_alpha), dtype=np.int64),
+        np.asarray(schedule(cfg), dtype=np.int64),
     ]
     return np.concatenate([np.asarray(a).reshape(-1) for a in parts]).astype(np.int32)
 

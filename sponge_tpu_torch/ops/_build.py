@@ -76,6 +76,9 @@ REGISTERS = {
     ("sponge_anemoi", 2, 11): 74,
     ("sponge_anemoi", 8, 3): 56,
     ("sponge_anemoi", 4, 2): 32,
+    ("sponge_griffin", 3, 11): 94,
+    ("sponge_griffin", 8, 3): 64,
+    ("sponge_griffin", 3, 2): 32,
 }
 
 
@@ -91,17 +94,18 @@ SIGNATURES = {
     # alpha, full rounds, partial rounds, constants, n0inv
     "sponge_poseidon_opt": [c_int, c_int, c_int, c_void_p, c_uint],
     "sponge_poseidon_dense": [c_int, c_int, c_int, c_void_p, c_uint],
-    # full rounds, partial rounds, alpha ladder length, small diagonal,
-    # fold counts (host int[5]), constants, n0inv
-    "sponge_poseidon2": [c_int, c_int, c_int, c_int, POINTER(c_int), c_void_p, c_uint],
+    # body (ops/poseidon2.py), full rounds, partial rounds, alpha, small
+    # diagonal, the body's constants and their length, fold table (device
+    # int32, limb body), n0inv
+    "sponge_poseidon2": [c_int, c_int, c_int, c_uint, c_int, c_void_p, c_int, c_void_p, c_uint],
     # rounds, alpha window and schedule length, inverse-alpha window and
     # schedule length, constants, n0inv
     "sponge_rescue": [c_int, c_int, c_int, c_int, c_int, c_void_p, c_uint],
     # rounds, alpha, constants, n0inv
     "sponge_gmimc": [c_int, c_uint, c_void_p, c_uint],
-    # rounds, alpha, inverse-alpha ladder length, post-linear reduction,
-    # constants, n0inv
-    "sponge_griffin": [c_int, c_uint, c_int, c_int, c_void_p, c_uint],
+    # rounds, alpha, inverse-alpha window and schedule length, post-linear
+    # reduction, constants and their length, n0inv
+    "sponge_griffin": [c_int, c_uint, c_int, c_int, c_int, c_void_p, c_int, c_uint],
     # rounds, inverse-alpha window and schedule length, post-PHT reduction,
     # constants, n0inv
     "sponge_anemoi": [c_int, c_int, c_int, c_int, c_void_p, c_uint],

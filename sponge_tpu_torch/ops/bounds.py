@@ -13,14 +13,16 @@ replays each Poseidon kernel's schedule on exclusive integer bounds and
 raises when either condition could fail, so a config that could overflow
 never launches.  It also bounds the 64-bit REDC column accumulators.
 
-Poseidon2 (kernel 3) never reduces in its linear layers: limb words hold
-small-integer combinations of 24-bit limbs and values grow past R.  Its
-simulation (``p2_plan``) tracks each element's value bound and limb-word
-bound through the kernel's exact schedule, derives how many top-carry
-rho-folds each static site needs to bring values back under R, and checks
-that every 32-bit word stays below 2^32.  Rescue, GMiMC, Griffin and Anemoi
-(kernels 5, 8, 6, 7) replay their schedules on (value, limb word) bounds
-through ``_Replay``: GMiMC's rest-branch adds stay uncarried for the whole
+Poseidon2 (kernel 3) has two bodies (``check_p2_bounds``).  Its limb body
+never reduces in its linear layers: limb words hold small-integer
+combinations of 24-bit limbs and values grow past R.  Its simulation
+(``p2_plan``) tracks each element's value bound and limb-word bound through
+the kernel's exact schedule, derives how many top-carry rho-folds each
+round needs before its S-boxes and after each S-box product to bring
+values back under R, and checks that every 32-bit word stays below 2^32.
+Its one-word body (fields below 2^31) is replayed by ``_P2WordSim``.
+Rescue, GMiMC, Griffin and Anemoi (kernels 5, 8, 6, 7) replay their
+schedules on (value, limb word) bounds through ``_Replay``: GMiMC's rest-branch adds stay uncarried for the whole
 permutation, and Griffin's and Anemoi's optional reductions are taken where
 the replay without them fails.  The TPU kernels' 12-bit fixpoints
 (``pallas_gmimc.py:67``, ``pallas_griffin.py:75``, ``pallas_anemoi.py:69``)
@@ -34,6 +36,8 @@ from dataclasses import dataclass
 
 from ..anemoi.config import window as anemoi_window
 from ..fields import LIMB_BITS
+from ..griffin.config import window as griffin_window
+from ..poseidon2.config import one_word
 from ..poseidon.config import PoseidonConfig
 from ..rescue.config import windows as rescue_windows
 from .montgomery import fold_bound, fold_count, ladder_schedule, window_schedule
@@ -154,17 +158,30 @@ def check_kernel_bounds(cfg: PoseidonConfig, optimized: bool) -> int:
 _W24 = 1 << LIMB_BITS  # exclusive bound of a carried limb
 _W32 = 1 << 32
 
-FOLD_SITES = ("ext", "int", "sbox_ext", "sbox_int", "exit")
+# Most rho-folds kernel 3's limb body takes before a round's S-boxes (and at
+# the exit), and after each S-box product (csrc/poseidon2.cu kMaxFolds,
+# kMaxSboxFolds).
+P2_FOLD_CAPS = (2, 1)
+
+# Poseidon2's 4 x 4 block of M_E (ePrint 2023/323, section 5.1); M_E at
+# t = 4k, k >= 2, is circ(2 M4, M4, ..., M4).
+M4 = ((5, 7, 1, 3), (4, 6, 1, 1), (1, 3, 5, 7), (1, 1, 4, 6))
 
 
 @dataclass(frozen=True)
 class P2Plan:
-    """Fold counts per static site of the Poseidon2 kernel, in
-    ``FOLD_SITES`` order, and the largest value and limb word reached.
-    ``min_folds`` is the number of folds one permutation takes when every
-    value is folded only as often as it needs (the kernel applies each
-    site's count at every instance of the site)."""
+    """How kernel 3 runs one config.  ``body`` "limb": Montgomery limbs,
+    ``folds`` the top-carry rho-folds per round (before the round's
+    S-boxes, after each S-box product), then (the exit's, 0); ``min_folds``
+    the folds one permutation takes when every value is folded only as often
+    as it needs; ``vmax`` and ``wmax`` the largest value and limb word.
+    ``body`` "word": one 32-bit Montgomery word per element (fields below
+    2^31), no folds; ``structured`` whether M_E runs as
+    circ(2 M4, M4, ..., M4); ``vmax`` the largest 64-bit row sum and
+    ``wmax`` the largest word."""
 
+    body: str
+    structured: bool
     folds: tuple
     vmax: int
     wmax: int
@@ -173,18 +190,20 @@ class P2Plan:
 
 class _P2Sim:
     """Exclusive (value, limb word) bounds of each element through kernel 3's
-    schedule.  With ``folds=None`` each site's count grows to what its
-    instances need; with fixed counts every constraint is checked; with
-    ``folds="minimal"`` each instance folds as often as its own value needs.
+    limb body.  With ``folds="minimal"`` each instance folds as often as its
+    own value needs, and ``need`` records the most any instance of a round's
+    site needed; with a fixed plan (``P2Plan.folds``) every instance of a
+    round's site takes that round's count and every constraint is checked.
     ``instances`` counts the folds taken."""
 
-    def __init__(self, cfg, folds=None):
+    def __init__(self, cfg, folds):
         fs = cfg.field
         self.cfg = cfg
         self.p, self.R, self.rho, self.L = fs.modulus, fs.r, fs.r_mod_p, fs.nlimbs
-        self.derive, self.minimal = folds is None, folds == "minimal"
-        fixed = folds if isinstance(folds, tuple) else (0,) * len(FOLD_SITES)
-        self.folds = dict(zip(FOLD_SITES, fixed))
+        self.minimal = folds == "minimal"
+        self.plan = None if self.minimal else folds
+        self.need = {}
+        self.round = 0
         self.vmax = self.wmax = self.instances = 0
 
     def _fail(self, msg):
@@ -209,11 +228,15 @@ class _P2Sim:
         return self.carried(v + addend - 1)
 
     def fold(self, x, site):
+        """``site`` 0: before the S-boxes (or the exit's, at round
+        ``rounds``); 1: after an S-box product."""
         v, _ = x
-        need = fold_count(self.R, self.rho, v)
-        if self.derive:
-            self.folds[site] = max(self.folds[site], need)
-        n = need if self.minimal else self.folds[site]
+        if self.minimal:
+            n = fold_count(self.R, self.rho, v)
+            key = (self.round, site)
+            self.need[key] = max(self.need.get(key, 0), n)
+        else:
+            n = self.plan[self.round][site]
         self.instances += n
         for _ in range(n):
             cm = (v - 1) // self.R
@@ -226,13 +249,13 @@ class _P2Sim:
             self._fail("a Montgomery product input can reach R")
         return self.carried((a[0] - 1) * (b[0] - 1) // self.R + self.p + 1)
 
-    def sbox(self, x, site):
+    def sbox(self, x):
         acc = x
         for g in ladder_schedule(self.cfg.alpha):
             for _ in range(abs(g)):
-                acc = self.fold(self.mul(acc, acc), site)
+                acc = self.fold(self.mul(acc, acc), 1)
             if g > 0:
-                acc = self.fold(self.mul(acc, x), site)
+                acc = self.fold(self.mul(acc, x), 1)
         return acc
 
     def lin(self, coeffs, xs):
@@ -249,38 +272,143 @@ class _P2Sim:
         cfg, p = self.cfg, self.p
         t, half = cfg.t, cfg.full_rounds // 2
         xs = self.external([self.carried(p)] * t)
-        for r in range(cfg.full_rounds + cfg.partial_rounds):
+        for r in range(cfg.rounds):
+            self.round = r
             if r < half or r >= half + cfg.partial_rounds:
-                xs = [self.fold(self.carry_add(x, p), "ext") for x in xs]
-                xs = self.external([self.sbox(x, "sbox_ext") for x in xs])
+                xs = [self.fold(self.carry_add(x, p), 0) for x in xs]
+                xs = self.external([self.sbox(x) for x in xs])
                 continue
-            xs = [self.fold(self.carry_add(x, p if e == 0 else 1), "int") for e, x in enumerate(xs)]
-            xs[0] = self.sbox(xs[0], "sbox_int")
+            xs = [self.fold(self.carry_add(x, p if e == 0 else 1), 0) for e, x in enumerate(xs)]
+            xs[0] = self.sbox(xs[0])
             sigma = self.lin([1] * t, xs)
             if cfg.small_diag:
                 xs = [self.lin([1, d], [sigma, x]) for d, x in zip(cfg.diag_m1, xs)]
             else:
                 xs = [self.lin([1, 1], [sigma, self.mul(x, (p, _W24))]) for x in xs]
-        xs = [self.fold(self.carry_add(x, 1), "exit") for x in xs]
+        self.round = cfg.rounds
+        xs = [self.fold(self.carry_add(x, 1), 0) for x in xs]
         out = max(self.mul(x, (p, _W24))[0] for x in xs)  # Montgomery product by 1
         if out > 2 * p:
             self._fail(f"output bound {out / p:.2f}p >= 2p")
-        return tuple(self.folds[s] for s in FOLD_SITES)
 
 
 @functools.lru_cache(maxsize=None)
 def p2_plan(cfg) -> P2Plan:
-    """Fold counts of kernel 3 for ``cfg``, derived and then verified by a
-    second replay with those counts fixed; raises ValueError if no plan is
-    exact (a limb word could reach 2^32 or a product input R)."""
-    folds = _P2Sim(cfg).run()
-    sim = _P2Sim(cfg, folds)
-    sim.run()
-    if column_bound(1, cfg.field.nlimbs) >= 1 << 63:
-        raise ValueError(f"{cfg.field.name}: REDC columns can overflow 63 bits")
+    """Kernel 3's limb body for ``cfg``: each round's fold counts, the most
+    any instance of the round's site needs in a replay that folds every
+    value as often as it needs (a plan with more folds never reaches a
+    larger bound), then verified by a replay with those counts fixed.
+    Raises ValueError if no plan is exact (a limb word could reach 2^32, a
+    product input R, the output 2p, or a count its cap)."""
     minimal = _P2Sim(cfg, "minimal")
     minimal.run()
-    return P2Plan(folds=folds, vmax=sim.vmax, wmax=sim.wmax, min_folds=minimal.instances)
+    folds = tuple((minimal.need.get((r, 0), 0), minimal.need.get((r, 1), 0)) for r in range(cfg.rounds))
+    folds += ((minimal.need.get((cfg.rounds, 0), 0), 0),)
+    for pre, sbox in folds:
+        if pre > P2_FOLD_CAPS[0] or sbox > P2_FOLD_CAPS[1]:
+            raise ValueError(f"Poseidon2 kernel, {cfg.field.name} t={cfg.t}: a site needs more folds than "
+                             f"the kernel takes ({P2_FOLD_CAPS})")
+    sim = _P2Sim(cfg, folds)
+    sim.run()
+    if column_bound(1, cfg.field.nlimbs) >= 1 << 63 or sqr_column_bound(cfg.field.nlimbs) >= 1 << 63:
+        raise ValueError(f"{cfg.field.name}: REDC columns can overflow 63 bits")
+    return P2Plan("limb", False, folds, sim.vmax, sim.wmax, minimal.instances)
+
+
+def m4_structured(mat_e) -> bool:
+    """Whether M_E is circ(2 M4, M4, ..., M4) over k >= 2 chunks of four."""
+    t = len(mat_e)
+    return t % 4 == 0 and t >= 8 and all(
+        mat_e[i][j] == (2 if i // 4 == j // 4 else 1) * M4[i % 4][j % 4] for i in range(t) for j in range(t)
+    )
+
+
+_WIDE_LIMIT = 1 << 40  # reduce_wide's input range
+
+
+class _P2WordSim:
+    """Exclusive bounds through kernel 3's one-word body
+    (``csrc/poseidon2.cu`` ``poseidon2_word_kernel``): a product
+    (a b + q p) / 2^32 with a b + q p below 2^64 and its result below
+    a b / 2^32 + p; a conditional subtraction of an input below 2p; a 64-bit
+    row sum below 2^40, which ``reduce_wide`` takes below 2p; every word
+    below 2^32."""
+
+    def __init__(self, cfg):
+        self.cfg, self.p = cfg, cfg.field.modulus
+        self.vmax = self.wmax = 0
+        if not (1 << 16) < self.p < 1 << 31:
+            self._fail("the one-word body needs 2^16 < p < 2^31")
+
+    def _fail(self, msg):
+        raise ValueError(f"Poseidon2 one-word kernel, {self.cfg.field.name} t={self.cfg.t}: {msg}")
+
+    def word(self, v):
+        self.wmax = max(self.wmax, v)
+        if v > _W32:
+            self._fail(f"a word can reach 2^{(v - 1).bit_length()} (>= 2^32)")
+        return v
+
+    def mul(self, a, b):
+        if (a - 1) * (b - 1) + (_W32 - 1) * self.p >= 1 << 64:
+            self._fail("a product's a b + q p can reach 2^64")
+        return self.word((a - 1) * (b - 1) // _W32 + self.p + 1)
+
+    def sub(self, v):
+        if v > 2 * self.p:
+            self._fail("a conditional subtraction's input can reach 2p")
+        return min(v, self.p)
+
+    def add(self, a, b):
+        return self.word(a + b - 1)
+
+    def reduce(self, coeffs, xs):
+        """A 64-bit sum of small-integer multiples, reduced below 2p."""
+        s = sum(c * (x - 1) for c, x in zip(coeffs, xs)) + 1
+        self.vmax = max(self.vmax, s)
+        if s > _WIDE_LIMIT:
+            self._fail(f"a row sum can reach 2^{(s - 1).bit_length()} (reduce_wide takes below 2^40)")
+        return self.word(2 * self.p)
+
+    def sbox(self, x):
+        acc = x
+        for g in ladder_schedule(self.cfg.alpha):
+            for _ in range(abs(g)):
+                acc = self.sub(self.mul(acc, acc))
+            if g > 0:
+                acc = self.sub(self.mul(acc, x))
+        return acc
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        t, half = cfg.t, cfg.full_rounds // 2
+        if any(c < 0 for row in cfg.mat_e for c in row):
+            self._fail("M_E entries must be non-negative")
+        external = lambda xs: [self.reduce(row, xs) for row in cfg.mat_e]  # noqa: E731
+        xs = external([self.mul(p, p)] * t)  # the entry's product by 2^16 mod p
+        for r in range(cfg.rounds):
+            if r < half or r >= half + cfg.partial_rounds:
+                xs = external([self.sbox(self.sub(self.add(self.sub(x), p))) for x in xs])
+                continue
+            xs[0] = self.sbox(self.sub(self.add(self.sub(xs[0]), p)))
+            sigma = self.sub(self.reduce([1] * t, xs))
+            xs = [self.add(sigma, self.sub(self.mul(x, p))) for x in xs]
+        for x in xs:
+            self.sub(self.mul(x, p))  # the exit's product by 2^48 mod p: canonical
+
+
+@functools.lru_cache(maxsize=None)
+def check_p2_bounds(cfg) -> P2Plan:
+    """Kernel 3's plan for ``cfg``: the one-word body for a field below
+    2^31 (``poseidon2.config.one_word``), with the structured M_E where the
+    matrix is circ(2 M4, M4, ..., M4), proved by a replay of its bounds;
+    else the limb body's ``p2_plan``.  Raises ValueError if the field's body
+    does not admit the config (no fallback to the other)."""
+    if not one_word(cfg.field):
+        return p2_plan(cfg)
+    sim = _P2WordSim(cfg)
+    sim.run()
+    return P2Plan("word", m4_structured(cfg.mat_e), (), sim.vmax, sim.wmax, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -359,12 +487,14 @@ class _Replay:
             self.mul(x, self.const)
         return self.carried(sum((x[0] - 1) * (self.p - 1) for x in xs) // self.R + self.p + 1)
 
-    def pow(self, x, e):
-        """``mont_pow`` / ``pow_ladder``: the run-length schedule of e."""
+    def pow(self, x, e, square=None):
+        """``mont_pow`` (squarings by ``mul``) or, with ``square=self.sqr``,
+        ``pow_sqr``: the run-length schedule of e."""
+        square = square or (lambda a: self.mul(a, a))
         acc = x
         for g in ladder_schedule(e):
             for _ in range(abs(g)):
-                acc = self.mul(acc, acc)
+                acc = square(acc)
             if g > 0:
                 acc = self.mul(acc, x)
         return acc
@@ -443,7 +573,7 @@ def check_gmimc_bounds(cfg) -> KernelPlan:
 def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:
     fs, t = cfg.field, cfg.t
     sim = _Replay(f"Griffin kernel, {fs.name} t={t}", fs)
-    c = sim.const
+    c, w = sim.const, griffin_window(cfg)
 
     def linear(xs, with_rc):
         ys = [sim.lin(row, xs) for row in cfg.mat_e]
@@ -452,12 +582,12 @@ def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:
 
     xs = linear([c] * t, False)
     for _ in range(cfg.rounds):
-        y0, y1 = sim.pow(xs[0], cfg.inv_alpha), sim.pow(xs[1], cfg.alpha)
+        y0, y1 = sim.pow_window(xs[0], cfg.inv_alpha, w), sim.pow(xs[1], cfg.alpha, sim.sqr)
         out = [y0, y1] + xs[2:]
         for i in range(t - 1, 1, -1):  # descending, as the kernel
             terms = [y0, y1] + ([xs[i - 1]] if i >= 3 else [])
             li = sim.carry_pass(sim.lin([i - 1, 1, 1][: len(terms)], terms))
-            quad = sim.add(sim.add(sim.mul(li, li), sim.mul(li, c)), c)
+            quad = sim.add(sim.add(sim.sqr(li), sim.mul(li, c)), c)
             out[i] = sim.mul(xs[i], quad)
         xs = linear(out, True)
     for x in xs:
@@ -468,9 +598,10 @@ def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:
 @functools.lru_cache(maxsize=None)
 def check_griffin_bounds(cfg) -> KernelPlan:
     """Replay kernel 6's schedule: the opening small-integer linear layer
-    (limb words unreduced, then carried), per round the inverse ladder on
-    x_0, x_1^alpha, the quadratic gates from i = t-1 down to 2, and the
-    linear layer plus rc.  The linear layer amplifies values by its row sum,
+    (limb words unreduced, then carried), per round the window chain on x_0
+    (``griffin.config.window``, its table included), x_1^alpha by
+    ``pow_sqr``, the quadratic gates from i = t-1 down to 2 (L_i^2 by
+    ``mont_sqr``), and the linear layer plus rc.  The linear layer amplifies values by its row sum,
     so where the replay without it fails, the plan takes the post-linear
     Montgomery product by 1 (``reduce``), as the TPU kernel does
     (``pallas_griffin.py:359-364``).  Raises ValueError if neither plan is

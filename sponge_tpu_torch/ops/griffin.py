@@ -2,9 +2,9 @@
 
 Counterpart of ``sponge_tpu/ops/pallas_griffin.py`` (``griffin_permute_fn``):
 the opening small-integer linear layer, then per round x_0^(1/alpha) by the
-run-length ladder, x_1^alpha, the quadratic gates on x_2.., the linear layer
-plus rc, and the post-linear reduction where ``ops/bounds.py``
-``check_griffin_bounds`` asks for it.  The CUDA kernel is
+sliding-window chain at ``griffin.config.window``, x_1^alpha, the quadratic
+gates on x_2.., the linear layer plus rc, and the post-linear reduction
+where ``ops/bounds.py`` ``check_griffin_bounds`` asks for it.  The CUDA kernel is
 ``csrc/griffin.cu``; ``griffin_permute_plain`` computes the same function
 with int64 tensor ops, canonical after every step.
 
@@ -16,11 +16,11 @@ from __future__ import annotations
 
 import torch
 
-from ..griffin.config import GriffinConfig, constant_layout, unpack_constants
+from ..griffin.config import GriffinConfig, constant_layout, schedule, unpack_constants, window
+from ..poseidon.config import layout_size
 from . import _build
 from . import montgomery as mont
 from .bounds import check_griffin_bounds
-from .montgomery import ladder_schedule
 
 
 def griffin_permute_plain(cfg: GriffinConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -55,8 +55,8 @@ def _launch_args(cfg: GriffinConfig, consts: torch.Tensor):
     kernel 6's own C arguments."""
     plan = check_griffin_bounds(cfg)
     return (
-        cfg.rounds, cfg.alpha, len(ladder_schedule(cfg.inv_alpha)), int(plan.reduce), consts.data_ptr(),
-        cfg.field.n0inv,
+        cfg.rounds, cfg.alpha, window(cfg), len(schedule(cfg)), int(plan.reduce), consts.data_ptr(),
+        layout_size(constant_layout(cfg)), cfg.field.n0inv,
     )
 
 

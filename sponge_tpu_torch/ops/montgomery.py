@@ -12,10 +12,10 @@ inside int64 for every shipped field (``ops/bounds.py`` checks it).  This is
 the same arithmetic the CUDA kernels run in 64-bit registers, written with
 tensor ops over the whole plane, so it runs on the CPU and on the card alike.
 
-The exponent schedules the kernels read also live here: the run-length
-ladder (``ladder_schedule``, kernels 3 and 6 and ``mont_pow``) and the
-sliding window (``window_schedule``, kernels 5 and 7), with the rule that
-picks a kernel's window (``window_for``).
+The exponent schedules also live here: the run-length ladder
+(``ladder_schedule``: ``mont_pow`` and the replays of the kernels' square-
+and-multiply chains) and the sliding window (``window_schedule``, kernels 5,
+6 and 7), with the rule that picks a kernel's window (``window_for``).
 """
 
 from __future__ import annotations
@@ -116,7 +116,7 @@ def mont_add(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mont_pow(fs: FieldSpec, x: torch.Tensor, exponent: int) -> torch.Tensor:
     """x^exponent by MSB-first square-and-multiply, run by run
-    (``ladder_schedule``), as the CUDA kernels' ``pow_ladder``."""
+    (``ladder_schedule``), as the CUDA kernels' ``mont_pow``."""
     base = x.long()
     acc = base
     for g in ladder_schedule(exponent):

@@ -1,10 +1,13 @@
 """Kernel 3: the Poseidon2 permutation, and its plain PyTorch version.
 
 Counterpart of ``sponge_tpu/ops/pallas_p2.py`` (``p2_permute_fn``): small-int
-M_E, M_I = J + diag(mu - 1), Montgomery products only in the S-box (and the
-diagonal when it is not small), values kept below R by top-carry rho-folds
-at static sites.  The CUDA kernel is ``csrc/poseidon2.cu``; its fold counts
-come from the static schedule replay ``ops/bounds.py`` ``p2_plan``.
+M_E, M_I = J + diag(mu - 1).  The CUDA kernel is ``csrc/poseidon2.cu`` with
+two bodies, chosen per config by ``ops/bounds.py`` ``check_p2_bounds``: the
+limb body (Montgomery products only in the S-box and the diagonal when it is
+not small, values kept below R by top-carry rho-folds whose counts per
+round come from the replay ``p2_plan``), and for fields below 2^31 the
+one-word body (one 32-bit Montgomery word per element, its constants in the
+buffer's word section).
 
 ``permute_p2_plain`` computes the same function with int64 tensor ops,
 canonical after every layer: each linear layer's unreduced limb sums go
@@ -16,15 +19,19 @@ CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
-from ..poseidon2.config import Poseidon2Config, constant_layout, unpack_constants
+from ..poseidon.config import layout_size
+from ..poseidon2.config import LIMB_SECTIONS, Poseidon2Config, constant_layout, unpack_constants
 from . import _build
 from . import montgomery as mont
-from .bounds import p2_plan
-from .montgomery import ladder_schedule
+from .bounds import check_p2_bounds
+
+# (t, L) each body is compiled for (csrc/poseidon2.cu sponge_poseidon2); the
+# union is _build.INSTANTIATIONS["sponge_poseidon2"].
+BODIES = {"limb": frozenset({(3, 11), (8, 2), (3, 2)}), "word": frozenset({(16, 2), (8, 2), (3, 2)})}
 
 
 def _small_mat(rows, device) -> torch.Tensor:
@@ -65,13 +72,35 @@ def permute_p2_plain(cfg: Poseidon2Config, consts: torch.Tensor, state: torch.Te
     return x.int()
 
 
+@functools.lru_cache(maxsize=None)
+def _fold_table(cfg: Poseidon2Config, device: torch.device) -> torch.Tensor:
+    """The limb body's fold counts (``P2Plan.folds``) as a device int32
+    table, built once per config and device."""
+    return torch.tensor(check_p2_bounds(cfg).folds, dtype=torch.int32, device=device).reshape(-1)
+
+
 def _launch_args(cfg: Poseidon2Config, consts: torch.Tensor):
-    """The fold plan, then kernel 3's own C arguments."""
-    plan = p2_plan(cfg)
-    folds = (ctypes.c_int * len(plan.folds))(*plan.folds)
+    """The body and its plan (``check_p2_bounds``), then kernel 3's own C
+    arguments: the body code, the rounds, alpha, the small-diagonal flag, the
+    constants the body reads and their length, the fold table (limb body)
+    and n0inv."""
+    plan = check_p2_bounds(cfg)
+    shape = (cfg.t, cfg.field.nlimbs)
+    if shape not in BODIES[plan.body]:
+        raise NotImplementedError(
+            f"no CUDA kernel instantiation of kernel 3's {plan.body} body for t={cfg.t}, L={cfg.field.nlimbs}; "
+            f"compiled: {sorted(BODIES[plan.body])}"
+        )
+    layout = constant_layout(cfg)
+    limb_words = layout_size(layout[:LIMB_SECTIONS])
+    if plan.body == "limb":
+        body, ptr, words, table = 0, consts.data_ptr(), limb_words, _fold_table(cfg, consts.device).data_ptr()
+    else:
+        body, ptr, table = 2 if plan.structured else 1, consts[limb_words:].data_ptr(), None
+        words = layout_size(layout) - limb_words
     return (
-        cfg.full_rounds, cfg.partial_rounds, len(ladder_schedule(cfg.alpha)), int(cfg.small_diag), folds,
-        consts.data_ptr(), cfg.field.n0inv,
+        body, cfg.full_rounds, cfg.partial_rounds, cfg.alpha, int(cfg.small_diag), ptr, words, table,
+        cfg.field.n0inv,
     )
 
 

@@ -22,12 +22,21 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..fields import FieldSpec
-from ..ops.montgomery import ladder_schedule
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 # Diagonal entries mu - 1 below this scale the limbs by a plain integer;
 # larger ones take one constant Montgomery product per element.
 SMALL_DIAG_LIMIT = 1 << 4
+
+# Kernel 3 keeps one element in one 32-bit word (its one-word body) for a
+# field below this: every value below 2p then fits a word.
+WORD_FIELD_LIMIT = 1 << 31
+WORD_HEAD = 5  # p, -p^-1 mod 2^32, 2^16 mod p, 2^48 mod p, floor(2^48 / p)
+
+
+def one_word(fs: FieldSpec) -> bool:
+    """Whether kernel 3 runs the field with its one-word body."""
+    return fs.modulus < WORD_FIELD_LIMIT
 
 
 @dataclass(frozen=True)
@@ -100,14 +109,19 @@ class Poseidon2Config:
         return OraclePoseidon2Sponge(self)
 
 
+LIMB_SECTIONS = 7  # the sections of the limb body (and of the plain version)
+
+
 def constant_layout(cfg: Poseidon2Config):
     """Sections of the flat int32 constant buffer, in order, limb axis last:
     the modulus and rho = R mod p (plain limbs; rho is also the Montgomery
     form of 1), the round constants and M_I's Montgomery diagonal
-    (Montgomery limbs), then M_E, the small diagonal and the S-box ladder
-    schedule as plain ints."""
+    (Montgomery limbs), then M_E and the small diagonal as plain ints.  For
+    a field below 2^31 (``one_word``) the one-word body's section follows:
+    ``WORD_HEAD`` words of field constants, the round constants and the
+    diagonal in Montgomery form with R' = 2^32, and M_E again."""
     t, L = cfg.t, cfg.field.nlimbs
-    return [
+    layout = [
         ("p", (L,)),
         ("rho", (L,)),
         ("ext", (cfg.full_rounds, t, L)),
@@ -115,8 +129,33 @@ def constant_layout(cfg: Poseidon2Config):
         ("diag_mont", (t, L)),
         ("mat_e", (t, t)),
         ("diag_small", (t,)),
-        ("alpha_runs", (len(ladder_schedule(cfg.alpha)),)),
     ]
+    if one_word(cfg.field):
+        layout += [
+            ("word_head", (WORD_HEAD,)),
+            ("word_ext", (cfg.full_rounds, t)),
+            ("word_int", (cfg.partial_rounds,)),
+            ("word_diag", (t,)),
+            ("word_mat_e", (t, t)),
+        ]
+    return layout
+
+
+def _int32_words(values) -> np.ndarray:
+    """Words below 2^32 as int32 (the same 32 bits)."""
+    return np.asarray([v - (1 << 32) if v >= 1 << 31 else v for v in values], dtype=np.int64)
+
+
+def word_constants(cfg: Poseidon2Config) -> np.ndarray:
+    """The one-word section of ``constant_layout``: p, -p^-1 mod 2^32,
+    2^16 mod p (a product by it takes a value from R = 2^48 to R' = 2^32),
+    2^48 mod p (back), floor(2^48 / p) (``reduce_wide``'s quotient), then
+    the round constants and mu - 1 times R' mod p, and M_E."""
+    p = cfg.field.modulus
+    head = [p, (-pow(p, -1, 1 << 32)) % (1 << 32), (1 << 16) % p, (1 << 48) % p, (1 << 48) // p]
+    mont = [(v << 32) % p for v in [v for row in cfg.external_rc for v in row] + list(cfg.internal_rc)
+            + list(cfg.diag_m1)]
+    return np.concatenate([_int32_words(head + mont), np.asarray(cfg.mat_e, dtype=np.int64).reshape(-1)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,8 +171,9 @@ def kernel_constants(cfg: Poseidon2Config) -> np.ndarray:
         mont_limb_rows(fs, [dm1])[0],
         np.asarray(cfg.mat_e, dtype=np.int64),
         np.asarray([v if v < SMALL_DIAG_LIMIT else 0 for v in dm1], dtype=np.int64),
-        np.asarray(ladder_schedule(cfg.alpha), dtype=np.int64),
     ]
+    if one_word(fs):
+        parts.append(word_constants(cfg))
     return np.concatenate([np.asarray(a).reshape(-1) for a in parts]).astype(np.int32)
 
 

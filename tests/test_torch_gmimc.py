@@ -197,7 +197,7 @@ class Words:
         return self.add_lazy(x, [0] * self.L)
 
     def pow(self, x, e):
-        """``mont_pow`` / ``pow_ladder``: the run-length schedule of e."""
+        """``mont_pow``: the run-length schedule of e."""
         acc = x
         for g in ladder_schedule(e):
             for _ in range(abs(g)):

@@ -6,8 +6,9 @@ random states; ``griffin_permute_plain`` (kernel 6's function) against
 interpret mode on the 25-bit test field, and against the oracle at full
 width (BLS12-381 with its rounds cut to two: there the plain permutation
 takes about 0.5 s a round on the CPU and the JAX tier's compile some 40 s);
-the static bound and its post-linear reduction; a word-by-word emulation of
-``csrc/griffin.cu`` against the oracle; dispatch; and the sponge, transcript
+the static bound and its post-linear reduction, the window rule of the
+inverse chain and its replay; a word-by-word emulation of ``csrc/griffin.cu``
+against the oracle; dispatch; and the sponge, transcript
 and Merkle entry points driven by a Griffin config.  Inputs come from numpy
 seeds; equality is exact (tolerance 0) on canonical values.  The CUDA kernel
 itself runs on the card (``chip_smoke.py``).
@@ -44,11 +45,13 @@ from sponge_tpu.ops.pallas_griffin import griffin_permute_fn
 import sponge_tpu_torch as st
 from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
-from sponge_tpu_torch.griffin.config import kernel_constants
+from sponge_tpu_torch.griffin.config import constant_layout, kernel_constants, schedule, unpack_constants, window
 from sponge_tpu_torch.hash import compress_pairs, merkle_root
 from sponge_tpu_torch.ops import _build
-from sponge_tpu_torch.ops.bounds import check_griffin_bounds
+from sponge_tpu_torch.ops import montgomery as mont
+from sponge_tpu_torch.ops.bounds import _griffin_replay, check_griffin_bounds
 from sponge_tpu_torch.ops.griffin import griffin_permute
+from sponge_tpu_torch.ops.montgomery import window_schedule
 from sponge_tpu_torch.poseidon.config import mont_limb_rows
 
 FIELDS = {"bls12_381": "BLS12_381_FR", "bn254": "BN254_FR", "goldilocks": "GOLDILOCKS_FR"}
@@ -214,8 +217,12 @@ def test_bound_refuses_what_no_plan_makes_exact():
 
 class Kernel6(Words):
     """``csrc/griffin.cu`` for one lane: the opening linear layer, then per
-    round the inverse ladder on x_0, x_1^alpha, the gates from i = t-1 down
-    to 2, the linear layer plus rc, and the plan's post-linear reduction."""
+    round the window chain on x_0 (``pow_window`` at the config's window,
+    read from the buffer's schedule), x_1^alpha by ``pow_sqr`` (squarings by
+    ``mont_sqr``), the gates from i = t-1 down to 2 (L_i^2 by ``mont_sqr``,
+    the products by alpha_i and by 1 as full products by the constant's
+    limbs), the linear layer plus rc, and the plan's post-linear
+    reduction."""
 
     def __init__(self, cfg):
         super().__init__(cfg.field)
@@ -228,6 +235,7 @@ class Kernel6(Words):
         self.qa, self.qb = c[off : off + (t - 2) * L], c[off + (t - 2) * L : off + 2 * (t - 2) * L]
         off += 2 * (t - 2) * L
         self.mat = c[off : off + t * t]
+        self.sched = c[off + t * t :]
         self.reduce = check_griffin_bounds(cfg).reduce
 
     def linear(self, x, rc_row):
@@ -239,16 +247,27 @@ class Kernel6(Words):
     def permute(self, x):
         cfg, L, t = self.cfg, self.L, self.cfg.t
         x = self.linear(x, None)
+        assert self.sched == window_schedule(cfg.inv_alpha, window(cfg))
         for r in range(cfg.rounds):
-            y0, y1 = self.pow(x[0], cfg.inv_alpha), self.pow(x[1], cfg.alpha)
+            y0, y1 = self.pow_window(x[0], cfg.inv_alpha, window(cfg)), self.pow_sqr(x[1], cfg.alpha)
             for i in range(t - 1, 1, -1):
                 li = [((i - 1) * a + b + (x[i - 1][k] if i >= 3 else 0)) & _M32 for k, (a, b) in enumerate(zip(y0, y1))]
                 li = self.carry_pass(li)
-                quad = self.add_lazy(self.mont_mul(li, li), self.mont_mul(li, self.qa[(i - 2) * L :][:L]))
+                quad = self.add_lazy(self.sqr(li), self.mont_mul(li, self.qa[(i - 2) * L :][:L]))
                 x[i] = self.mont_mul(x[i], self.add_lazy(quad, self.qb[(i - 2) * L :][:L]))
             x[0], x[1] = y0, y1
             x = self.linear(x, self.rc[r * t * L : (r + 1) * t * L])
         return [self.store(self.mont_mul(v, self.one)) for v in x]
+
+    def pow_sqr(self, x, e):
+        """``pow_sqr1``: square-and-multiply over the bits of e, squarings by
+        ``mont_sqr``."""
+        acc = x
+        for bit in range(e.bit_length() - 2, -1, -1):
+            acc = self.sqr(acc)
+            if (e >> bit) & 1:
+                acc = self.mont_mul(acc, x)
+        return acc
 
 
 @pytest.mark.parametrize("name", ["bls12_381_fr-t3-rounds2", "goldilocks_fr-t8", "tiny_fr_25-t8"])
@@ -260,6 +279,52 @@ def test_kernel_emulation_matches_oracle(name):
     }[name]()
     vals = lanes(cfg.field.modulus, cfg.t, 4, 13)
     assert emulate(cfg, Kernel6(cfg), vals) == oracle_permute(cfg, vals)
+
+
+def test_window_rule_picks_kernel_6s_windows():
+    """x_0^(1/alpha) is one chain per lane.  At BLS12-381 (L = 11) a 4-bit
+    table (39,424 bytes a block) keeps the 5 blocks of 81-96 registers, and
+    251 squarings and 62 multiplies beat w = 3's 252 + 66 and the ladder's
+    253 + 129; at 80 registers (6 blocks) only w = 3 keeps them.  Goldilocks
+    (L = 3) takes w = 4 (61 + 19 against the ladder's 63 + 32) at any
+    residency.  The shipped windows are the rule's at ``_build.REGISTERS``,
+    and the buffer carries their schedules."""
+    bls = st.get_default_griffin_parameters(st.BLS12_381_FR, 2)
+    gl = st.get_default_griffin_parameters(st.GOLDILOCKS_FR, 4)
+    assert mont.window_table_bytes(1, 11, 4) == 39424
+    assert [mont.window_for(bls.inv_alpha, 11, 1, r) for r in (80, 88, 96, 104, 128)] == [3, 4, 4, 4, 4]
+    assert [mont.window_counts(bls.inv_alpha, w) for w in (1, 3, 4)] == [(253, 129), (252, 66), (251, 62)]
+    assert [mont.window_for(gl.inv_alpha, 3, 1, r) for r in (32, 56, 96, 128)] == [4, 4, 4, 4]
+    assert mont.window_counts(gl.inv_alpha, 1) == (63, 32) and mont.window_counts(gl.inv_alpha, 4) == (61, 19)
+    for cfg in (bls, gl):
+        L = cfg.field.nlimbs
+        assert window(cfg) == mont.window_for(cfg.inv_alpha, L, 1, _build.registers("sponge_griffin", cfg.t, L))
+        sched = unpack_constants(cfg, torch.from_numpy(kernel_constants(cfg)))["inv_window"]
+        assert sched.reshape(-1).tolist() == schedule(cfg) == window_schedule(cfg.inv_alpha, window(cfg))
+        assert dict(constant_layout(cfg))["inv_window"] == (len(schedule(cfg)),)
+
+
+@pytest.mark.parametrize("name", ["bls12_381", "bn254", "goldilocks"])
+def test_replay_admits_shipped_window_chains(name):
+    """The replay of the window chain (its table included) and the
+    squarings admits the shipped configs with the plan's reduction, and its
+    bounds stay where the kernel needs them."""
+    fs, rate = {"bls12_381": (st.BLS12_381_FR, 2), "bn254": (st.BN254_FR, 2), "goldilocks": (st.GOLDILOCKS_FR, 4)}[name]
+    cfg = st.get_default_griffin_parameters(fs, rate)
+    plan = check_griffin_bounds(cfg)
+    assert plan == _griffin_replay(cfg, plan.reduce)
+    assert plan.vmax < fs.r and plan.wmax < 1 << 32
+    assert plan.reduce == (name == "goldilocks")
+
+
+def test_replay_refuses_an_overflowing_window_chain():
+    """A radix of 2p: the window table's first squaring already reaches R,
+    with or without the post-linear reduction."""
+    p = (1 << 31) - 1
+    tight = _Cfg(_Field("tight", p, 2 * p, 2), 3, 2, 5, pow(5, -1, p - 1), ((2, 1, 1), (1, 2, 1), (1, 1, 2)))
+    for reduce in (False, True):
+        with pytest.raises(ValueError, match="reach R"):
+            _griffin_replay(tight, reduce)
 
 
 # ---- dispatch ----

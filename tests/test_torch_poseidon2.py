@@ -4,14 +4,18 @@ Parameters field by field; the oracle's frozen vectors and the JAX oracle on
 random states; ``permute_p2_plain`` (kernel 3's function) against
 ``poseidon2_permute_jit`` and the Pallas kernel ``p2_permute_fn`` in
 interpret mode on the 35-bit test field and the 44-bit low-headroom field,
-and against the oracle at full width; the static fold plan; a word-by-word
-emulation of ``csrc/poseidon2.cu`` (32-bit words, 64-bit columns) against
-the oracle, which runs the kernel's schedule and fold counts on the CPU;
+and against the oracle at full width; the static fold plan and the one-word
+body's replay; the body each field takes; word-by-word emulations of both
+bodies of ``csrc/poseidon2.cu`` (32-bit words, 64-bit columns and products)
+against the oracle, which run the kernel's schedules and fold counts on the
+CPU;
 dispatch; and the sponge, transcript and Merkle entry points driven by a
 Poseidon2 config.  Inputs come from numpy seeds; equality is exact
 (tolerance 0) on canonical values.  The CUDA kernel itself runs on the card
 (``chip_smoke.py``).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,10 +35,11 @@ from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
 from sponge_tpu_torch.hash import hash_elements, merkle_root
 from sponge_tpu_torch.ops import _build
-from sponge_tpu_torch.ops.bounds import FOLD_SITES, p2_plan
+from sponge_tpu_torch.ops.bounds import P2_FOLD_CAPS, check_p2_bounds, m4_structured, p2_plan
 from sponge_tpu_torch.ops.montgomery import ladder_schedule
-from sponge_tpu_torch.ops.poseidon2 import permute_p2, permute_p2_plain
-from sponge_tpu_torch.poseidon2.config import kernel_constants
+from sponge_tpu_torch.ops.poseidon2 import _launch_args, permute_p2, permute_p2_plain
+from sponge_tpu_torch.poseidon.config import layout_size
+from sponge_tpu_torch.poseidon2.config import LIMB_SECTIONS, constant_layout, kernel_constants
 from sponge_tpu_torch.poseidon2.oracle import OraclePoseidon2Sponge
 from sponge_tpu_torch.poseidon2.params import external_matrix
 
@@ -198,24 +203,29 @@ def test_fold_plan_admits_shipped_configs():
     ]:
         cfg = st.get_default_poseidon2_parameters(fs, rate)
         plan = p2_plan(cfg)
-        assert len(plan.folds) == len(FOLD_SITES)
+        assert plan.body == "limb" and len(plan.folds) == cfg.rounds + 1 and plan.folds[-1][1] == 0
+        assert all(pre <= P2_FOLD_CAPS[0] and sbox <= P2_FOLD_CAPS[1] for pre, sbox in plan.folds), fs.name
         assert plan.wmax <= 1 << 31, fs.name  # t = 16: 80 * 2^24 + 2^24
     bb = p2_plan(st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8))
     assert bb.wmax == 81 * (1 << 24) + 1
     # The internal phase sums all elements every round, so values pass R even
-    # at BLS12-381's R = 565p: the plan folds.
-    bls = p2_plan(st.get_default_poseidon2_parameters(st.BLS12_381_FR, 2))
-    assert bls.vmax > st.BLS12_381_FR.r and bls.folds[FOLD_SITES.index("int")] >= 1
+    # at BLS12-381's R = 565p: the plan folds there, and not in the first
+    # external rounds, whose values stay small.
+    cfg = st.get_default_poseidon2_parameters(st.BLS12_381_FR, 2)
+    bls, half = p2_plan(cfg), cfg.full_rounds // 2
+    assert bls.vmax > st.BLS12_381_FR.r
+    assert all(f == (0, 0) for f in bls.folds[:half])
+    assert max(pre for pre, _ in bls.folds[half : half + cfg.partial_rounds]) == 2
     # R = 2^48 = 16.0p: the external row sums (48 at t = 8) pass R in one round.
     low_cfg = interop.config_from_jax(TINY["low-t8"]())
     low = p2_plan(low_cfg)
-    assert low.vmax > 40 * low_cfg.field.r and all(f >= 1 for f in low.folds)
+    assert low.vmax > 40 * low_cfg.field.r and all(pre >= 1 for pre, _ in low.folds)
 
 
 @pytest.mark.parametrize("name", ["bls12_381", "babybear", "low-t8"])
 def test_minimal_folds_within_the_plan(name):
     """``min_folds`` (each value folded only as often as it needs) is at most
-    what the kernel's per-site counts take over every instance, and nonzero
+    what the kernel's per-round counts take over every instance, and nonzero
     where values pass R."""
     cfg = {
         "bls12_381": lambda: st.get_default_poseidon2_parameters(st.BLS12_381_FR, 2),
@@ -224,15 +234,12 @@ def test_minimal_folds_within_the_plan(name):
     }[name]()
     plan = p2_plan(cfg)
     products = sum(abs(g) + (g > 0) for g in ladder_schedule(cfg.alpha))
-    instances = {
-        "ext": cfg.full_rounds * cfg.t,
-        "int": cfg.partial_rounds * cfg.t,
-        "sbox_ext": cfg.full_rounds * cfg.t * products,
-        "sbox_int": cfg.partial_rounds * products,
-        "exit": cfg.t,
-    }
-    per_site = sum(instances[s] * f for s, f in zip(FOLD_SITES, plan.folds))
-    assert 0 < plan.min_folds <= per_site
+    half = cfg.full_rounds // 2
+    taken = cfg.t * plan.folds[-1][0]
+    for r, (pre, sbox) in enumerate(plan.folds[:-1]):
+        external = r < half or r >= half + cfg.partial_rounds
+        taken += cfg.t * pre + (cfg.t if external else 1) * products * sbox
+    assert 0 < plan.min_folds <= taken
 
 
 def test_fold_plan_refuses_overflowing_words():
@@ -259,8 +266,9 @@ _M24, _M32, _M64 = (1 << 24) - 1, (1 << 32) - 1, (1 << 64) - 1
 
 
 class _Kernel3:
-    """csrc/poseidon2.cu and csrc/mont.cuh transliterated for one lane:
-    uint32 limb words and uint64 columns wrap as on the card."""
+    """csrc/poseidon2.cu's limb body and csrc/mont.cuh transliterated for one
+    lane: uint32 limb words and uint64 columns wrap as on the card; the fold
+    counts per round from ``p2_plan``."""
 
     def __init__(self, cfg):
         fs = cfg.field
@@ -277,27 +285,43 @@ class _Kernel3:
         off += t * L
         self.mat_e = c[off : off + t * t]
         self.diag_small = c[off + t * t : off + t * t + t]
-        self.runs = c[off + t * t + t :]
         self.n0inv = fs.n0inv
-        self.folds = dict(zip(FOLD_SITES, p2_plan(cfg).folds))
+        self.plan = check_p2_bounds(cfg).folds
 
-    def mont_mul(self, a, b):
-        L, acc = self.L, [0] * self.L
-        for i in range(L):
-            for k in range(L):
-                acc[k] = (acc[k] + a[k] * b[i]) & _M64
-            q = ((acc[0] & _M32 & _M24) * self.n0inv) & _M24
-            for k in range(L):
-                acc[k] = (acc[k] + q * self.p[k]) & _M64
-            carry = acc[0] >> 24
-            acc = acc[1:] + [0]
-            acc[0] = (acc[0] + carry) & _M64
-        out, c = [0] * L, 0
-        for k in range(L - 1):
+    def redc_step(self, acc):
+        q = ((acc[0] & _M24) * self.n0inv) & _M24
+        acc = [(a + q * pk) & _M64 for a, pk in zip(acc, self.p)]
+        carry = acc[0] >> 24
+        acc = acc[1:] + [0]
+        acc[0] = (acc[0] + carry) & _M64
+        return acc
+
+    def carry_out(self, acc):
+        out, c = [0] * self.L, 0
+        for k in range(self.L - 1):
             v = (acc[k] + c) & _M64
             out[k], c = v & _M24, v >> 24
-        out[L - 1] = (acc[L - 1] + c) & _M32
+        out[-1] = (acc[-1] + c) & _M32
         return out
+
+    def mont_mul(self, a, b):
+        acc = [0] * self.L
+        for i in range(self.L):
+            acc = [(acc[k] + a[k] * b[i]) & _M64 for k in range(self.L)]
+            acc = self.redc_step(acc)
+        return self.carry_out(acc)
+
+    def mont_sqr(self, a):
+        """``mont_sqr``: row i adds a_i^2 into column 2i and a_k * 2 a_i into
+        column i + k for k > i."""
+        acc = [0] * self.L
+        for i in range(self.L):
+            di = (a[i] << 1) & _M32
+            acc[i] = (acc[i] + a[i] * a[i]) & _M64
+            for k in range(i + 1, self.L):
+                acc[k] = (acc[k] + a[k] * di) & _M64
+            acc = self.redc_step(acc)
+        return self.carry_out(acc)
 
     def add_lazy(self, x, y):
         x, c = list(x), 0
@@ -307,20 +331,23 @@ class _Kernel3:
         x[-1] = (x[-1] + y[-1] + c) & _M32
         return x
 
-    def fold(self, x, site):
-        for _ in range(self.folds[site]):
+    def fold(self, x, n):
+        """``fold_upto``: n top-carry rho-folds."""
+        for _ in range(n):
             c = x[-1] >> 24
             x = x[:-1] + [x[-1] & _M24]
             x = self.add_lazy(x, [(c * r) & _M32 for r in self.rho])
         return x
 
-    def pow_ladder(self, xs, site):
+    def sbox(self, xs, folds):
+        """``p2_sbox``: square-and-multiply over the bits of alpha, squarings
+        by ``mont_sqr``, each product followed by ``folds`` folds."""
         base = [list(x) for x in xs]
-        for g in self.runs:
-            for _ in range(abs(g)):
-                xs = [self.fold(self.mont_mul(x, x), site) for x in xs]
-            if g > 0:
-                xs = [self.fold(self.mont_mul(x, b), site) for x, b in zip(xs, base)]
+        alpha = self.cfg.alpha
+        for bit in range(alpha.bit_length() - 2, -1, -1):
+            xs = [self.fold(self.mont_sqr(x), folds) for x in xs]
+            if (alpha >> bit) & 1:
+                xs = [self.fold(self.mont_mul(x, b), folds) for x, b in zip(xs, base)]
         return xs
 
     def small_mat_apply(self, xs):
@@ -336,20 +363,16 @@ class _Kernel3:
         half = cfg.full_rounds // 2
         x = self.small_mat_apply(x)
         for r in range(cfg.full_rounds + cfg.partial_rounds):
+            pre, sbox = self.plan[r]
             if r < half or r >= half + cfg.partial_rounds:
                 re = r if r < half else r - cfg.partial_rounds
-                x = [
-                    self.fold(self.add_lazy(x[e], self.ext[(re * t + e) * L :][:L]), "ext")
-                    for e in range(t)
-                ]
-                x = self.small_mat_apply(self.pow_ladder(x, "sbox_ext"))
+                x = [self.fold(self.add_lazy(x[e], self.ext[(re * t + e) * L :][:L]), pre) for e in range(t)]
+                x = self.small_mat_apply(self.sbox(x, sbox))
                 continue
             ri = r - half
-            x = [self.add_lazy(x[0], self.int[ri * L : (ri + 1) * L])] + [
-                self.add_lazy(v, zero) for v in x[1:]
-            ]
-            x = [self.fold(v, "int") for v in x]
-            x[0] = self.pow_ladder([x[0]], "sbox_int")[0]
+            x = [self.add_lazy(x[0], self.int[ri * L : (ri + 1) * L])] + [self.add_lazy(v, zero) for v in x[1:]]
+            x = [self.fold(v, pre) for v in x]
+            x[0] = self.sbox([x[0]], sbox)[0]
             sigma = [sum(v[k] for v in x) & _M32 for k in range(L)]
             if cfg.small_diag:
                 x = [[(s + d * w) & _M32 for s, w in zip(sigma, v)] for d, v in zip(self.diag_small, x)]
@@ -360,7 +383,7 @@ class _Kernel3:
                 ]
         out = []
         for v in x:
-            v = self.mont_mul(self.fold(self.add_lazy(v, zero), "exit"), self.rho)
+            v = self.mont_mul(self.fold(self.add_lazy(v, zero), self.plan[-1][0]), self.rho)
             d, borrow = [], 0
             for k in range(L):
                 w = v[k] - self.p[k] - borrow
@@ -384,6 +407,173 @@ def test_kernel_emulation_matches_oracle(name):
         out = kern.permute(limbs)
         assert all(w <= _M24 for v in out for w in v)
         assert [fs.from_mont(fs.limbs_to_int(v)) for v in out] == [row[b] for row in want], b
+
+
+# ---- the one-word body ----
+
+FR25 = st.FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
+TINY35 = interop.field_for_modulus(TINY_FR.modulus)
+
+
+def _reversed_rows(cfg):
+    """``cfg`` with M_E's rows reversed: no longer circ(2 M4, M4, ...)."""
+    return dataclasses.replace(cfg, mat_e=tuple(reversed(cfg.mat_e)))
+
+
+WORD_CONFIGS = {
+    "babybear_fr-t16": lambda: st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8),
+    "koalabear_fr-t16": lambda: st.get_default_poseidon2_parameters(st.KOALABEAR_FR, 8),
+    "mersenne31_fr-t16": lambda: st.get_default_poseidon2_parameters(st.MERSENNE31_FR, 8),
+    "babybear_fr-t16-dense": lambda: _reversed_rows(st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)),
+    "tiny_fr_25-t8": lambda: st.generate_poseidon2_parameters(FR25, 7, 5, 4, 4),
+    "tiny_fr_25-t3": lambda: st.generate_poseidon2_parameters(FR25, 2, 5, 4, 8),
+}
+
+
+class _WordKernel3:
+    """csrc/poseidon2.cu's one-word body for one lane: uint32 words and
+    uint64 products, each checked against the bound the replay claims."""
+
+    def __init__(self, cfg):
+        self.cfg, self.t = cfg, cfg.t
+        layout = constant_layout(cfg)
+        c = [int(v) & _M32 for v in kernel_constants(cfg)[layout_size(layout[:LIMB_SECTIONS]) :]]
+        self.p, self.n0, self.to_word, self.from_word, self.barrett = c[:5]
+        t, rf, rp = cfg.t, cfg.full_rounds, cfg.partial_rounds
+        self.ext, self.int = c[5 : 5 + rf * t], c[5 + rf * t : 5 + rf * t + rp]
+        self.diag = c[5 + rf * t + rp : 5 + rf * t + rp + t]
+        self.mat = c[5 + rf * t + rp + t :]
+        self.structured = check_p2_bounds(cfg).structured
+
+    def mul(self, a, b):
+        """``word_mul``: (a b + q p) / 2^32 with a b + q p below 2^64."""
+        t = a * b
+        q = ((t & _M32) * self.n0) & _M32
+        u = t + q * self.p
+        assert u < 1 << 64 and u & _M32 == 0
+        return u >> 32
+
+    def sub(self, v):
+        """``word_sub``: min(v, v - p) on an input below 2p."""
+        assert v < 2 * self.p
+        return min(v, (v - self.p) & _M32)
+
+    def reduce_wide(self, s):
+        assert s < 1 << 40
+        q = ((((s >> 8) & _M32) * self.barrett) & _M64) >> 40
+        r = (s - q * self.p) & _M32
+        assert r < 2 * self.p and (r - s) % self.p == 0
+        return r
+
+    def external(self, x):
+        t = self.t
+        if self.structured:
+            z = []
+            for ch in range(0, t, 4):
+                x0, x1, x2, x3 = x[ch : ch + 4]
+                t0, t1 = x0 + x1, x2 + x3
+                t2, t3 = 2 * x1 + t1, 2 * x3 + t0
+                t4, t5 = 4 * t1 + t3, 4 * t0 + t2
+                z += [t3 + t5, t5, t2 + t4, t4]
+            s = [sum(z[ch + j] for ch in range(0, t, 4)) for j in range(4)]
+            z = [v + s[i % 4] for i, v in enumerate(z)]
+        else:
+            z = [sum(self.mat[i * t + j] * x[j] for j in range(t)) for i in range(t)]
+        return [self.reduce_wide(v) for v in z]
+
+    def sbox(self, xs):
+        base, alpha = list(xs), self.cfg.alpha
+        for bit in range(alpha.bit_length() - 2, -1, -1):
+            xs = [self.sub(self.mul(x, x)) for x in xs]
+            if (alpha >> bit) & 1:
+                xs = [self.sub(self.mul(x, b)) for x, b in zip(xs, base)]
+        return xs
+
+    def permute(self, limbs):
+        cfg, t = self.cfg, self.t
+        half = cfg.full_rounds // 2
+        x = self.external([self.mul(lo | (hi << 24), self.to_word) for lo, hi in limbs])
+        for r in range(cfg.full_rounds + cfg.partial_rounds):
+            if r < half or r >= half + cfg.partial_rounds:
+                re = r if r < half else r - cfg.partial_rounds
+                x = [self.sub(self.sub(v) + self.ext[re * t + e]) for e, v in enumerate(x)]
+                x = self.external(self.sbox(x))
+                continue
+            x[0] = self.sbox([self.sub(self.sub(x[0]) + self.int[r - half])])[0]
+            sigma = self.sub(self.reduce_wide(sum(x)))
+            x = [sigma + self.sub(self.mul(v, d)) for v, d in zip(x, self.diag)]
+            assert all(v < 1 << 32 for v in x)
+        out = [self.sub(self.mul(v, self.from_word)) for v in x]
+        return [[v & _M24, v >> 24] for v in out]
+
+
+@pytest.mark.parametrize("name", list(WORD_CONFIGS))
+def test_word_kernel_emulation_matches_oracle(name):
+    """The one-word body on edge lanes (0, 1, p-1, p-2 in every element
+    position) and random ones equals the oracle, and every intermediate
+    stays inside the bound the replay proves."""
+    cfg = WORD_CONFIGS[name]()
+    fs, kern = cfg.field, _WordKernel3(cfg)
+    assert kern.structured == m4_structured(cfg.mat_e) == (cfg.t > 3 and not name.endswith("dense"))
+    vals = lanes(fs.modulus, cfg.t, 6, 17)
+    want = oracle_permute(cfg, vals)
+    for b in range(6):
+        limbs = [[int(v) for v in fs.ints_to_mont_plane([row[b]])[:, 0]] for row in vals]
+        out = kern.permute(limbs)
+        assert [fs.from_mont(fs.limbs_to_int(v)) for v in out] == [row[b] for row in want], b
+
+
+def test_body_choice():
+    """The one-word body at every field below 2^31, the limb body at every
+    other field (the 255-bit ones, the 35-bit and 44-bit test fields)."""
+    limb = [
+        st.get_default_poseidon2_parameters(st.BLS12_381_FR, 2),
+        st.get_default_poseidon2_parameters(st.BN254_FR, 2),
+        st.get_default_poseidon2_parameters(st.BLS12_377_FR, 2),
+        interop.config_from_jax(tiny_poseidon2_config()),
+        interop.config_from_jax(TINY["low-t8"]()),
+    ]
+    for cfg in limb:
+        plan = check_p2_bounds(cfg)
+        assert plan.body == "limb" and plan == p2_plan(cfg), cfg.field.name
+        assert "word_head" not in dict(constant_layout(cfg))
+    for name, make in WORD_CONFIGS.items():
+        cfg = make()
+        plan = check_p2_bounds(cfg)
+        assert plan.body == "word" and plan.folds == () and plan.wmax <= 1 << 32, name
+        assert plan.vmax < 1 << 40
+
+
+def test_word_replay_refuses_overflow():
+    """Row sums past reduce_wide's range (2^40) are refused; so is a field at
+    2^31 or above for the one-word replay."""
+    bb = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    big = dataclasses.replace(bb, mat_e=tuple(tuple(1 << 10 for _ in row) for row in bb.mat_e))
+    with pytest.raises(ValueError, match="row sum"):
+        check_p2_bounds(big)
+    from sponge_tpu_torch.ops.bounds import _P2WordSim
+
+    with pytest.raises(ValueError, match="2\\^31"):
+        _P2WordSim(st.get_default_poseidon2_parameters(st.GOLDILOCKS_FR, 8))
+
+
+def test_launch_args_per_body():
+    """The wrapper's C arguments: the limb body gets the limb sections and the
+    fold table, the one-word body its section; a body with no instantiation
+    at (t, L) raises."""
+    bb = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    consts = st.Poseidon2Permutation(bb, "cpu").consts
+    args = _launch_args(bb, consts)
+    layout = constant_layout(bb)
+    limb_words = layout_size(layout[:LIMB_SECTIONS])
+    assert args[0] == 2 and args[6] == layout_size(layout) - limb_words and args[7] is None
+    assert args[5] == consts.data_ptr() + 4 * limb_words
+    tiny = interop.config_from_jax(tiny_poseidon2_config())
+    args = _launch_args(tiny, st.Poseidon2Permutation(tiny, "cpu").consts)
+    assert args[0] == 0 and args[6] == layout_size(constant_layout(tiny))
+    wide = st.generate_poseidon2_parameters(TINY35, 15, 5, 4, 4)  # a limb field at t = 16
+    with pytest.raises(NotImplementedError, match="limb body"):
+        _launch_args(wide, st.Poseidon2Permutation(wide, "cpu").consts)
 
 
 # ---- dispatch ----
