@@ -11,9 +11,9 @@ Monolith (kernel 4), Rescue-Prime (kernel 5), Griffin-pi (kernel 6), Anemoi
 window, table bytes, registers and spills of each instantiation of kernels
 5, 6 and 7 (failing if the compiled registers would pick another window
 than the shipped one) and kernel 3's registers and staged bytes per body,
-and for kernels 1, 3, 4 and 6 every instantiation's registers, spills and
-blocks per SM and a static SASS census of the timed ones beside the
-products the bound counts.  It first runs
+and for kernels 1, 3, 4, 6 and 8 every instantiation's registers, spills
+and blocks per SM and a static SASS census of the timed ones beside the
+products the bound counts (kernel 8: both bodies at Goldilocks).  It first runs
 the probes (launches counted): the dependent latency and the saturated issue
 rate of 32-bit and widening multiply-adds against their peaks, their SASS
 instruction counts, one chain of 64 Montgomery products against two of 32,
@@ -28,7 +28,9 @@ size with the launch counters zeroed just before each and read just after
 sponge, a 2^20-leaf Merkle root; Poseidon2 and Rescue: the BLS12-381 and
 BabyBear permutations and the KoalaBear Poseidon2 one at B = 2^20, a
 2^20-leaf Poseidon2 Merkle root, a lazy Rescue sponge; GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks
-permutations at B = 2^20, a lazy GMiMC sponge, a 2^14-leaf Griffin Merkle
+permutations at B = 2^20 (kernel 8's limb body at BLS12-381, its two-word
+body at Goldilocks, each with near-bound lanes of p-1 and p-2 in every
+element), a lazy GMiMC sponge, a 2^14-leaf Griffin Merkle
 root; Monolith: the Goldilocks t = 12 and Mersenne31 t = 16 permutations at
 B = 2^20, a lazy Monolith-31 sponge, a 2^20-leaf wide-digest Goldilocks
 Merkle tree with 2^14 proofs opened and verified, a narrow BLS12-381 tree
@@ -49,12 +51,14 @@ lazy-sponge schedule whose lane the R1CS tracer reproduces, with the host
 side's times beside the card's on ``[host]``/``[codec]`` lines), and times
 each kernel beside its plain version with CUDA
 events (kernel 5 at BLS12-381 also with its inverse S-box at windows 3 and
-4, in turns).  The plain version's timed run takes the path's own 2^20-lane input
+4, in turns; kernel 8's limb body beside its two-word body at Goldilocks,
+in turns).  The plain version's timed run takes the path's own 2^20-lane input
 (for the BLS12-381 inverse-S-box families, Rescue, Griffin and Anemoi, 2^14
 lanes from both ends of it) and must equal the path's output there.  Each
 kernel's bound is the larger of the products the function needs
-(``limb_products``: widening and 32-bit multiply-adds; one word per element
-at a field below 2^31, the limb count's bound printed beside) over the
+(``limb_products``: widening and 32-bit multiply-adds; one 32-bit word per
+element at a field below 2^31 and two at Goldilocks, where the limb count's
+bound is printed beside) over the
 card's integer peaks and its state bytes over the memory rate.  Each phase prints
 one line; any failure raises and exits non-zero.  Before the last line come a JSON summary
 of the kernels and the card's name and power limit; the last line is
@@ -152,6 +156,19 @@ def with_edges(fs, plane):
     return plane
 
 
+NEAR_BOUND_LANES = (64, 65)
+
+
+def with_maxima(fs, plane):
+    """Put p-1 in every element of lane 64 and p-2 in every element of lane
+    65 (``NEAR_BOUND_LANES``): kernel 8's largest inputs, with which every
+    first-round add of the two-word body carries into its excess word."""
+    plane = plane.clone()
+    for b, v in zip(NEAR_BOUND_LANES, (fs.modulus - 1, fs.modulus - 2)):
+        plane[:, :, b] = torch.from_numpy(fs.ints_to_mont_plane([v])[:, 0])[None]
+    return plane
+
+
 def lane_ints(fs, plane, b):
     return [fs.mont_plane_to_ints(plane[e, :, b : b + 1].cpu().numpy())[0] for e in range(plane.shape[0])]
 
@@ -209,6 +226,25 @@ def p2_plan_text(cfg, plan):
             f"{plan.wmax / 2**24:.1f} x 2^24")
 
 
+def gmimc_body(cfg):
+    """Kernel 8's body for ``cfg`` (``ops/gmimc.py`` ``body``); "limb" in a
+    tree from before the two-word body (a two-tree comparison's parent)."""
+    from sponge_tpu_torch.ops import gmimc
+
+    return gmimc.body(cfg) if hasattr(gmimc, "body") else "limb"
+
+
+def gmimc_plan_text(cfg):
+    """Kernel 8's body and its replay (``ops/bounds.py``
+    ``check_gmimc_word_bounds`` for the two-word body, else
+    ``check_gmimc_bounds``)."""
+    from sponge_tpu_torch.ops import bounds
+
+    if gmimc_body(cfg) == "word":
+        return f"two-word body, largest excess word {bounds.check_gmimc_word_bounds(cfg)}"
+    return "limb body, " + plan_text(cfg, bounds.check_gmimc_bounds(cfg))
+
+
 def plan_text(cfg, plan):
     """A family kernel's replay (``ops/bounds.py`` ``KernelPlan``)."""
     return (f"{value_bound_text(cfg, plan.vmax)}, largest limb word {plan.wmax / 2**24:.1f} x 2^24, "
@@ -243,7 +279,7 @@ def chain_products(e, sq, mul):
     return best
 
 
-def limb_products(name, cfg, one_word=True):
+def limb_products(name, cfg, words=True):
     """(wide, narrow): the integer multiplies one permutation needs (the
     bound's work, not any kernel's schedule).  Wide ones are 32 x 32 ->
     64-bit multiply-adds (IMAD.WIDE.U32: every Montgomery column), narrow
@@ -255,22 +291,34 @@ def limb_products(name, cfg, one_word=True):
     (``chain_products``).  Poseidon2's and Griffin's small-integer matrix
     entries and scalings are one narrow product per limb, and Poseidon2
     takes only the rho-folds its values need (``P2Plan.min_folds``), L
-    each.  With ``one_word`` (the default) a field below 2^31 keeps one
-    32-bit word per element: a Montgomery product or a squaring is 2 wide
-    (a * b, q * p) and 1 narrow (q), a REDC or the reduction of a 64-bit
-    sum 1 wide and 1 narrow, a row dot t wide products and one REDC, a
-    small-integer scaling one product (wide where the sum can pass 2^32),
-    Poseidon2's M_E the fewer of its dense rows and, where the matrix is
-    circ(2 M4, ..., M4), its addition chain's operations (narrow), plus a
-    reduction per row, and the plane's R = 2^48 is converted to one word and
-    back (2 t products); ``one_word=False`` is the count before (limbs at
-    every field).  Monolith's generic body: per barred element per round a
-    REDC out of Montgomery form and a product by R^2 back, t-1 squarings per
-    round, t^2 L wide scalings per scaled Concrete (the entry times a limb
-    word, summed in 64-bit columns) and L per fold of its high part, or t
-    lazily summed rows per dense Concrete, L narrow products per 32-bit fold
-    the plan takes, and the exit; its Mersenne body keeps one canonical word
-    per element, so a squaring or a matrix entry is one wide product."""
+    each.  With ``words`` (the default) an element is counted in the fewest
+    32-bit words that hold it, whatever body a kernel runs, so the bound
+    reads the same work for every body.  A field below 2^31 keeps one word
+    per element: a Montgomery product or a squaring is 2 wide (a * b, q * p)
+    and 1 narrow (q), a REDC or the reduction of a 64-bit sum 1 wide and 1
+    narrow, a row dot t wide products and one REDC, a small-integer scaling
+    one product (wide where the sum can pass 2^32), Poseidon2's M_E the fewer
+    of its dense rows and, where the matrix is circ(2 M4, ..., M4), its
+    addition chain's operations (narrow), plus a reduction per row, and the
+    plane's R = 2^48 is converted to one word and back (2 t products).
+    Goldilocks keeps two words per element in plain form: a product is 4
+    wide (the 128-bit product from 32-bit halves), a squaring 3, a reduction
+    mod p none (2^64 = 2^32 - 1 and 2^96 = -1: shifts and adds), a row dot n
+    products of 4 and one reduction, a small-integer scaling 1 wide per word,
+    each power its cheapest chain at those costs, and the plane's R = 2^72
+    is converted to plain form and back (2 t products of 4); Monolith's
+    REDC out of Montgomery form and product by R^2 back, and every fold or
+    optional reduction, count nothing there, and a scaled Concrete entry
+    times an element counts 2 wide.  ``words=False`` is the limb count
+    (limbs at every field).  Monolith's generic body on limbs: per barred
+    element per round a REDC out of Montgomery form and a product by R^2
+    back, t-1 squarings per round, t^2 L wide scalings per scaled Concrete
+    (the entry times a limb word, summed in 64-bit columns) and L per fold
+    of its high part, or t lazily summed rows per dense Concrete, L narrow
+    products per 32-bit fold the plan takes, and the exit; its Mersenne body
+    keeps one canonical word per element, so a squaring or a matrix entry is
+    one wide product."""
+    from sponge_tpu_torch.fields import GOLDILOCKS_FR
     from sponge_tpu_torch.ops.bounds import (
         check_anemoi_bounds,
         check_griffin_bounds,
@@ -280,6 +328,8 @@ def limb_products(name, cfg, one_word=True):
     )
 
     t, L = cfg.t, cfg.field.nlimbs
+    p = cfg.field.modulus
+    two = words and p == GOLDILOCKS_FR.modulus
     if name == "monolith_permute":
         mm, sq, row, redc = 2 * L * L, L * (L + 1) // 2 + L * L, (t + 1) * L * L, L * L + L
         plan, R, u = check_monolith_bounds(cfg), cfg.rounds, cfg.bars
@@ -287,12 +337,13 @@ def limb_products(name, cfg, one_word=True):
             return R * (t - 1) + (R + 1) * t * t, 0
         f_sq, f_add, f_conc, f_rc = plan.folds
         scaled = plan.concrete == "scaled"
+        if two:
+            return (R + 1) * t * t * (2 if scaled else 4) + R * (t - 1) * 3 + 2 * t * 4, 0
         conc = t * t * L + t * f_conc * L if scaled else t * row
         wide = (R + 1) * conc + R * (u * (redc + mm) + (t - 1) * sq) + t * mm
         narrow = R * ((t - 1) * (f_sq + f_add) + t * f_rc) * L + (0 if scaled else (R + 1) * t * f_conc * L)
         return wide, narrow
-    p = cfg.field.modulus
-    word = one_word and p < 1 << 31
+    word = words and p < 1 << 31
 
     def add(*terms):  # sums of (count, (wide, narrow)) terms
         return sum(n * c[0] for n, c in terms), sum(n * c[1] for n, c in terms)
@@ -311,6 +362,19 @@ def limb_products(name, cfg, one_word=True):
             return (1, 0) if total * (p - 1) >= 1 << 32 else (0, 1)
 
         lw, io = 1, 2 * t  # words per element; the entry's and exit's products
+    elif two:
+        mm, sq = (4, 0), (3, 0)
+
+        def row_of(n):  # n products summed in 128 bits, one reduction (no product)
+            return 4 * n, 0
+
+        def power(e):
+            return chain_products(e, 3, 4), 0
+
+        def scaling(total):  # a small integer times one 32-bit word of an element
+            return 1, 0
+
+        lw, io = 2, 2 * t
     else:
         mm, sq = (2 * L * L, 0), (L * (L + 1) // 2 + L * L, 0)
 
@@ -352,19 +416,21 @@ def limb_products(name, cfg, one_word=True):
     if name == "gmimc_permute":  # the deferred adds are not products
         return add((cfg.rounds, sb), (io, mm))
     if name == "griffin_permute":
-        # gates: (i-1) y0 scaled limb by limb (narrow), L_i^2, alpha_i L_i,
-        # x_i quad; the post-linear reduction only where the plan needs it
-        gates = add((t - 2, sq), (2 * (t - 2), mm), ((t - 3) * lw, (0, 1)))
+        # gates: (i-1) y0 scaled word by word (narrow; wide on two words),
+        # L_i^2, alpha_i L_i, x_i quad; the post-linear reduction only where
+        # the plan needs it, and none on two words
+        gates = add((t - 2, sq), (2 * (t - 2), mm), ((t - 3) * lw, scaling(0) if two else (0, 1)))
         linear = add((t * t * lw, scaling(max(sum(r) for r in cfg.mat_e))),
-                     (t if check_griffin_bounds(cfg).reduce else 0, mm))
+                     (t if check_griffin_bounds(cfg).reduce and not two else 0, mm))
         per_round = add((1, power(cfg.inv_alpha)), (1, sb), (1, gates))
         return add((cfg.rounds + 1, linear), (cfg.rounds, per_round), (io, mm))
     if name == "anemoi_permute":
         # per pair: y^2, g y^2, u^(1/alpha), v^2, g v^2 (subtractions are
         # additions); M_x rows lazily summed where l > 1; the post-PHT
-        # reduction only where the plan needs it
+        # reduction only where the plan needs it, and none on two words
         lc = cfg.l
-        diffusion = add((2 * lc if lc > 1 else 0, row_of(lc)), (t if check_anemoi_bounds(cfg).reduce else 0, mm))
+        diffusion = add((2 * lc if lc > 1 else 0, row_of(lc)),
+                        (t if check_anemoi_bounds(cfg).reduce and not two else 0, mm))
         per_round = add((lc, add((2, sq), (2, mm), (1, power(cfg.inv_alpha)))), (1, diffusion))
         return add((cfg.rounds, per_round), (1, diffusion), (io, mm))
     raise ValueError(name)
@@ -380,11 +446,11 @@ def bound(work, state_bytes, rates):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def kernel_bound(name, cfg, batch, rates, one_word=True):
+def kernel_bound(name, cfg, batch, rates, words=True):
     """``bound`` of one permutation call at ``batch`` lanes: the state read
-    once and written once (``limb_products``'s count, ``one_word`` as
+    once and written once (``limb_products``'s count, ``words`` as
     there)."""
-    wide, narrow = limb_products(name, cfg, one_word)
+    wide, narrow = limb_products(name, cfg, words)
     return bound((wide * batch, narrow * batch), 2 * cfg.t * cfg.field.nlimbs * 4 * batch, rates)
 
 
@@ -510,15 +576,17 @@ CENSUS_KERNELS = (
     ("kernel 4, generic body", "monolith_kernel"),
     ("kernel 4, Mersenne body", "monolith_mersenne_kernel"),
     ("kernel 6", "griffin_kernel"),
+    ("kernel 8, limb body", "gmimc_kernel"),
+    ("kernel 8, two-word body", "gmimc_word_kernel"),
 )
 
 
-def census_instance(name, cfg):
+def census_instance(name, cfg, body=None):
     """(kernel name, template arguments, bytes of shared memory per block)
-    of the instantiation that runs ``cfg``: kernels 1, 3, 4 and 6 stage
-    their constants in shared memory (kernel 3's limb body its limb
-    sections, its one-word body the word section), kernel 6 its window
-    table after them."""
+    of the instantiation that runs ``cfg`` (kernel 8: with ``body``, that
+    body's): kernels 1, 3, 4, 6 and 8 stage their constants in shared memory
+    (kernels 3 and 8: the limb body its limb sections, the one- or two-word
+    body its word section), kernel 6 its window table after them."""
     from sponge_tpu_torch.griffin.config import constant_layout as griffin_layout
     from sponge_tpu_torch.griffin.config import window as griffin_window
     from sponge_tpu_torch.monolith.config import constant_layout as monolith_layout
@@ -546,16 +614,27 @@ def census_instance(name, cfg):
     if name == "griffin_permute":
         table = window_table_bytes(1, L, griffin_window(cfg))
         return "griffin_kernel", (t, L), 4 * layout_size(griffin_layout(cfg)) + table
+    if name == "gmimc_permute":
+        from sponge_tpu_torch.gmimc import config as gmimc_config
+
+        if not hasattr(gmimc_config, "LIMB_SECTIONS"):  # a tree from before the two-word body: no staging
+            return "gmimc_kernel", (t, L), 0
+        layout = gmimc_config.constant_layout(cfg)
+        limb_words = layout_size(layout[: gmimc_config.LIMB_SECTIONS])
+        if (body or gmimc_body(cfg)) == "word":
+            return "gmimc_word_kernel", (t,), 4 * (layout_size(layout) - limb_words)
+        return "gmimc_kernel", (t, L), 4 * limb_words
     raise ValueError(name)
 
 
 def census_phase(report, cfgs):
-    """Kernels 1, 3, 4 and 6: every instantiation's ptxas registers, spills
-    and blocks per SM of 128 threads by registers; then for the
-    instantiation each path times (``cfgs``: (name, config) pairs) its
-    blocks per SM with the shared memory it takes and the static SASS census
+    """Kernels 1, 3, 4, 6 and 8: every instantiation's ptxas registers,
+    spills and blocks per SM of 128 threads by registers; then for the
+    instantiation each path times (``cfgs``: (name, config) pairs, or (name,
+    config, body) for a kernel 8 body the config does not take) its blocks
+    per SM with the shared memory it takes and the static SASS census
     (``CENSUS_OPS``, the code of one kernel, loops counted once) beside the
-    limb products one permutation needs (``limb_products``)."""
+    products one permutation needs (``limb_products``)."""
     from sponge_tpu_torch.ops import _build
     from sponge_tpu_torch.ops.montgomery import blocks_per_sm
 
@@ -565,8 +644,8 @@ def census_phase(report, cfgs):
         say("census", f"{kernel}, per instantiation (template arguments: registers, spill stores/loads B, blocks "
             f"per SM): " + "; ".join(f"{args}: {r}, {st}/{ld}, {blocks_per_sm(r, 0)}" for args, (r, st, ld) in found))
     lib = _build.library_path()
-    for name, cfg in cfgs:
-        base, want, shared = census_instance(name, cfg)
+    for name, cfg, *body in cfgs:
+        base, want, shared = census_instance(name, cfg, *body)
         found = [k for k in entries if f"{base}I" in k and template_args(k) == want]
         check(len(found) == 1, f"census: {len(found)} ptxas entries for {base} {want}")
         counts = census(sass_counts(lib, found[0]))
@@ -575,7 +654,7 @@ def census_phase(report, cfgs):
         say("census", f"{name} {cfg.field.name} t={cfg.t} ({base} {want}): {regs} registers, spills {spill_st}/"
             f"{spill_ld} B, {shared:,} B of shared memory, {blocks_per_sm(regs, shared)} blocks per SM; static SASS "
             + ", ".join(f"{k} {v}" for k, v in counts.items())
-            + f"; the bound's limb products per permutation: {wide:,} wide, {narrow:,} 32-bit")
+            + f"; the bound's products per permutation: {wide:,} wide, {narrow:,} 32-bit")
 
 
 def window_comparison(cfg, state, path_out, gpu):
@@ -609,6 +688,43 @@ def window_comparison(cfg, state, path_out, gpu):
     say("window", f"rescue_permute {cfg.field.name} t={cfg.t} B={state.shape[-1]}, inverse S-box at window 3 "
         f"(shipped: {windows(cfg)[1]}) {best[3]:.3f} ms, at window 4 {best[4]:.3f} ms (in turns 3, 4, 4, 3, best "
         f"of each; both outputs == the path's) [{gpu}]")
+
+
+def gmimc_body_comparison(cfg, state, path_out, gpu, rates):
+    """Kernel 8's limb body beside its two-word body at Goldilocks t = 8,
+    each by a direct launch (not counted), in turns limb, word, word, limb
+    on the path's input: both outputs must equal the path's (the limb
+    body's replay must admit the config).  A tree from before the two-word
+    body (a two-tree comparison's parent) has only the limb body, timed on
+    its ``[time]`` line: nothing to compare."""
+    if gmimc_body(cfg) != "word":
+        say("time", f"gmimc_permute {cfg.field.name} t={cfg.t}: one body in this tree, no comparison")
+        return
+    from sponge_tpu_torch.gmimc.config import LIMB_SECTIONS, constant_layout, kernel_constants
+    from sponge_tpu_torch.ops import _build
+    from sponge_tpu_torch.ops.bounds import check_gmimc_bounds
+    from sponge_tpu_torch.ops.gmimc import _launch_args
+    from sponge_tpu_torch.poseidon.config import layout_size
+
+    check_gmimc_bounds(cfg)
+    consts = torch.from_numpy(kernel_constants(cfg)).to(state.device)
+    limb_words = layout_size(constant_layout(cfg)[:LIMB_SECTIONS])
+    args = {"limb": (0, cfg.rounds, cfg.alpha, consts.data_ptr(), limb_words, cfg.field.n0inv),
+            "word": _launch_args(cfg, consts)}
+    check(args["word"][0] == 1, "gmimc_permute at Goldilocks: the wrapper does not take the two-word body")
+    best = {}
+    for kind in ("limb", "word", "word", "limb"):
+        out = torch.empty_like(state)
+        ms, _ = time_ms(lambda: _build.launch("sponge_gmimc", state, out, *args[kind]), reps=2)
+        check(torch.equal(out, path_out), f"kernel 8's {kind} body at {cfg.field.name}: output != the path's")
+        best[kind] = min(best.get(kind, float("inf")), ms)
+    bound_ms, _ = kernel_bound("gmimc_permute", cfg, state.shape[-1], rates)
+    limb_ms, _ = kernel_bound("gmimc_permute", cfg, state.shape[-1], rates, words=False)
+    say("time", f"gmimc_permute {cfg.field.name} t={cfg.t} B={state.shape[-1]}: limb body ({cfg.t}, "
+        f"{cfg.field.nlimbs}) {best['limb']:.3f} ms, two-word body {best['word']:.3f} ms ({best['limb'] / best['word']:.2f}x; "
+        f"in turns limb, word, word, limb, best of each; both outputs == the path's); bound {bound_ms:.3f} ms "
+        f"(limb {bound_ms / best['limb']:.1%}, word {bound_ms / best['word']:.1%}), "
+        f"{limb_ms:.3f} ms by the limb count [{gpu}]")
 
 
 def probe_phase(st, dev, rng, gpu, peak):
@@ -786,7 +902,6 @@ def main(argv):
     from sponge_tpu_torch.ops.anemoi import anemoi_permute, anemoi_permute_plain
     from sponge_tpu_torch.ops.bounds import (
         check_anemoi_bounds,
-        check_gmimc_bounds,
         check_griffin_bounds,
         check_kernel_bounds,
         check_monolith_bounds,
@@ -855,6 +970,7 @@ def main(argv):
     r_25 = st.generate_rescue_parameters(fr25, 2, rounds=4)
     gl = st.GOLDILOCKS_FR
     m_bls = st.get_default_gmimc_parameters(st.BLS12_381_FR, 2)
+    m_bn = st.get_default_gmimc_parameters(st.BN254_FR, 2)
     m_gl = st.get_default_gmimc_parameters(gl, 4)
     m_25 = st.generate_gmimc_parameters(fr25, 2, rounds=31)
     g_bls = st.get_default_griffin_parameters(st.BLS12_381_FR, 2)
@@ -878,7 +994,8 @@ def main(argv):
                                          ("monolith_permute", mo_m31), ("poseidon2_permute", p2_bls),
                                          ("poseidon2_permute", p2_bb), ("poseidon2_permute", p2_kb),
                                          ("poseidon2_permute", p2_bb_dense), ("griffin_permute", g_bls),
-                                         ("griffin_permute", g_gl)])
+                                         ("griffin_permute", g_gl), ("gmimc_permute", m_bls),
+                                         ("gmimc_permute", m_gl), ("gmimc_permute", m_gl, "limb")])
 
     elapsed("the golden vectors")
     # ---- 3. golden vectors through the sponge on the card ----
@@ -978,8 +1095,8 @@ def main(argv):
         "gmimc_permute": dict(
             wrapper=gmimc_permute, plain=gmimc_permute_plain,
             perm=functools.partial(family_permutation_for, st.GmimcPermutation),
-            bound=lambda cfg: plan_text(cfg, check_gmimc_bounds(cfg)),
-            configs=[m_bls, m_gl, m_25],
+            bound=gmimc_plan_text,
+            configs=[m_bls, m_bn, m_gl, m_25],
             source="sponge_tpu_torch/csrc/gmimc.cu",
             replaces="sponge_tpu/ops/pallas_gmimc.py:150",
         ),
@@ -1040,10 +1157,10 @@ def main(argv):
         out = dict(ms=ms, plain_ms=plain_ms, plain_batch=n)
         out["bound_ms"], out["bound_by"] = kernel_bound(name, cfg, big.shape[-1], rates)
         flat_ms, _ = kernel_bound(name, cfg, big.shape[-1], flat_rates)
-        limb_ms, _ = kernel_bound(name, cfg, big.shape[-1], rates, one_word=False)
+        limb_ms, _ = kernel_bound(name, cfg, big.shape[-1], rates, words=False)
         wide, narrow = limb_products(name, cfg)
-        recount = (f"; by the limb count before the one-word recount {limb_ms:.3f} ms, {limb_ms / ms:.1%} of it"
-                   if limb_ms != out["bound_ms"] else "")
+        recount = (f"; by the limb count before the two-word recount {limb_ms:.3f} ms, {limb_ms / ms:.1%} of it"
+                   if cfg.field.name == gl.name else "")
         say(
             "time",
             f"{name} {cfg.field.name} t={cfg.t} B={big.shape[-1]}: kernel {ms:.3f} ms = "
@@ -1061,11 +1178,15 @@ def main(argv):
     if only is not None:
         for name, cfg, lanes in (("poseidon2_permute", p2_bls, every), ("poseidon2_permute", p2_bb, every),
                                  ("poseidon2_permute", p2_kb, every), ("poseidon2_permute", p2_bb_dense, every),
-                                 ("griffin_permute", g_bls, ends), ("griffin_permute", g_gl, every)):
+                                 ("griffin_permute", g_bls, ends), ("griffin_permute", g_gl, every),
+                                 ("gmimc_permute", m_bls, every), ("gmimc_permute", m_gl, every)):
             if name in only:
                 k = kernels[name]
                 big = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
-                time_kernel(name, cfg, big, lanes, k["wrapper"](cfg, k["perm"](cfg, dev).consts, big))
+                big_out = k["wrapper"](cfg, k["perm"](cfg, dev).consts, big)
+                time_kernel(name, cfg, big, lanes, big_out)
+                if cfg is m_gl:
+                    gmimc_body_comparison(cfg, big, big_out, gpu, rates)
         elapsed("the end")
         return 0
 
@@ -1169,6 +1290,8 @@ def main(argv):
         id(cfg): with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
         for cfg in fam_cfgs
     }
+    for cfg in (m_bls, m_gl):  # kernel 8's near-bound lanes
+        fam_states[id(cfg)] = with_maxima(cfg.field, fam_states[id(cfg)])
     g_leaves = random_plane(gl, (gl.nlimbs, B_LADDER_PLAIN), rng, dev)
     m_lane_vals = random_plane(fs, (2, fs.nlimbs, B_CHECK), rng, dev)
     for k in kernels.values():
@@ -1192,8 +1315,12 @@ def main(argv):
     for cfg, family in zip(fam_cfgs, ("GMiMC", "Griffin", "Anemoi") * 2):
         what = f"{family} {cfg.field.name} t={cfg.t}"
         check(fam_out[id(cfg)].shape == fam_states[id(cfg)].shape, f"{what}: output shape")
-        check_lanes_vs_oracle(cfg, fam_states[id(cfg)], fam_out[id(cfg)], main_sample[::2], f"{what} B=2^20")
-        say("main", f"batched_permute {what} at B=2^20: 32 lanes == oracle")
+        # kernel 8: also the lane of p-1 in elements 0-2 and the near-bound lanes
+        sample = main_sample[::2] + ([42, *NEAR_BOUND_LANES] if family == "GMiMC" else [])
+        check_lanes_vs_oracle(cfg, fam_states[id(cfg)], fam_out[id(cfg)], sample, f"{what} B=2^20")
+        say("main", f"batched_permute {what} at B=2^20: {len(sample)} lanes == oracle"
+            + (f" (near-bound lanes 42, {NEAR_BOUND_LANES[0]}, {NEAR_BOUND_LANES[1]} among them)"
+               if family == "GMiMC" else ""))
     m_vals = [mont_tensor_to_ints(fs, m_lane_vals[i]) for i in range(2)]
     for b in list(range(4)) + [B_CHECK // 5, B_CHECK - 3, B_CHECK - 2, B_CHECK - 1]:
         o = st.OracleGmimcSponge(m_bls)
@@ -1308,6 +1435,7 @@ def main(argv):
         kernels[name].update(time_kernel(name, cfg, fam_states[id(cfg)], lanes, fam_out[id(cfg)]))
     for name, cfg in (("gmimc_permute", m_gl), ("griffin_permute", g_gl), ("anemoi_permute", a_gl)):
         time_kernel(name, cfg, fam_states[id(cfg)], every, fam_out[id(cfg)])  # the path's other width
+    gmimc_body_comparison(m_gl, fam_states[id(m_gl)], fam_out[id(m_gl)], gpu, rates)
     # the Jive path's Anemoi width, t = 2 (one Flystel pair): the kernel alone beside its bound
     a2_state = random_plane(fs, (a_bls1.t, fs.nlimbs, B_MAIN), rng, dev)
     a2_consts = kernels["anemoi_permute"]["perm"](a_bls1, dev).consts

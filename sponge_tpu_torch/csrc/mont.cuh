@@ -1,7 +1,7 @@
 // Montgomery arithmetic on 24-bit limbs in 32-bit words, one field element per
 // thread, shared by the port's kernels (poseidon_opt.cu, poseidon_dense.cu,
-// poseidon2.cu's limb body, rescue.cu, gmimc.cu, griffin.cu, anemoi.cu,
-// monolith.cu, probe.cu).
+// poseidon2.cu's and gmimc.cu's limb bodies, rescue.cu, griffin.cu,
+// anemoi.cu, monolith.cu, probe.cu).
 //
 // An element is L little-endian limbs below 2^24 in Montgomery form with
 // R = 2^(24 L).  A product or a row dot product is accumulated in L 64-bit
@@ -10,8 +10,8 @@
 // add.  A column holds at most (terms + 1) * L such products plus a carry,
 // below 2^55 for every instantiated config.  All limb loops are unrolled
 // except the outer loop of mont_mul_const (the constant is read from memory
-// with the loop index), which kernels 2, 5, 7 and 8 and the probes keep;
-// kernels 1, 3, 4 and 6 stage their constants in shared memory and run
+// with the loop index), which kernels 2, 5 and 7 and the probes keep;
+// kernels 1, 3, 4, 6 and 8 stage their constants in shared memory and run
 // their constant products fully unrolled (mont_mul_staged; kernel 1's
 // sparse round in poseidon_opt.cu sparse_linear).  Results are carried back into
 // 24-bit limbs but only lazily reduced (value < a*b/R + p); the Python side
@@ -19,10 +19,11 @@
 // refuses a config whose values could reach R or end at 2p or more.
 // Kernels 5, 6 and 7 square with mont_sqr and raise to long exponents with
 // pow_window, whose odd-power table sits in dynamic shared memory; kernels
-// 1 and 6 and the probe ablation raise to alpha with pow_sqr (mont_sqr, the
-// t elements of a full round in lockstep), kernel 3's limb body with the
-// same chain and its folds (poseidon2.cu p2_sbox); kernels 2 and 8 keep
-// mont_pow.
+// 1, 6 and 8 (its limb body) and the probe ablation raise to alpha with
+// pow_sqr (mont_sqr, the t elements of a full round in lockstep), kernel 3's
+// limb body with the same chain and its folds (poseidon2.cu p2_sbox);
+// kernel 2 keeps mont_pow.  Kernels 3 and 8 run fields that fit one or two
+// 32-bit words (below 2^31; Goldilocks) in bodies of their own.
 #pragma once
 
 #include <cstdint>
@@ -47,8 +48,8 @@ __device__ __forceinline__ uint32_t ldc(const int32_t* __restrict__ c) {
 }
 
 // Where a routine reads the constant buffer: the read-only global path, or
-// shared memory the kernel staged the buffer in (kernels 1, 3, 4 and 6 and
-// the probe ablation).  A word read from shared memory lands in an ordinary
+// shared memory the kernel staged the buffer in (kernels 1, 3, 4, 6 and 8
+// and the probe ablation).  A word read from shared memory lands in an ordinary
 // register; one read from global memory at a warp-uniform address may be
 // kept in a uniform register, and an IMAD.WIDE.U32 with a uniform operand
 // takes no 64-bit addend, so a modulus held that way costs every REDC
@@ -141,7 +142,7 @@ __device__ __forceinline__ void mont_mul_const(uint32_t (&out)[L], const uint32_
 
 // out = a * c / R (mod p) with c an element of the constants staged in
 // shared memory, fully unrolled (the constant's limbs are read into
-// registers first): kernels 3 and 6.
+// registers first): kernels 3, 6 and 8.
 template <int L>
 __device__ __forceinline__ void mont_mul_staged(uint32_t (&out)[L], const uint32_t (&a)[L],
                                                 const int32_t* c, const Modulus<L>& m) {

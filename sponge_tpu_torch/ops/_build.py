@@ -101,8 +101,9 @@ SIGNATURES = {
     # rounds, alpha window and schedule length, inverse-alpha window and
     # schedule length, constants, n0inv
     "sponge_rescue": [c_int, c_int, c_int, c_int, c_int, c_void_p, c_uint],
-    # rounds, alpha, constants, n0inv
-    "sponge_gmimc": [c_int, c_uint, c_void_p, c_uint],
+    # body (ops/gmimc.py), rounds, alpha, the body's constants and their
+    # length, n0inv
+    "sponge_gmimc": [c_int, c_int, c_uint, c_void_p, c_int, c_uint],
     # rounds, alpha, inverse-alpha window and schedule length, post-linear
     # reduction, constants and their length, n0inv
     "sponge_griffin": [c_int, c_uint, c_int, c_int, c_int, c_void_p, c_int, c_uint],

@@ -22,8 +22,9 @@ round needs before its S-boxes and after each S-box product to bring
 values back under R, and checks that every 32-bit word stays below 2^32.
 Its one-word body (fields below 2^31) is replayed by ``_P2WordSim``.
 Rescue, GMiMC, Griffin and Anemoi (kernels 5, 8, 6, 7) replay their
-schedules on (value, limb word) bounds through ``_Replay``: GMiMC's rest-branch adds stay uncarried for the whole
-permutation, and Griffin's and Anemoi's optional reductions are taken where
+schedules on (value, limb word) bounds through ``_Replay``: GMiMC's limb
+body keeps its rest-branch adds uncarried for the whole permutation (its
+two-word Goldilocks body is replayed by ``_GmimcWordSim``), and Griffin's and Anemoi's optional reductions are taken where
 the replay without them fails.  The TPU kernels' 12-bit fixpoints
 (``pallas_gmimc.py:67``, ``pallas_griffin.py:75``, ``pallas_anemoi.py:69``)
 do not carry over to the port's 24-bit plan.
@@ -35,7 +36,7 @@ import functools
 from dataclasses import dataclass
 
 from ..anemoi.config import window as anemoi_window
-from ..fields import LIMB_BITS
+from ..fields import GOLDILOCKS_FR, LIMB_BITS
 from ..griffin.config import window as griffin_window
 from ..poseidon2.config import one_word
 from ..poseidon.config import PoseidonConfig
@@ -563,11 +564,132 @@ def check_gmimc_bounds(cfg) -> KernelPlan:
     xs = [sim.const] * t
     for r in range(cfg.rounds):
         j = r % t  # the front's register; the kernel never moves the state
-        f = sim.pow(sim.add(xs[j], sim.const), cfg.alpha)
+        f = sim.pow(sim.add(xs[j], sim.const), cfg.alpha, square=sim.sqr)
         xs = [x if i == j else sim.lin((1, 1), (x, f)) for i, x in enumerate(xs)]
     for x in xs:
         sim.exit(sim.carry_pass(x))
     return KernelPlan(False, sim.vmax, sim.wmax)
+
+
+_W64 = 1 << 64
+_EPS = (1 << 32) - 1  # 2^64 mod p at Goldilocks
+
+
+class _GmimcWordSim:
+    """Exclusive bounds through kernel 8's two-word body (``csrc/gmimc.cu``
+    ``gmimc_word_kernel``, Goldilocks only).  An element is (v, e): its
+    64-bit word below v and its excess word below e (the 2^64s its deferred
+    adds carried out; e = 1 is no excess).  A product's inputs carry no
+    excess; its partial products, middle column and high word stay below
+    2^64, and ``gl_reduce``'s borrow and carry fix-ups cannot wrap.  An add
+    counts one carry into the excess, below 2^32; a fold takes the excess in
+    as k (2^32 - 1) with one carry fix-up that cannot wrap.  ``emax`` is the
+    largest excess reached."""
+
+    def __init__(self, cfg):
+        self.cfg, self.p = cfg, cfg.field.modulus
+        self.emax = 0
+        if self.p != GOLDILOCKS_FR.modulus:
+            self._fail("the two-word body needs p = 2^64 - 2^32 + 1")
+
+    def _fail(self, msg):
+        cfg = self.cfg
+        raise ValueError(f"GMiMC two-word kernel, {cfg.field.name} t={cfg.t} rounds={cfg.rounds}: {msg}")
+
+    def _word(self, v, what):
+        if v > _W64:
+            self._fail(f"{what} can reach 2^{(v - 1).bit_length()} (>= 2^64)")
+        return v
+
+    def _halves(self, x):
+        """The largest low and high 32-bit halves of a product input."""
+        v, e = x
+        if e > 1:
+            self._fail("a product input carries excess (a fold is missing)")
+        self._word(v, "a product input")
+        return min(v - 1, _EPS), (v - 1) >> 32
+
+    def reduce(self, hi):
+        """``GL_REDUCE_N`` of a 128-bit value whose high word hh:hl is below
+        ``hi``: V = lo - hh + hl (2^32 - 1) lies in [-hh, 2^64 + hl (2^32 -
+        1)), so its 96-bit top word is -1, 0 or 1, and adding its 2^64 back
+        as 2^32 - 1 must leave a 64-bit word: at least 2^32 - 1 when V < 0,
+        below 2^64 - (2^32 - 1) when V >= 2^64."""
+        hh, hl = (self._word(hi, "a product's high word") - 1) >> 32, min(hi - 1, _EPS)
+        if hh > 0 and _W64 - hh < _EPS:
+            self._fail("the reduction's fix-up of a negative sum can wrap")
+        if hl * _EPS - 1 + _EPS >= _W64:
+            self._fail("the reduction's fix-up of a sum past 2^64 can wrap")
+        return _W64, 1
+
+    def mul(self, a, b):
+        """``gl_mul``: p01 + p00 / 2^32 + (p10 mod 2^32) below 2^64, then the
+        high word p11 + mid / 2^32 + p10 / 2^32."""
+        (a0, a1), (b0, b1) = self._halves(a), self._halves(b)
+        p00, p01, p10, p11 = a0 * b0, a0 * b1, a1 * b0, a1 * b1
+        mid = self._word(p01 + (p00 >> 32) + min(p10, _EPS) + 1, "a product's middle column") - 1
+        return self.reduce(p11 + (mid >> 32) + (p10 >> 32) + 1)
+
+    def sqr(self, a):
+        """``gl_sqr``: the high word p11 + 2 p01 / 2^32 + the low add's carry."""
+        a0, a1 = self._halves(a)
+        return self.reduce(a1 * a1 + ((a0 * a1) >> 31) + 2)
+
+    def pow(self, x, e):
+        acc = x
+        for g in ladder_schedule(e):
+            for _ in range(abs(g)):
+                acc = self.sqr(acc)
+            if g > 0:
+                acc = self.mul(acc, x)
+        return acc
+
+    def add(self, x, f):
+        """``gl_add_deferred``: the 64-bit add wraps, its carry enters the
+        excess word."""
+        if f[1] > 1:
+            self._fail("a deferred add's addend carries excess")
+        e = x[1] + 1
+        self.emax = max(self.emax, e - 1)
+        if e > _W32:
+            self._fail("an excess word can reach 2^32")
+        return _W64, e
+
+    def fold(self, x, c):
+        """``gl_fold`` with a constant below ``c``: k = excess + the add's
+        carry in a 32-bit word, the sum plus k (2^32 - 1) below 2^65 and,
+        past 2^64, its fix-up by 2^32 - 1 below 2^64."""
+        v, e = x
+        k = e - 1 + int(v - 1 + c - 1 >= _W64)
+        if k >= _W32:
+            self._fail("a fold's k (2^32 - 1) can reach 2^64")
+        if k * _EPS + _EPS > _W64:
+            self._fail("a fold's carry fix-up can wrap")
+        return _W64, 1
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        xs = [self.mul((p, 1), (p, 1))] * cfg.t  # the entry's product by 2^-72 mod p
+        for r in range(cfg.rounds):
+            j = r % cfg.t  # the front's register; the kernel never moves the state
+            f = self.pow(self.fold(xs[j], p), cfg.alpha)
+            xs = [x if i == j else self.add(x, f) for i, x in enumerate(xs)]
+        for x in xs:  # the exit: fold, the product by 2^72 mod p, one subtraction
+            if self.mul(self.fold(x, 1), (p, 1))[0] > 2 * p:
+                self._fail("the exit's conditional subtraction takes an input of 2p or more")
+
+
+@functools.lru_cache(maxsize=None)
+def check_gmimc_word_bounds(cfg) -> int:
+    """Replay kernel 8's two-word body (Goldilocks) on exclusive bounds:
+    every partial product, middle column and high word below 2^64, every
+    reduction's and fold's fix-up unable to wrap, every excess word below
+    2^32, no product input carrying excess, the exit's subtraction input
+    below 2p.  Raises ValueError if any could fail (or the field is not
+    Goldilocks); returns the largest excess an element reaches."""
+    sim = _GmimcWordSim(cfg)
+    sim.run()
+    return sim.emax
 
 
 def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:

@@ -2,10 +2,14 @@
 
 Counterpart of ``sponge_tpu/ops/pallas_gmimc.py`` (``gmimc_permute_fn``): per
 round F = (x_0 + c_r)^alpha is added to the other t-1 branches and the state
-rotates left.  The CUDA kernel is ``csrc/gmimc.cu``; its deferred adds are
-bounded by ``ops/bounds.py`` ``check_gmimc_bounds``.
-``gmimc_permute_plain`` computes the same function with int64 tensor ops,
-canonical after every step.
+rotates left.  The CUDA kernel is ``csrc/gmimc.cu`` with two bodies, chosen
+by the field (``body``): at Goldilocks the two-word body (one element in two
+32-bit words, plain form, carries of the rest-branch adds kept in an excess
+word; replayed by ``ops/bounds.py`` ``check_gmimc_word_bounds``, its
+constants in the buffer's word section), at every other field the limb body
+(24-bit Montgomery limbs, the rest-branch adds deferred uncarried; bounded by
+``check_gmimc_bounds``).  ``gmimc_permute_plain`` computes the same function
+with int64 tensor ops, canonical after every step.
 
 ``gmimc_permute`` takes the plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises.
@@ -15,10 +19,22 @@ from __future__ import annotations
 
 import torch
 
-from ..gmimc.config import GmimcConfig, constant_layout, unpack_constants
+from ..gmimc.config import LIMB_SECTIONS, GmimcConfig, constant_layout, unpack_constants, word_body
+from ..poseidon.config import layout_size
 from . import _build
 from . import montgomery as mont
-from .bounds import check_gmimc_bounds
+from .bounds import check_gmimc_bounds, check_gmimc_word_bounds
+
+# (t, L) each body is compiled for (csrc/gmimc.cu sponge_gmimc); the union is
+# _build.INSTANTIATIONS["sponge_gmimc"].  The limb body's (8, 3) runs no
+# shipped config (Goldilocks takes the two-word body); chip_smoke.py times it
+# beside the two-word body.
+BODIES = {"limb": frozenset({(3, 11), (8, 3), (3, 2)}), "word": frozenset({(8, 3)})}
+
+
+def body(cfg: GmimcConfig) -> str:
+    """Kernel 8's body for ``cfg``: "word" at Goldilocks, else "limb"."""
+    return "word" if word_body(cfg.field) else "limb"
 
 
 def gmimc_permute_plain(cfg: GmimcConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -34,9 +50,26 @@ def gmimc_permute_plain(cfg: GmimcConfig, consts: torch.Tensor, state: torch.Ten
 
 
 def _launch_args(cfg: GmimcConfig, consts: torch.Tensor):
-    """The deferral bound, then kernel 8's own C arguments."""
-    check_gmimc_bounds(cfg)
-    return cfg.rounds, cfg.alpha, consts.data_ptr(), cfg.field.n0inv
+    """The body's bound replay, then kernel 8's own C arguments: the body
+    code, the rounds, alpha, the constants the body reads and their length,
+    n0inv.  A body with no instantiation at (t, L) raises: Goldilocks never
+    falls back to the limb body."""
+    kind = body(cfg)
+    if kind == "word":
+        check_gmimc_word_bounds(cfg)
+    else:
+        check_gmimc_bounds(cfg)
+    if (cfg.t, cfg.field.nlimbs) not in BODIES[kind]:
+        raise NotImplementedError(
+            f"no CUDA kernel instantiation of kernel 8's {kind} body for t={cfg.t}, L={cfg.field.nlimbs}; "
+            f"compiled: {sorted(BODIES[kind])}"
+        )
+    layout = constant_layout(cfg)
+    limb_words = layout_size(layout[:LIMB_SECTIONS])
+    if kind == "limb":
+        return 0, cfg.rounds, cfg.alpha, consts.data_ptr(), limb_words, cfg.field.n0inv
+    words = layout_size(layout) - limb_words
+    return 1, cfg.rounds, cfg.alpha, consts[limb_words:].data_ptr(), words, cfg.field.n0inv
 
 
 def gmimc_permute(cfg: GmimcConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:

@@ -4,10 +4,13 @@ Parameters and validation; the oracle's frozen vectors and the JAX oracle on
 random states; ``gmimc_permute_plain`` (kernel 8's function) against
 ``gmimc_permute_jit`` and the Pallas kernel ``gmimc_permute_fn`` in
 interpret mode, inputs and outputs carried across with ``interop``; the
-static bound of the fully deferred rest-branch adds, with its refusals; a
-word-by-word emulation of ``csrc/gmimc.cu`` (32-bit words, 64-bit columns)
-against the oracle; dispatch; and the sponge and transcript entry points
-driven by a GMiMC config.  Inputs come from numpy seeds; equality is exact
+static bound of the limb body's fully deferred rest-branch adds, with its
+refusals; word-by-word emulations of ``csrc/gmimc.cu``'s two bodies (the
+limb body in 32-bit words and 64-bit columns, the two-word Goldilocks body
+in 64-bit words with its excess words) against the oracle, and the
+two-word body against ``gmimc_permute_jit``; the two-word replay, with its
+refusals; the body choice and the bound's recount at Goldilocks; dispatch;
+and the sponge and transcript entry points driven by a GMiMC config.  Inputs come from numpy seeds; equality is exact
 (tolerance 0) on canonical values.  The CUDA kernel itself runs on the card
 (``chip_smoke.py``).  The helpers here serve the Griffin and Anemoi tests
 too.
@@ -29,12 +32,12 @@ from sponge_tpu.ops.pallas_gmimc import gmimc_permute_fn
 import sponge_tpu_torch as st
 from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
-from sponge_tpu_torch.gmimc.config import kernel_constants
+from sponge_tpu_torch.gmimc.config import LIMB_SECTIONS, constant_layout, kernel_constants
 from sponge_tpu_torch.ops import _build
-from sponge_tpu_torch.ops.bounds import check_gmimc_bounds
-from sponge_tpu_torch.ops.gmimc import gmimc_permute, gmimc_permute_plain
+from sponge_tpu_torch.ops.bounds import _GmimcWordSim, check_gmimc_bounds, check_gmimc_word_bounds
+from sponge_tpu_torch.ops.gmimc import BODIES, _launch_args, body, gmimc_permute, gmimc_permute_plain
 from sponge_tpu_torch.ops.montgomery import ladder_schedule, window_schedule
-from sponge_tpu_torch.poseidon.config import mont_limb_rows
+from sponge_tpu_torch.poseidon.config import layout_size, mont_limb_rows
 
 JAX_T25 = JaxFieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
 T25 = st.FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
@@ -386,15 +389,26 @@ def test_bound_refuses_overflowing_round_counts():
 
 
 class Kernel8(Words):
-    """``csrc/gmimc.cu`` for one lane: the front of round r0 + j is register
-    j; F is added to the other words with no carry; the state is rotated
-    back by rounds mod t at the end."""
+    """``csrc/gmimc.cu``'s limb body for one lane: the front of round r0 + j
+    is register j and is raised by ``pow_sqr1`` (squarings by ``mont_sqr``);
+    F is added to the other words with no carry; the state is rotated back
+    by rounds mod t at the end."""
 
     def __init__(self, cfg):
         super().__init__(cfg.field)
         c = [int(v) for v in kernel_constants(cfg)]
         L = self.L
-        self.cfg, self.one, self.rc = cfg, c[L : 2 * L], c[2 * L :]
+        self.cfg, self.one, self.rc = cfg, c[L : 2 * L], c[2 * L : 2 * L + cfg.rounds * L]
+
+    def pow(self, x, e):
+        """``pow_sqr1``: the run-length schedule of e, squarings by ``sqr``."""
+        acc = x
+        for g in ladder_schedule(e):
+            for _ in range(abs(g)):
+                acc = self.sqr(acc)
+            if g > 0:
+                acc = self.mont_mul(acc, x)
+        return acc
 
     def permute(self, x):
         cfg, L, t = self.cfg, self.L, self.cfg.t
@@ -416,6 +430,174 @@ def test_kernel_emulation_matches_oracle(name):
     }[name]()
     vals = lanes(cfg.field.modulus, cfg.t, 4, 13)
     assert emulate(cfg, Kernel8(cfg), vals) == oracle_permute(cfg, vals)
+
+
+# ---- the two-word body (Goldilocks) ----
+
+_EPS = (1 << 32) - 1  # 2^64 mod p at Goldilocks
+
+
+class Kernel8Word:
+    """``csrc/gmimc.cu``'s two-word body for one lane: 64-bit words in plain
+    form, exact 128-bit products (``gl_mul``, ``gl_sqr``) reduced by
+    ``GL_REDUCE_N``, the excess word of each element (``gl_add_deferred``)
+    and ``gl_fold``; every intermediate is checked against the limit the
+    replay (``_GmimcWordSim``) proves.  ``emax`` is the largest excess
+    reached."""
+
+    def __init__(self, cfg):
+        self.cfg, self.emax = cfg, 0
+        layout = constant_layout(cfg)
+        w = [int(v) & _M32 for v in kernel_constants(cfg)[layout_size(layout[:LIMB_SECTIONS]) :]]
+        pairs = [w[i] | w[i + 1] << 32 for i in range(0, len(w), 2)]
+        self.to_word, self.from_word, self.rc = pairs[0], pairs[1], pairs[2:]
+
+    @staticmethod
+    def reduce(n):
+        """``GL_REDUCE_N``: V = lo - hh + hl (2^32 - 1) in 96 bits, its top
+        word s (-1, 0 or 1) added back as s (2^32 - 1)."""
+        assert 0 <= n < 1 << 128
+        lo, hh, hl = n & _M64, n >> 96, (n >> 64) & _M32
+        v = lo - hh + hl * _EPS
+        s = v >> 64  # floor: -1 below 0
+        assert s in (-1, 0, 1)
+        r = (v & _M64) + s * _EPS
+        assert 0 <= r <= _M64
+        return r
+
+    def mul(self, a, b):
+        assert a <= _M64 and b <= _M64
+        return self.reduce(a * b)
+
+    def sqr(self, a):
+        return self.mul(a, a)
+
+    def pow(self, x, alpha):
+        acc = x
+        for bit in range(alpha.bit_length() - 2, -1, -1):
+            acc = self.sqr(acc)
+            if (alpha >> bit) & 1:
+                acc = self.mul(acc, x)
+        return acc
+
+    @staticmethod
+    def fold(x, e, c):
+        """``gl_fold``: k = e + the carry of x + c (a 32-bit word), the sum
+        plus k (2^32 - 1) in 96 bits, its top word t (0 or 1) added back as
+        t (2^32 - 1)."""
+        s = x + c
+        k = e + (s >> 64)
+        assert k <= _M32
+        w = (s & _M64) + k * _EPS
+        t = w >> 64
+        assert t in (0, 1)
+        r = (w & _M64) + t * _EPS
+        assert r <= _M64
+        return r
+
+    def permute(self, limbs):
+        cfg, t, p = self.cfg, self.cfg.t, self.cfg.field.modulus
+        x = [self.mul(l0 | l1 << 24 | l2 << 48, self.to_word) for l0, l1, l2 in limbs]
+        ex = [0] * t
+        for r0 in range(0, cfg.rounds, t):
+            for j in range(min(t, cfg.rounds - r0)):
+                f = self.pow(self.fold(x[j], ex[j], self.rc[r0 + j]), cfg.alpha)
+                for e in range(t):
+                    if e != j:
+                        s = x[e] + f
+                        x[e], ex[e] = s & _M64, ex[e] + (s >> 64)
+                        assert ex[e] <= _M32
+        self.emax = max(self.emax, *ex)  # an excess never falls
+        s = cfg.rounds % t
+        x, ex = x[s:] + x[:s], ex[s:] + ex[:s]
+        out = []
+        for v, e in zip(x, ex):
+            v = self.mul(self.fold(v, e, 0), self.from_word)
+            v = v - p if v >= p else v
+            out.append([v & _M24, (v >> 24) & _M24, v >> 48])
+        return out
+
+
+def test_word_kernel_emulation_matches_oracle_and_jax():
+    """Goldilocks t = 8 (all 62 rounds): the two-word body on seeded lanes,
+    edge lanes (0, 1, p-1, p-2 across the element positions) and lanes of
+    p-1 and p-2 in every element (every first-round add carries into the
+    excess words) equals the port's oracle and the JAX package's
+    ``gmimc_permute_jit``; no excess passes the replay's."""
+    cfg = st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 4)
+    jcfg = sponge_tpu.get_default_gmimc_parameters(sponge_tpu.GOLDILOCKS_FR, 4)
+    p = cfg.field.modulus
+    vals = [row + [p - 1, p - 2] for row in lanes(p, cfg.t, 10, 23)]
+    kern = Kernel8Word(cfg)
+    got = emulate(cfg, kern, vals)
+    assert got == oracle_permute(cfg, vals)
+    out = np.asarray(gmimc_permute_jit(jcfg)(jax_plane(jcfg, vals)))
+    assert got == [jcfg.field.mont_plane_to_ints(row) for row in out]
+    assert 0 < kern.emax <= check_gmimc_word_bounds(cfg)
+
+
+def test_word_replay_admits_goldilocks_and_refuses_a_missing_fold():
+    """The replay admits Goldilocks t = 8: the largest excess is the 55 adds
+    an element takes in 62 rounds (fronts 7 times).  Without the front's
+    fold, or the exit's, a product input carries excess and the replay
+    refuses; a field other than Goldilocks is refused."""
+    cfg = st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 4)
+    assert check_gmimc_word_bounds(cfg) == cfg.rounds - cfg.rounds // cfg.t == 55
+    p = cfg.field.modulus
+
+    class NoFrontFold(_GmimcWordSim):
+        def fold(self, x, c):
+            return x if c == p else super().fold(x, c)
+
+    class NoExitFold(_GmimcWordSim):
+        def fold(self, x, c):
+            return x if c == 1 else super().fold(x, c)
+
+    for sim in (NoFrontFold, NoExitFold):
+        with pytest.raises(ValueError, match="carries excess"):
+            sim(cfg).run()
+    with pytest.raises(ValueError, match="2\\^64 - 2\\^32"):
+        check_gmimc_word_bounds(st.get_default_gmimc_parameters(st.BLS12_381_FR, 2))
+
+
+def test_body_choice_and_launch_args():
+    """The two-word body at Goldilocks, the limb body at every other field;
+    the bodies' pairs make up ``_build.INSTANTIATIONS``.  The wrapper's C
+    arguments: the limb body gets the limb sections, the two-word body its
+    section; a Goldilocks config at a pair the two-word body lacks raises
+    (no fallback to the limb body)."""
+    assert BODIES["limb"] | BODIES["word"] == _build.INSTANTIATIONS["sponge_gmimc"]
+    bls, gl = st.get_default_gmimc_parameters(st.BLS12_381_FR, 2), st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 4)
+    tiny = st.generate_gmimc_parameters(T25, 2, rounds=30)
+    for cfg, kind in ((bls, "limb"), (st.get_default_gmimc_parameters(st.BN254_FR, 2), "limb"), (tiny, "limb"),
+                      (gl, "word")):
+        assert body(cfg) == kind and ("word_rc" in dict(constant_layout(cfg))) == (kind == "word"), cfg.field.name
+    consts = st.GmimcPermutation(gl, "cpu").consts
+    layout = constant_layout(gl)
+    limb_words = layout_size(layout[:LIMB_SECTIONS])
+    assert _launch_args(gl, consts) == (
+        1, gl.rounds, gl.alpha, consts.data_ptr() + 4 * limb_words, layout_size(layout) - limb_words, gl.field.n0inv
+    )
+    consts = st.GmimcPermutation(bls, "cpu").consts
+    assert _launch_args(bls, consts)[:5] == (0, bls.rounds, bls.alpha, consts.data_ptr(), layout_size(constant_layout(bls)))
+    gl6 = st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 2)  # t = 6
+    with pytest.raises(NotImplementedError, match="word body"):
+        _launch_args(gl6, st.GmimcPermutation(gl6, "cpu").consts)
+
+
+def test_bound_recount_at_goldilocks():
+    """``chip_smoke.py``'s bound counts Goldilocks in two 32-bit words: a
+    product 4 widening multiplies, a squaring 3, a reduction none, the
+    plane's conversion a product each way: 62 (2 3 + 2 4) + 16 4 = 932 for
+    GMiMC t = 8 (4,236 by the limb count).  BLS12-381 keeps 616 a round
+    (two ``mont_sqr`` and one product at L = 11) and one product by 1 per
+    element."""
+    import chip_smoke
+
+    gl, bls = st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 4), st.get_default_gmimc_parameters(st.BLS12_381_FR, 2)
+    assert chip_smoke.limb_products("gmimc_permute", gl) == (932, 0)
+    assert chip_smoke.limb_products("gmimc_permute", gl, words=False) == (4236, 0)
+    assert chip_smoke.limb_products("gmimc_permute", bls) == (616 * 226 + 3 * 242, 0)
 
 
 # ---- dispatch ----
