@@ -48,7 +48,13 @@ verified by ``host_run_schedule``, the Merkle example at 2^20 Goldilocks
 leaves with 2^14 proofs, the family tour, each tour config's permutation at
 2^16 states against ``host_permute_states`` on every lane, and a random
 lazy-sponge schedule whose lane the R1CS tracer reproduces, with the host
-side's times beside the card's on ``[host]``/``[codec]`` lines), and times
+side's times beside the card's on ``[host]``/``[codec]`` lines; every
+default Poseidon and Poseidon2 width: each of the 52 default Poseidon
+configs through kernels 1 and 2 and the 14 Poseidon2 ones through kernel 3
+at 2^14 lanes against the plain versions, the oracle and the host runtime,
+one config per (t, L) beyond rate 2 timed at B = 2^20 beside its bound
+with its census line, lazy and eager sponges at BLS12-381 t = 9 and
+Goldilocks t = 12 and a Goldilocks transcript at 2^16 lanes), and times
 each kernel beside its plain version with CUDA
 events (kernel 5 at BLS12-381 also with its inverse S-box at windows 3 and
 4, in turns; kernel 8's limb body beside its two-word body at Goldilocks,
@@ -65,7 +71,9 @@ of the kernels and the card's name and power limit; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.  ``--only NAME[,NAME]`` (names of its kernel table) runs
 the build, the window and census lines and the named kernels' checks and
-timings alone, to compare two trees in one call.  It imports nothing of JAX or sponge_tpu.
+timings alone (with any of kernels 1, 2 and 3 named, the widths path
+too), to compare two trees in one call.  It imports nothing of JAX or
+sponge_tpu.
 """
 
 from __future__ import annotations
@@ -454,14 +462,20 @@ def kernel_bound(name, cfg, batch, rates, words=True):
     return bound((wide * batch, narrow * batch), 2 * cfg.t * cfg.field.nlimbs * 4 * batch, rates)
 
 
+@functools.lru_cache(maxsize=None)
+def sass_listing(lib_path):
+    """``cuobjdump -sass`` of the whole library, run once: the census and
+    the probes read many functions of it."""
+    from sponge_tpu_torch.ops import _build
+
+    return run([str(pathlib.Path(_build._nvcc()).with_name("cuobjdump")), "-sass", str(lib_path)])
+
+
 def sass_counts(lib_path, function_key):
     """Opcode counts of the one function of ``lib_path`` whose mangled name
     holds ``function_key`` (cuobjdump -sass)."""
-    from sponge_tpu_torch.ops import _build
-
-    cuobjdump = str(pathlib.Path(_build._nvcc()).with_name("cuobjdump"))
     counts, inside = {}, False
-    for line in run([cuobjdump, "-sass", str(lib_path)]).splitlines():
+    for line in sass_listing(lib_path).splitlines():
         if "Function :" in line:
             inside = function_key in line
         elif inside and "*/" in line:
@@ -571,6 +585,7 @@ def template_args(mangled):
 
 CENSUS_KERNELS = (
     ("kernel 1", "poseidon_opt_kernel"),
+    ("kernel 2", "poseidon_dense_kernel"),
     ("kernel 3, limb body", "poseidon2_kernel"),
     ("kernel 3, one-word body", "poseidon2_word_kernel"),
     ("kernel 4, generic body", "monolith_kernel"),
@@ -600,6 +615,8 @@ def census_instance(name, cfg, body=None):
     t, L = cfg.t, cfg.field.nlimbs
     if name == "poseidon_permute_opt":
         return "poseidon_opt_kernel", (t, L), 4 * layout_size(constant_layout(cfg))
+    if name == "poseidon_permute_dense":  # reads its constants from global memory
+        return "poseidon_dense_kernel", (t, L), 0
     if name == "monolith_permute":
         plan = check_monolith_bounds(cfg)
         want = (t, L, chunk_pattern(cfg.field), int(plan.concrete == "scaled"), plan_code(plan.folds))
@@ -936,7 +953,9 @@ def main(argv):
     _build.library()
     say("build", f"{lib_path.name} (sm_90a) ready in {time.perf_counter() - t0:.1f} s")
     for line in _build.ptxas_report().splitlines():
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
+        if line.startswith("# ") and line.endswith(" s"):
+            say("build", line[2:])
+        elif "Compiling entry" in line or "registers" in line or "spill" in line:
             say("ptxas", line.strip())
 
     elapsed("the probes")
@@ -1176,7 +1195,8 @@ def main(argv):
     half = B_LADDER_PLAIN // 2  # the ladder families' plain lanes: both ends of the 2^20 plane
     ends = torch.cat([torch.arange(half), torch.arange(B_MAIN - half, B_MAIN)]).to(dev)
     if only is not None:
-        for name, cfg, lanes in (("poseidon2_permute", p2_bls, every), ("poseidon2_permute", p2_bb, every),
+        for name, cfg, lanes in (("poseidon_permute_opt", bls, every), ("poseidon_permute_dense", bls, every),
+                                 ("poseidon2_permute", p2_bls, every), ("poseidon2_permute", p2_bb, every),
                                  ("poseidon2_permute", p2_kb, every), ("poseidon2_permute", p2_bb_dense, every),
                                  ("griffin_permute", g_bls, ends), ("griffin_permute", g_gl, every),
                                  ("gmimc_permute", m_bls, every), ("gmimc_permute", m_gl, every)):
@@ -1187,6 +1207,9 @@ def main(argv):
                 time_kernel(name, cfg, big, lanes, big_out)
                 if cfg is m_gl:
                     gmimc_body_comparison(cfg, big, big_out, gpu, rates)
+        if only & {"poseidon_permute_opt", "poseidon_permute_dense", "poseidon2_permute"}:
+            elapsed("the widths")
+            widths_phase(st, dev, rng, gpu, kernels, rates, _build.ptxas_report())
         elapsed("the end")
         return 0
 
@@ -1447,6 +1470,12 @@ def main(argv):
                                                    mo_out[id(mo_gl)]))
     time_kernel("monolith_permute", mo_m31, mo_states[id(mo_m31)], every, mo_out[id(mo_m31)])
 
+    elapsed("the widths")
+    # ---- 12. every default Poseidon and Poseidon2 width (kernels 1, 2 and 3), launches counted ----
+    launches7 = widths_phase(st, dev, rng, gpu, kernels, rates, _build.ptxas_report())
+    for name in WIDTH_PATH_KERNELS:
+        launches[name] += launches7[name]
+
     elapsed("the summary")
     for name, entry in probe_entries.items():
         kernels[name] = entry
@@ -1465,6 +1494,7 @@ def main(argv):
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a permutation or a probe chain
+            **({"instantiations": k["instantiations"]} if "instantiations" in k else {}),
         }
         for name, k in kernels.items()
     ]
@@ -1479,6 +1509,213 @@ def main(argv):
         },
     }))
     return 0
+
+
+# ---- every default Poseidon and Poseidon2 width (kernels 1, 2 and 3) ----
+
+WIDTH_FIELDS = ("BLS12_381_FR", "BN254_FR", "BLS12_377_FR", "GOLDILOCKS_FR", "BABYBEAR_FR", "KOALABEAR_FR",
+                "MERSENNE31_FR")
+# (t, L) pairs of the default tables beyond rate 2 over the ~255-bit fields:
+# kernels 1 and 2, and kernel 3's limb body
+POSEIDON_WIDE_PAIRS = ((4, 11), (5, 11), (6, 11), (7, 11), (8, 11), (9, 11), (8, 3), (12, 3), (16, 2))
+P2_WIDE_PAIRS = ((4, 11), (8, 11), (8, 3), (12, 3))
+B_WIDTH = 1 << 14  # lanes of each default config through each kernel and its plain version
+B_WIDTH_HOST = 1 << 12  # of them against host_permute_states
+WIDTH_PATH_KERNELS = ("poseidon_permute_opt", "poseidon_permute_dense", "poseidon2_permute")
+
+
+def default_configs(st):
+    """[(label, config)]: every default parameter set of the Poseidon tables
+    (constraints and weights) and the Poseidon2 table over the seven
+    fields, at the rates 1-8 each table has."""
+    out = []
+    for fs in (getattr(st, name) for name in WIDTH_FIELDS):
+        for rate in range(1, 9):
+            for weights in (False, True):
+                with contextlib.suppress(ValueError):
+                    cfg = st.get_default_poseidon_parameters(fs, rate, weights)
+                    out.append((f"Poseidon {fs.name} rate {rate} {'weights' if weights else 'constraints'}", cfg))
+            with contextlib.suppress(ValueError):
+                out.append((f"Poseidon2 {fs.name} rate {rate}", st.get_default_poseidon2_parameters(fs, rate)))
+    return out
+
+
+def widths_phase(st, dev, rng, gpu, kernels, rates, report):
+    """Kernels 1, 2 and 3 at every default Poseidon and Poseidon2 width.
+    Each default config (52 Poseidon, kernels 1 and 2; 14 Poseidon2, kernel
+    3) on B_WIDTH lanes with 0, 1, p-1, p-2 in every element position and
+    the near-bound lanes of all p-1 and all p-2: each kernel torch.equal to
+    its plain version, kernel 1 to kernel 2, 16 lanes to the oracle and
+    B_WIDTH_HOST lanes to ``host_permute_states``.  Then per (t, L) pair
+    beyond rate 2 over the ~255-bit fields (``POSEIDON_WIDE_PAIRS``,
+    ``P2_WIDE_PAIRS``), the first config of that width (the constraints
+    table; BLS12-381 at L = 11) at B_MAIN lanes, CUDA events, best of 3,
+    beside its bound, with its census line.  Then the main path at full
+    width, the launch counters zeroed just before it and read just after: a
+    lazy and an eager PoseidonSponge at BLS12-381 rate 8 (t = 9) and
+    Goldilocks rate 8 (t = 12) and a lazy Poseidon2 sponge at BLS12-381
+    rate 7 (t = 8) on B_CHECK lanes, a compiled transcript at Goldilocks
+    rate 8, sampled lanes against the oracle, and ``batched_permute`` at
+    t = 9 through kernel 2 (the parity tier) against kernel 1.  Returns the
+    path's launch counts; each timed kernel's entry gains its rows under
+    "instantiations"."""
+    from sponge_tpu_torch.fields import limbs_to_ints, mont_tensor_to_ints
+    from sponge_tpu_torch.ops.montgomery import blocks_per_sm
+    from sponge_tpu_torch.poseidon import host
+    from sponge_tpu_torch.transcript import Absorb, SqueezeNative, compile_transcript
+
+    start = time.perf_counter()
+    configs = default_configs(st)
+    n_p2 = sum(isinstance(cfg, st.Poseidon2Config) for _, cfg in configs)
+    check((len(configs) - n_p2, n_p2) == (52, 14), f"default configs: {len(configs) - n_p2} Poseidon, {n_p2} Poseidon2")
+    check(host.host_available(configs[0][1]), "the native host runtime did not build")
+    plain_ms = {}
+    for label, cfg in configs:
+        fs, t, L = cfg.field, cfg.t, cfg.field.nlimbs
+        names = ("poseidon2_permute",) if isinstance(cfg, st.Poseidon2Config) else (
+            "poseidon_permute_opt", "poseidon_permute_dense")
+        state = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_WIDTH), rng, dev)))
+        outs = []
+        for name in names:
+            k = kernels[name]
+            consts = k["perm"](cfg, dev).consts
+            before = k["wrapper"].launches
+            out_k = k["wrapper"](cfg, consts, state)
+            torch.cuda.synchronize()
+            check(k["wrapper"].launches == before + 1, f"{name}: the kernel was not launched at {label}")
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out_p = k["plain"](cfg, consts, state)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms[(name, t, L)] = plain_ms.get((name, t, L)) or e0.elapsed_time(e1)
+            err = int((out_k.long() - out_p.long()).abs().max())
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+            check(torch.equal(out_k, out_p), f"{name} != plain at {label} (max err {err})")
+            outs.append(out_k)
+        check(all(torch.equal(outs[0], o) for o in outs[1:]), f"kernel 1 != kernel 2 at {label}")
+        sample = [0, 21, 42, 63, *NEAR_BOUND_LANES] + sorted(rng.choice(np.arange(66, B_WIDTH), 10, replace=False).tolist())
+        check_lanes_vs_oracle(cfg, state, outs[0], sample, label)
+        ins = mont_tensor_to_ints(fs, state[..., :B_WIDTH_HOST])
+        want = mont_tensor_to_ints(fs, outs[0][..., :B_WIDTH_HOST])
+        got = host.host_permute_states(cfg, [v for lane in zip(*ins) for v in lane])
+        bad = [i // t for i, (a, b) in enumerate(zip(got, (v for lane in zip(*want) for v in lane))) if a != b]
+        check(len(got) == t * B_WIDTH_HOST and not bad, f"{label}: host != card on lanes {bad[:8]}")
+        say("widths", f"{label} (t, L) = ({t}, {L}): {' and '.join(names)} == plain at B={B_WIDTH} (edge lanes 0-63, "
+            f"all p-1 and all p-2 in lanes {NEAR_BOUND_LANES[0]}-{NEAR_BOUND_LANES[1]})"
+            f"{', kernel 1 == kernel 2' if len(names) > 1 else ''}; {len(sample)} lanes == oracle; "
+            f"{B_WIDTH_HOST} lanes == host_permute_states")
+
+    # one config per new pair at B_MAIN beside its bound, with its census line
+    entries = ptxas_entries(report)
+    first = {}
+    for label, cfg in configs:
+        first.setdefault((type(cfg), cfg.t, cfg.field.nlimbs), (label, cfg))
+    timed = [(name, *first[(st.PoseidonConfig, t, L)]) for t, L in POSEIDON_WIDE_PAIRS
+             for name in ("poseidon_permute_opt", "poseidon_permute_dense")]
+    timed += [("poseidon2_permute", *first[(st.Poseidon2Config, t, L)]) for t, L in P2_WIDE_PAIRS]
+    for name, label, cfg in timed:
+        k, fs, t, L = kernels[name], cfg.field, cfg.t, cfg.field.nlimbs
+        base, want, shared = census_instance(name, cfg)
+        found = [v for key, v in entries.items() if f"{base}I" in key and template_args(key) == want]
+        check(len(found) == 1, f"census: {len(found)} ptxas entries for {base} {want}")
+        regs, spill_st, spill_ld = found[0]
+        blocks = blocks_per_sm(regs, shared)
+        say("census", f"{name} ({t}, {L}) at {label}: {regs} registers, spills {spill_st}/{spill_ld} B, "
+            f"{shared:,} B of shared memory, {blocks} blocks per SM")
+        big = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_MAIN), rng, dev)))
+        consts = k["perm"](cfg, dev).consts
+        ms, out = time_ms(lambda: k["wrapper"](cfg, consts, big))
+        check_lanes_vs_oracle(cfg, big, out, [0, 63, *NEAR_BOUND_LANES, B_MAIN - 1], f"{name} {label} B=2^20")
+        bound_ms, bound_by = kernel_bound(name, cfg, B_MAIN, rates)
+        wide, narrow = limb_products(name, cfg)
+        say("widths", f"{name} ({t}, {L}) at {label}, B={B_MAIN}: kernel {ms:.3f} ms = {B_MAIN / ms * 1e3:,.0f} "
+            f"perms/s; bound {bound_ms:.3f} ms ({bound_by}, {bound_ms / ms:.1%} of it; {wide:,} wide + {narrow:,} "
+            f"32-bit products per permutation); plain torch {plain_ms[(name, t, L)]:.1f} ms at B={B_WIDTH}; "
+            f"5 lanes == oracle [{gpu}]")
+        k.setdefault("instantiations", []).append(dict(
+            t=t, L=L, config=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+            plain_ms=plain_ms[(name, t, L)], plain_batch=B_WIDTH, registers=regs, spill_store_bytes=spill_st,
+            spill_load_bytes=spill_ld, shared_bytes=shared, blocks_per_sm=blocks))
+        del big, out
+
+    # the main path at full width: sponges and a transcript at t = 9 and 12
+    bls8 = st.get_default_poseidon_parameters(st.BLS12_381_FR, 8)
+    gl8 = st.get_default_poseidon_parameters(st.GOLDILOCKS_FR, 8)
+    p2_bls7 = st.get_default_poseidon2_parameters(st.BLS12_381_FR, 7)
+    lane_vals = {id(cfg): random_plane(cfg.field, (cfg.rate + 3, cfg.field.nlimbs, B_CHECK), rng, dev)
+                 for cfg in (bls8, gl8, p2_bls7)}
+    parity_in = with_maxima(bls8.field, with_edges(bls8.field, random_plane(
+        bls8.field, (bls8.t, bls8.field.nlimbs, B_CHECK), rng, dev)))
+    steps = (Absorb(gl8.rate + 3), SqueezeNative(gl8.rate + 1), Absorb(2), SqueezeNative(3))
+    tr_elems = random_plane(gl8.field, (gl8.rate + 5, gl8.field.nlimbs, B_CHECK), rng, dev)
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    squeezed, by_pair = {}, {}
+    for cfg in (bls8, gl8):
+        fs = cfg.field
+        before = kernels["poseidon_permute_opt"]["wrapper"].launches
+        for lazy in (True, False):
+            s = st.PoseidonSponge(cfg, batch_size=B_CHECK, lazy=lazy, device=dev)
+            s.absorb(b"widths transcript")
+            s.absorb([st.Fp(fs.modulus - 1, fs), st.Fp(0, fs)])
+            s.absorb_element_plane(lane_vals[id(cfg)])
+            squeezed[(id(cfg), lazy)] = (s.squeeze_native_field_elements(cfg.rate + 2), s.squeeze_bytes(40))
+        by_pair[(cfg.t, fs.nlimbs)] = kernels["poseidon_permute_opt"]["wrapper"].launches - before
+    p2_sponge = st.LazyPoseidonSponge(p2_bls7, batch_size=B_CHECK, device=dev)
+    p2_sponge.absorb([st.Fp(p2_bls7.field.modulus - 2, p2_bls7.field)])
+    p2_sponge.absorb_element_plane(lane_vals[id(p2_bls7)])
+    p2_squeezed = p2_sponge.squeeze_native_field_elements(p2_bls7.rate + 2)
+    tr_out = compile_transcript(gl8, steps)(tr_elems)
+    parity = (st.batched_permute(bls8, parity_in), st.batched_permute(bls8, parity_in, backend="dense"))
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for name in WIDTH_PATH_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the widths path")
+    say("launches", f"widths path: {json.dumps(launches)}; kernel 1 by (t, L): "
+        + ", ".join(f"{pair} {n}" for pair, n in by_pair.items()))
+
+    for cfg in (bls8, gl8):
+        fs = cfg.field
+        check(squeezed[(id(cfg), True)] == squeezed[(id(cfg), False)], f"{fs.name} t={cfg.t}: lazy != eager")
+        native, sq_bytes = squeezed[(id(cfg), True)]
+        vals = mont_tensor_to_ints(fs, lane_vals[id(cfg)])
+        for b in list(range(4)) + [B_CHECK // 3, B_CHECK - 3, B_CHECK - 2, B_CHECK - 1]:
+            o = st.OraclePoseidonSponge(cfg)
+            o.absorb(b"widths transcript")
+            o.absorb([st.Fp(fs.modulus - 1, fs), st.Fp(0, fs)])
+            o.absorb_field_elements([row[b] for row in vals])
+            check(native[b] == o.squeeze_native_field_elements(cfg.rate + 2), f"{fs.name} t={cfg.t} lane {b}: squeeze")
+            check(sq_bytes[b] == o.squeeze_bytes(40), f"{fs.name} t={cfg.t} lane {b}: squeeze_bytes")
+        say("sponge", f"lazy and eager PoseidonSponge {fs.name} rate {cfg.rate} (t={cfg.t}) B={B_CHECK}: equal; "
+            f"native/bytes squeezes == oracle on 8 lanes")
+    fs = p2_bls7.field
+    vals = mont_tensor_to_ints(fs, lane_vals[id(p2_bls7)])
+    for b in list(range(4)) + [B_CHECK // 3, B_CHECK - 1]:
+        o = p2_bls7.oracle_sponge()
+        o.absorb([st.Fp(fs.modulus - 2, fs)])
+        o.absorb_field_elements([row[b] for row in vals])
+        check(p2_squeezed[b] == o.squeeze_native_field_elements(p2_bls7.rate + 2), f"Poseidon2 t=8 lane {b}")
+    say("sponge", f"lazy Poseidon2 sponge {fs.name} rate {p2_bls7.rate} (t={p2_bls7.t}) B={B_CHECK}: native "
+        f"squeezes == oracle on 6 lanes")
+    check(torch.equal(*parity), "t = 9: kernel 1 != kernel 2")
+    check_lanes_vs_oracle(bls8, parity_in, parity[0], [0, 42, *NEAR_BOUND_LANES, B_CHECK - 1], "t = 9 parity")
+    say("main", f"batched_permute {bls8.field.name} rate 8 (t={bls8.t}) at B={B_CHECK}: kernel 1 == kernel 2 (the parity "
+        f"tier); 5 lanes == oracle, near-bound lanes among them")
+    fs = gl8.field
+    vals = mont_tensor_to_ints(fs, tr_elems)
+    rows = [limbs_to_ints(fs, row) for row in tr_out.cpu().numpy()]
+    for b in list(range(4)) + [B_CHECK // 5, B_CHECK - 1]:
+        o = st.OraclePoseidonSponge(gl8)
+        o.absorb_field_elements([row[b] for row in vals[: gl8.rate + 3]])
+        want = o.squeeze_native_field_elements(gl8.rate + 1)
+        o.absorb_field_elements([row[b] for row in vals[gl8.rate + 3 :]])
+        want += o.squeeze_native_field_elements(3)
+        check([row[b] for row in rows] == want, f"transcript {fs.name} t={gl8.t} lane {b}")
+    say("sponge", f"compile_transcript {fs.name} rate {gl8.rate} (absorb {gl8.rate + 3}, squeeze {gl8.rate + 1}, "
+        f"absorb 2, squeeze 3) at B={B_CHECK}: 6 lanes == oracle")
+    say("widths", f"the widths phase took {time.perf_counter() - start:.1f} s")
+    return {name: launches[name] for name in WIDTH_PATH_KERNELS}
 
 
 def check_merkle(cfg, leaves, root, family):

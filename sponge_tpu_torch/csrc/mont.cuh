@@ -20,8 +20,9 @@
 // Kernels 5, 6 and 7 square with mont_sqr and raise to long exponents with
 // pow_window, whose odd-power table sits in dynamic shared memory; kernels
 // 1, 6 and 8 (its limb body) and the probe ablation raise to alpha with
-// pow_sqr (mont_sqr, the t elements of a full round in lockstep), kernel 3's
-// limb body with the same chain and its folds (poseidon2.cu p2_sbox);
+// pow_sqr (mont_sqr, the t elements of a full round in lockstep, or one at
+// a time at a wide state: kWideWords), kernel 3's limb body with the same
+// chain and its folds (poseidon2.cu p2_sbox);
 // kernel 2 keeps mont_pow.  Kernels 3 and 8 run fields that fit one or two
 // 32-bit words (below 2^31; Goldilocks) in bodies of their own.
 #pragma once
@@ -187,6 +188,50 @@ __device__ __forceinline__ void mat_apply(uint32_t (&x)[T][L], const int32_t* __
     for (int k = 0; k < L; ++k) x[i][k] = y[i][k];
 }
 
+// States of more than kWideWords words a lane (the ~255-bit fields at
+// t >= 4: 44 to 99 words) take kernels 1, 2 and 3's wide schedule, whose
+// live set is the state and one element's working words: the S-boxes one
+// element at a time, the MDS rows in a rolled loop (mat_apply_rows), kernel
+// 1's sparse round one element at a time (poseidon_opt.cu
+// sparse_linear_wide).  Every product and carry is the lockstep schedule's,
+// so the words are the same; only the order differs.
+constexpr int kWideWords = 40;
+
+template <int T, int L>
+constexpr bool kWideState = T * L > kWideWords;
+
+// x = M x with mat_apply's rows, one row at a time in a rolled loop, so one
+// row's code is inlined, not T.  Each row is shifted in at the top of y
+// (y[e] = y[e + 1], then y[T - 1] = the row): after T rows y[i] holds row i
+// and no register is indexed at run time.
+template <int T, int L, typename Src = FromGlobal>
+__device__ __forceinline__ void mat_apply_rows(uint32_t (&x)[T][L], const int32_t* __restrict__ mat,
+                                               const Modulus<L>& m) {
+  uint32_t y[T][L] = {};
+#pragma unroll 1
+  for (int i = 0; i < T; ++i) {
+#pragma unroll
+    for (int e = 0; e + 1 < T; ++e)
+#pragma unroll
+      for (int k = 0; k < L; ++k) y[e][k] = y[e + 1][k];
+    mont_row<T, L, Src>(y[T - 1], x, mat + i * T * L, m);
+  }
+#pragma unroll
+  for (int i = 0; i < T; ++i)
+#pragma unroll
+    for (int k = 0; k < L; ++k) x[i][k] = y[i][k];
+}
+
+// x = M x for kernels 1 and 2: mat_apply, or at a wide state mat_apply_rows.
+template <int T, int L, typename Src = FromGlobal>
+__device__ __forceinline__ void mds_apply(uint32_t (&x)[T][L], const int32_t* __restrict__ mat,
+                                          const Modulus<L>& m) {
+  if constexpr (kWideState<T, L>)
+    mat_apply_rows<T, L, Src>(x, mat, m);
+  else
+    mat_apply<T, L, Src>(x, mat, m);
+}
+
 // x += y, carried into 24-bit limbs, not reduced (value stays < R by the
 // static bound).
 template <int L>
@@ -309,8 +354,9 @@ __device__ __forceinline__ void mont_sqr(uint32_t (&out)[L], const uint32_t (&a)
 
 // x^alpha on N elements in lockstep by MSB-first square-and-multiply over
 // the bits of alpha (a runtime value: any PoseidonConfig's alpha runs),
-// squaring with mont_sqr: kernel 1's S-box (N = t in a full round, element 0
-// alone in a partial one) and the probe ablation's.  The bit loop stays
+// squaring with mont_sqr: kernel 1's S-box (N = t in a full round below
+// kWideWords words, else one element at a time; element 0 alone in a partial
+// round) and the probe ablation's.  The bit loop stays
 // rolled, so the chain inlines one squaring and one multiply per element.
 // The words equal mont_pow's, which squares with mont_mul.
 template <int N, int L>
@@ -481,6 +527,7 @@ __device__ __forceinline__ void store_state(int32_t* __restrict__ out, uint32_t 
   }
 }
 
+
 // A full round: ARK, x^alpha on every element, dense MDS.
 template <int T, int L>
 __device__ __forceinline__ void full_round(uint32_t (&x)[T][L], const int32_t* __restrict__ ark_r,
@@ -491,7 +538,7 @@ __device__ __forceinline__ void full_round(uint32_t (&x)[T][L], const int32_t* _
     add_const(x[e], ark_r + e * L);
     mont_pow(x[e], alpha, m);
   }
-  mat_apply<T, L>(x, mds, m);
+  mds_apply<T, L>(x, mds, m);
 }
 
 static_assert(kLimbBits == 24, "the Python side assumes 24-bit limbs");

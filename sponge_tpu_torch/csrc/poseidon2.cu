@@ -52,7 +52,9 @@
 // What bounds it on the H100: integer multiply-add issue (the S-box
 // products).  Design: one thread per lane, state in registers for all
 // rounds, coalesced (t, L, B) loads and stores, the S-box in lockstep over
-// the elements (independent chains for the scheduler), one rolled loop over
+// the elements (independent chains for the scheduler; at a wide state,
+// mont.cuh kWideState: (4, 11) and (8, 11), one element at a time, which
+// keeps one copy of an element live rather than t), one rolled loop over
 // all rounds.  Each block first copies its constants to shared memory and
 // reads every constant there, the modulus included (kernel 1's finding:
 // PERF.md); the products by constants run fully unrolled from there.
@@ -134,7 +136,13 @@ __global__ void __launch_bounds__(kThreads)
         add_const<FromShared>(x[e], ext + (re * T + e) * L);
         fold_upto<kMaxFolds>(x[e], rho, pre);
       }
-      p2_sbox<T, L>(x, alpha, m, rho, sbox);
+      if constexpr (kWideState<T, L>) {  // one element at a time (mont.cuh kWideWords)
+#pragma unroll
+        for (int e = 0; e < T; ++e)
+          p2_sbox<1, L>(reinterpret_cast<uint32_t(&)[1][L]>(x[e]), alpha, m, rho, sbox);
+      } else {
+        p2_sbox<T, L>(x, alpha, m, rho, sbox);
+      }
       small_mat_apply<T, L, FromShared>(x, mat_e);
     } else {
       add_const<FromShared>(x[0], intc + (r - half) * L);
@@ -364,15 +372,18 @@ extern "C" int sponge_poseidon2(const int32_t* in, int32_t* out, long long B, in
                                 const int32_t* plan, unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 0) {
-    if (t == 3 && L == 11)
-      return sponge::launch_p2<3, 11>(in, out, B, full_rounds, partial_rounds, alpha, small_diag,
-                                      consts, words, plan, n0inv, s);
-    if (t == 8 && L == 2)
-      return sponge::launch_p2<8, 2>(in, out, B, full_rounds, partial_rounds, alpha, small_diag,
+#define PAIR(T_, L_)                                                                              \
+  if (t == T_ && L == L_)                                                                         \
+    return sponge::launch_p2<T_, L_>(in, out, B, full_rounds, partial_rounds, alpha, small_diag,    \
                                      consts, words, plan, n0inv, s);
-    if (t == 3 && L == 2)
-      return sponge::launch_p2<3, 2>(in, out, B, full_rounds, partial_rounds, alpha, small_diag,
-                                     consts, words, plan, n0inv, s);
+    PAIR(3, 11)
+    PAIR(4, 11)
+    PAIR(8, 11)
+    PAIR(8, 3)
+    PAIR(12, 3)
+    PAIR(8, 2)
+    PAIR(3, 2)
+#undef PAIR
     return -1;
   }
   if (L != 2) return -1;

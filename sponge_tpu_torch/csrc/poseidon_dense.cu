@@ -14,7 +14,10 @@
 // registers for all rounds (no shared memory, no synchronisation); loads and
 // stores are coalesced over the batch axis; round constants are warp-uniform
 // broadcasts from a small device buffer; limb loops are unrolled by
-// templating on (t, L), round loops are not, to bound code size.
+// templating on (t, L), round loops are not, to bound code size.  At a wide
+// state (mont.cuh kWideState: the ~255-bit fields at t >= 4) the MDS rows run
+// in a rolled loop (mds_apply: mat_apply_rows), so x, y and one row's
+// columns are live and one row's code is inlined; the words are the same.
 //
 // Constant buffer layout (int32, limb axis last; poseidon/config.py
 // constant_layout): p (L) | ark (R, t, L) | mds (t, t, L).
@@ -48,7 +51,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < T; ++e) add_const(x[e], ark_r + e * L);
       mont_pow(x[0], alpha, m);
-      mat_apply<T, L>(x, mds, m);
+      mds_apply<T, L>(x, mds, m);
     }
   }
   store_state<T, L>(out, x, B, b, m);
@@ -67,16 +70,28 @@ int launch_dense(const int32_t* in, int32_t* out, long long B, int alpha, int fu
 
 // Plain C entry point (ctypes): returns cudaGetLastError() after the launch,
 // or -1 when (t, L) has no instantiation.  Instantiations must match
-// INSTANTIATIONS in sponge_tpu_torch/ops/_build.py.
+// INSTANTIATIONS in sponge_tpu_torch/ops/_build.py: every width of the
+// default Poseidon tables (poseidon/params.py), the ~255-bit fields at rates
+// 2-8 (t = 3..9, L = 11), Goldilocks at t = 8 and 12 (L = 3), the 31-bit
+// fields at t = 16 (L = 2), and the 35-bit test field (3, 2).
 extern "C" int sponge_poseidon_dense(const int32_t* in, int32_t* out, long long B, int t, int L,
                                      int alpha, int full_rounds, int partial_rounds,
                                      const int32_t* consts, unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t == 3 && L == 11)
-    return sponge::launch_dense<3, 11>(in, out, B, alpha, full_rounds, partial_rounds, consts,
-                                       n0inv, s);
-  if (t == 3 && L == 2)
-    return sponge::launch_dense<3, 2>(in, out, B, alpha, full_rounds, partial_rounds, consts,
-                                      n0inv, s);
+#define PAIR(T_, L_)                                                                              \
+  if (t == T_ && L == L_)                                                                         \
+    return sponge::launch_dense<T_, L_>(in, out, B, alpha, full_rounds, partial_rounds, consts, n0inv, s);
+  PAIR(3, 11)
+  PAIR(4, 11)
+  PAIR(5, 11)
+  PAIR(6, 11)
+  PAIR(7, 11)
+  PAIR(8, 11)
+  PAIR(9, 11)
+  PAIR(8, 3)
+  PAIR(12, 3)
+  PAIR(16, 2)
+  PAIR(3, 2)
+#undef PAIR
   return -1;
 }

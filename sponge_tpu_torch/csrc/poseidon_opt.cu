@@ -36,6 +36,18 @@
 // and S-boxes, or the whole partial phase), so the MDS and D share one
 // inlined mat_apply and the full rounds one S-box chain.
 //
+// The wide states (mont.cuh kWideState: the ~255-bit fields at t = 4..9, 44
+// to 99 words a lane) do not fit that lockstep schedule's live set in a
+// thread's 255 registers: pow_sqr copies all t elements, mat_apply holds y
+// beside x, sparse_linear holds t sets of 64-bit columns (198 registers at
+// (9, 11) before x).  There the S-boxes run one element at a time
+// (pow_sqr1), the MDS and D rows in a rolled loop (mds_apply) and the
+// sparse round one element at a time (sparse_linear_wide): the same products
+// and carries in another order, so the words, and ops/bounds.py's replay,
+// stay the same.  Their launch bound asks for no blocks per SM (t = 3 keeps
+// 4); at (9, 11) with alpha = 5 the staged constants take 97 KB of shared
+// memory, so two blocks fit on an SM.
+//
 // Constant buffer layout (int32, limb axis last; poseidon/config.py
 // constant_layout): p (L) | ark (R, t, L) | mds (t, t, L) |
 // chat (R_P-1, t, L) | row0 (R_P-1, t, L) | col0 (R_P-1, t-1, L) | D (t, t, L).
@@ -82,14 +94,50 @@ __device__ __forceinline__ void sparse_linear(uint32_t (&x)[T][L], const int32_t
   for (int e = 0; e < T; ++e) carry_out(x[e], acc[e]);
 }
 
+// sparse_linear at a wide state (mont.cuh kWideState): the row0 dot into
+// its own element (mont_row: the same columns and REDC steps as
+// sparse_linear's acc[0]), then x_i = x_i + col_i * x0 one element at a
+// time from the old x0, x_i added to the columns after the last REDC step
+// as there; x0 takes the dot last.  One element's columns are live, not t.
+template <int T, int L>
+__device__ __forceinline__ void sparse_linear_wide(uint32_t (&x)[T][L], const int32_t* __restrict__ row,
+                                                   const int32_t* __restrict__ col, const Modulus<L>& m) {
+  uint32_t x0[L];
+  mont_row<T, L, FromShared>(x0, x, row, m);
+#pragma unroll
+  for (int e = 1; e < T; ++e) {
+    uint64_t acc[L];
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[k] = 0;
+#pragma unroll
+    for (int i = 0; i < L; ++i) {
+      const uint32_t c = FromShared::load(col + (e - 1) * L + i);
+#pragma unroll
+      for (int k = 0; k < L; ++k) acc[k] += static_cast<uint64_t>(x[0][k]) * c;
+      redc_step(acc, m);
+    }
+#pragma unroll
+    for (int k = 0; k < L; ++k) acc[k] += x[e][k];
+    carry_out(x[e], acc);
+  }
+#pragma unroll
+  for (int k = 0; k < L; ++k) x[0][k] = x0[k];
+}
+
 template <int T, int L>
 __device__ __forceinline__ void add_round_constants(uint32_t (&x)[T][L], const int32_t* __restrict__ c) {
 #pragma unroll
   for (int e = 0; e < T; ++e) add_const<FromShared>(x[e], c + e * L);
 }
 
+// Blocks per SM the launch bound asks for: 4 at t = 3, where the main path
+// (3, 11) was tuned to 128 registers; none at the wider states, whose state
+// alone takes 24 to 99 registers.
+template <int T>
+constexpr int kOptMinBlocks = T == 3 ? 4 : 1;
+
 template <int T, int L>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, kOptMinBlocks<T>)
     poseidon_opt_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
                         uint32_t alpha, int full_rounds, int partial_rounds,
                         const int32_t* __restrict__ consts, int words, uint32_t n0inv) {
@@ -117,11 +165,16 @@ __global__ void __launch_bounds__(kThreads, 4)
   // R_F + 1 is the last full round's MDS alone.
 #pragma unroll 1
   for (int s = 0;; ++s) {
-    if (s > 0) mat_apply<T, L, FromShared>(x, s == half + 1 ? dense : mds, m);
+    if (s > 0) mds_apply<T, L, FromShared>(x, s == half + 1 ? dense : mds, m);
     if (s > full_rounds) break;
     if (s != half) {
       add_round_constants<T, L>(x, ark + (s < half ? s : s + partial_rounds - 1) * T * L);
-      pow_sqr<T, L>(x, alpha, m);
+      if constexpr (kWideState<T, L>) {
+#pragma unroll
+        for (int e = 0; e < T; ++e) pow_sqr1<L>(x[e], alpha, m);
+      } else {
+        pow_sqr<T, L>(x, alpha, m);
+      }
       continue;
     }
     // The first partial round: ARK and the element-0 S-box (its MDS is
@@ -133,7 +186,10 @@ __global__ void __launch_bounds__(kThreads, 4)
       pow_sqr1<L>(x[0], alpha, m);
       if (r == sparse_rounds) break;
       add_round_constants<T, L>(x, chat + r * T * L);
-      sparse_linear<T, L>(x, row0 + r * T * L, col0 + r * (T - 1) * L, m);
+      if constexpr (kWideState<T, L>)
+        sparse_linear_wide<T, L>(x, row0 + r * T * L, col0 + r * (T - 1) * L, m);
+      else
+        sparse_linear<T, L>(x, row0 + r * T * L, col0 + r * (T - 1) * L, m);
     }
   }
   store_state<T, L>(out, x, B, b, m);
@@ -154,17 +210,27 @@ int launch_opt(const int32_t* in, int32_t* out, long long B, int alpha, int full
 
 }  // namespace sponge
 
-// Plain C entry point (ctypes), same contract as sponge_poseidon_dense.
+// Plain C entry point (ctypes), same contract as sponge_poseidon_dense; the
+// same (t, L) pairs.
 extern "C" int sponge_poseidon_opt(const int32_t* in, int32_t* out, long long B, int t, int L,
                                    int alpha, int full_rounds, int partial_rounds,
                                    const int32_t* consts, unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (partial_rounds < 2) return -1;
-  if (t == 3 && L == 11)
-    return sponge::launch_opt<3, 11>(in, out, B, alpha, full_rounds, partial_rounds, consts,
-                                     n0inv, s);
-  if (t == 3 && L == 2)
-    return sponge::launch_opt<3, 2>(in, out, B, alpha, full_rounds, partial_rounds, consts,
-                                    n0inv, s);
+#define PAIR(T_, L_)                                                                              \
+  if (t == T_ && L == L_)                                                                         \
+    return sponge::launch_opt<T_, L_>(in, out, B, alpha, full_rounds, partial_rounds, consts, n0inv, s);
+  PAIR(3, 11)
+  PAIR(4, 11)
+  PAIR(5, 11)
+  PAIR(6, 11)
+  PAIR(7, 11)
+  PAIR(8, 11)
+  PAIR(9, 11)
+  PAIR(8, 3)
+  PAIR(12, 3)
+  PAIR(16, 2)
+  PAIR(3, 2)
+#undef PAIR
   return -1;
 }

@@ -40,19 +40,23 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# (t, L) pairs compiled into each kernel: rate 2 over the 255/254-bit fields
-# (3, 11); the 31-bit fields at capacity 8, rate 8 (16, 2); the 35-bit and
-# 25-bit test fields (3, 2); the 44-bit low-headroom test field at t = 8;
-# Goldilocks at capacity 4, rate 4 (8, 3); Anemoi at rates 3 and 1 over the
-# 255/254-bit fields (4, 11), (2, 11) and rate 3 over the 25-bit field (4, 2);
-# Monolith at Goldilocks rates 8 and 4 (12, 3), (8, 3), at the 31-bit fields
-# rate 8 (16, 2) and the dense capacity-2 test configs (4, 2).  The chain
-# probe's (t, L) are (chains per thread, 32-bit words per chain value); the
-# ablation probe runs kernel 1's BLS12-381 schedule.
+# (t, L) pairs compiled into each kernel.  Kernels 1 and 2 (POSEIDON_PAIRS)
+# and kernel 3 (ops/poseidon2.py BODIES) cover every width of their default
+# tables (poseidon/params.py, poseidon2/params.py): the 255/254-bit fields
+# at rates 2-8 (t = 3..9, L = 11; Poseidon2 rates 2, 3 and 7), Goldilocks at
+# rates 4 and 8 (8, 3), (12, 3), the 31-bit fields at capacity 8, rate 8
+# (16, 2); besides them the 35-bit and 25-bit test fields (3, 2) and the
+# 44-bit low-headroom test field at t = 8.  Anemoi at rates 3 and 1 over the
+# 255/254-bit fields (4, 11), (2, 11) and rate 3 over the 25-bit field
+# (4, 2); Monolith at Goldilocks rates 8 and 4 (12, 3), (8, 3), at the
+# 31-bit fields rate 8 (16, 2) and the dense capacity-2 test configs (4, 2).
+# The chain probe's (t, L) are (chains per thread, 32-bit words per chain
+# value); the ablation probe runs kernel 1's BLS12-381 schedule.
+POSEIDON_PAIRS = frozenset({(t, 11) for t in range(3, 10)} | {(8, 3), (12, 3), (16, 2), (3, 2)})
 INSTANTIATIONS = {
-    "sponge_poseidon_opt": frozenset({(3, 11), (3, 2)}),
-    "sponge_poseidon_dense": frozenset({(3, 11), (3, 2)}),
-    "sponge_poseidon2": frozenset({(3, 11), (16, 2), (8, 2), (3, 2)}),
+    "sponge_poseidon_opt": POSEIDON_PAIRS,
+    "sponge_poseidon_dense": POSEIDON_PAIRS,
+    "sponge_poseidon2": frozenset({(3, 11), (4, 11), (8, 11), (8, 3), (12, 3), (16, 2), (8, 2), (3, 2)}),
     "sponge_rescue": frozenset({(3, 11), (16, 2), (3, 2)}),
     "sponge_gmimc": frozenset({(3, 11), (8, 3), (3, 2)}),
     "sponge_griffin": frozenset({(3, 11), (8, 3), (3, 2)}),
@@ -159,19 +163,23 @@ def library_path() -> pathlib.Path:
 
 
 def _run(cmd):
+    """Run one nvcc command; its output headed by the seconds it took."""
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
-    return proc.stdout + proc.stderr
+    what = pathlib.Path(cmd[-1]).name if cmd[-1].endswith(".cu") else "link"
+    return f"# {what}: {time.perf_counter() - t0:.1f} s\n" + proc.stdout + proc.stderr
 
 
 def build() -> pathlib.Path:
     """Compile the kernels unless a library of the current sources exists:
     each ``.cu`` to an object (in parallel), then one shared library.  Raises
     with nvcc's output on failure.  The ptxas report (registers and spills per
-    kernel) is kept beside the library as ``<name>.ptxas.txt``."""
+    kernel, each command's seconds) is kept beside the library as
+    ``<name>.ptxas.txt``."""
     out = library_path()
     if out.exists():
         return out
@@ -193,7 +201,7 @@ def build() -> pathlib.Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     out.with_suffix(".ptxas.txt").write_text(
-        f"# {' '.join(NVCC_FLAGS)}\n# {time.perf_counter() - t0:.1f} s\n" + "".join(logs)
+        f"# {' '.join(NVCC_FLAGS)}\n# all: {time.perf_counter() - t0:.1f} s\n" + "".join(logs)
     )
     os.replace(tmp, out)
     return out

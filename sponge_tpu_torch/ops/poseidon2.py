@@ -31,7 +31,10 @@ from .bounds import check_p2_bounds
 
 # (t, L) each body is compiled for (csrc/poseidon2.cu sponge_poseidon2); the
 # union is _build.INSTANTIATIONS["sponge_poseidon2"].
-BODIES = {"limb": frozenset({(3, 11), (8, 2), (3, 2)}), "word": frozenset({(16, 2), (8, 2), (3, 2)})}
+BODIES = {
+    "limb": frozenset({(3, 11), (4, 11), (8, 11), (8, 3), (12, 3), (8, 2), (3, 2)}),
+    "word": frozenset({(16, 2), (8, 2), (3, 2)}),
+}
 
 
 def _small_mat(rows, device) -> torch.Tensor:

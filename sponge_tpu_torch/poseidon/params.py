@@ -12,6 +12,8 @@ import functools
 import json
 import pathlib
 
+import numpy as np
+
 from ..fields import BLS12_381_FR, FieldSpec
 from .config import PoseidonConfig
 
@@ -22,10 +24,13 @@ class PoseidonGrainLFSR:
     Seed: b0-b1 field type, b2-b5 S-box kind, b6-17 prime bits, b18-29 state
     width t, b30-39 R_F, b40-49 R_P, b50-79 ones; taps {62, 51, 38, 23, 13, 0};
     160 warm-up clocks; the output filter drops bit pairs whose first bit is 0
-    and emits the second bit otherwise.
+    and emits the second bit otherwise.  The register is clocked 18 bits at a
+    time (the nearest tap is 80 - 62 = 18 clocks ahead, so one window fixes
+    the next 18 bits), and the filter runs over arrays of clocked bits.
     """
 
-    _TAP_MASK = (1 << 62) | (1 << 51) | (1 << 38) | (1 << 23) | (1 << 13) | 1
+    _TAPS = (0, 13, 23, 38, 51, 62)
+    _CHUNK = 80 - 62
 
     def __init__(
         self,
@@ -54,31 +59,40 @@ class PoseidonGrainLFSR:
         # Writing at the head and advancing it is "shift right, insert the new
         # bit at offset 79" on this packed window.
         self.window = sum(1 << i for i, b in enumerate(bits) if b)
-        for _ in range(160):
-            self._update()
+        self._raw = self._clock(160)[160:]  # clocked bits not yet filtered, from a pair boundary
 
-    def _update(self) -> int:
-        w = self.window
-        new_bit = (w & self._TAP_MASK).bit_count() & 1
-        self.window = (w >> 1) | (new_bit << 79)
-        return new_bit
+    def _clock(self, n: int) -> np.ndarray:
+        """At least ``n`` next clocked bits (whole chunks of 18), in order:
+        bit j of a chunk is the XOR of the window's bits j + tap, and the
+        window then shifts by 18 with the chunk at its top (offsets 62-79)."""
+        w, mask, chunks = self.window, (1 << self._CHUNK) - 1, []
+        for _ in range(-(-n // self._CHUNK)):
+            c = (w ^ (w >> 13) ^ (w >> 23) ^ (w >> 38) ^ (w >> 51) ^ (w >> 62)) & mask
+            w = (w >> self._CHUNK) | (c << (80 - self._CHUNK))
+            chunks.append(c)
+        self.window = w
+        shifts = np.arange(self._CHUNK, dtype=np.uint32)
+        return ((np.array(chunks, dtype=np.uint32)[:, None] >> shifts) & 1).astype(np.uint8).ravel()
+
+    def _bits(self, num_bits: int) -> np.ndarray:
+        """The next ``num_bits`` output bits (uint8 array)."""
+        raw = self._raw
+        while True:
+            pairs = raw[: len(raw) // 2 * 2].reshape(-1, 2)
+            kept = np.flatnonzero(pairs[:, 0])
+            if len(kept) >= num_bits:
+                break
+            raw = np.concatenate([raw, self._clock(4 * (num_bits - len(kept)) + 64)])
+        self._raw = raw[2 * (int(kept[num_bits - 1]) + 1) if num_bits else 0 :]
+        return pairs[kept[:num_bits], 1]
 
     def get_bits(self, num_bits: int) -> list:
-        res = []
-        update = self._update
-        for _ in range(num_bits):
-            new_bit = update()
-            while not new_bit:
-                update()  # drop the second bit of the pair
-                new_bit = update()
-            res.append(update())
-        return res
+        return self._bits(num_bits).tolist()
 
     def _next_int_msb(self) -> int:
-        acc = 0
-        for bit in self.get_bits(self.prime_num_bits):
-            acc = (acc << 1) | int(bit)
-        return acc
+        bits = self._bits(self.prime_num_bits)
+        pad = np.zeros(-len(bits) % 8, dtype=np.uint8)
+        return int.from_bytes(np.packbits(np.concatenate([pad, bits])).tobytes(), "big")
 
     def get_field_elements_rejection_sampling(self, fs: FieldSpec, num_elems: int):
         """One rejection-sampled element below p per draw."""

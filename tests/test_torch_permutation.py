@@ -10,6 +10,8 @@ themselves run only on the card (``chip_smoke.py``); here the dispatch
 rules and the static value-bound check are tested.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -187,18 +189,33 @@ def test_kernel_backends_refuse_cpu_tensors():
     with pytest.raises(NotImplementedError):
         st.batched_permute(tiny_poseidon_config(), state)  # a JAX config
     with pytest.raises(NotImplementedError):
-        _build.check_instantiated("sponge_poseidon_opt", 5, 11)
+        _build.check_instantiated("sponge_poseidon_opt", 10, 11)
     for symbol in ("sponge_poseidon_opt", "sponge_poseidon_dense"):
         for t, L in _build.INSTANTIATIONS[symbol]:
             _build.check_instantiated(symbol, t, L)
 
 
+DEFAULT_FIELDS = (st.BLS12_381_FR, st.BN254_FR, st.BLS12_377_FR, st.GOLDILOCKS_FR, st.BABYBEAR_FR,
+                  st.KOALABEAR_FR, st.MERSENNE31_FR)
+
+
+def default_poseidon_configs():
+    """{label: config}: every default Poseidon parameter set, both tables
+    (constraints, weights) over the seven fields at the rates each has."""
+    out = {}
+    for fs in DEFAULT_FIELDS:
+        for rate in range(1, 9):
+            for weights in (False, True):
+                try:
+                    out[f"{fs.name}-r{rate}-{'weights' if weights else 'constraints'}"] = (
+                        st.get_default_poseidon_parameters(fs, rate, weights))
+                except ValueError:
+                    pass
+    return out
+
+
 def _kernel_configs():
-    out = {
-        f"{fs.name}-r2": st.get_default_poseidon_parameters(fs, 2)
-        for fs in (st.BLS12_381_FR, st.BN254_FR, st.BLS12_377_FR)
-    }
-    out["bls-weights"] = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2, True)
+    out = default_poseidon_configs()
     out["fixture"] = st.poseidon_test_fixture()
     for name, kw in TINY.items():
         out[f"tiny-{name}"] = interop.config_from_jax(tiny_poseidon_config(**kw))
@@ -237,6 +254,9 @@ def test_value_bounds_refuse_overflowing_config():
 # ---- word-by-word emulation of csrc/poseidon_opt.cu ----
 
 
+WIDE_WORDS = 40  # csrc/mont.cuh kWideWords
+
+
 class Kernel1(Words):
     """``csrc/poseidon_opt.cu`` for one lane: the stage loop (the linear
     layer of the stage before: D after the partial phase, the MDS after a
@@ -244,12 +264,17 @@ class Kernel1(Words):
     t elements in lockstep, or the partial phase), each sparse round's
     ``sparse_linear`` (the row0 dot and both col0 products accumulated side
     by side, each REDC step in turn, x_i added into its product's columns
-    before the carry), then ``store``.  ``vmax`` is the largest value any
-    element reached."""
+    before the carry), then ``store``.  A state of more than ``WIDE_WORDS``
+    words takes the wide schedule: the S-boxes one element at a time, the
+    MDS rows one at a time (``mat_apply_rows``) and ``sparse_linear_wide``
+    (the row0 dot, then each x_i + col0_i * x0 from the old x0), the same
+    products in another order.  ``vmax`` is the largest value any element
+    reached."""
 
     def __init__(self, cfg):
         super().__init__(cfg.field)
         self.cfg, self.vmax = cfg, 0
+        self.wide = cfg.t * self.L > WIDE_WORDS
         buf, off, self.c = [int(v) for v in kernel_constants(cfg)], 0, {}
         L = self.L
         for name, shape in constant_layout(cfg):
@@ -281,7 +306,20 @@ class Kernel1(Words):
     def mat_apply(self, xs, mat):
         return self._see([self.mont_row(xs, row) for row in mat])
 
+    def sparse_linear_wide(self, xs, row, col):
+        out = [self.mont_row(xs, row)]
+        for e in range(1, self.cfg.t):
+            acc = [0] * self.L
+            for i in range(self.L):
+                acc = self.redc_step([(a + w * col[e - 1][i]) & _M64 for a, w in zip(acc, xs[0])])
+            acc = [a + w for a, w in zip(acc, xs[e])]
+            self.colmax = max(self.colmax, *acc)
+            out.append(self.carry_out(acc))
+        return self._see(out)
+
     def sparse_linear(self, xs, row, col):
+        if self.wide:
+            return self.sparse_linear_wide(xs, row, col)
         L, t = self.L, self.cfg.t
         acc = [[0] * L for _ in range(t)]
         for i in range(L):
@@ -315,13 +353,16 @@ class Kernel1(Words):
         return [self.store(v) for v in x]
 
 
-def _bls_cut():
-    """BLS12-381 Fr rate 2 with its own constants, rounds cut to R_F = 4,
-    R_P = 6 (every stage of the kernel: two full rounds each side, the first
+def cut_rounds(cfg, full_rounds=4, partial_rounds=6):
+    """``cfg`` with its own constants, rounds cut to R_F = 4, R_P = 6 by
+    default (every stage of kernel 1: two full rounds each side, the first
     partial round, five sparse rounds, D)."""
-    bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
-    return PoseidonConfig(field=bls.field, full_rounds=4, partial_rounds=6, alpha=bls.alpha,
-                          ark=bls.ark[:10], mds=bls.mds, rate=2)
+    return dataclasses.replace(cfg, full_rounds=full_rounds, partial_rounds=partial_rounds,
+                               ark=cfg.ark[: full_rounds + partial_rounds])
+
+
+def _bls_cut():
+    return cut_rounds(st.get_default_poseidon_parameters(st.BLS12_381_FR, 2))
 
 
 KERNEL1 = {
@@ -330,6 +371,10 @@ KERNEL1 = {
     "bls12_381-cut": _bls_cut,
     "bls12_381-r2": lambda: st.get_default_poseidon_parameters(st.BLS12_381_FR, 2),
     "bn254-r2": lambda: st.get_default_poseidon_parameters(st.BN254_FR, 2),
+    # the wide schedule at (9, 11); the small fields' widths at full rounds
+    "bls12_381-r8-cut": lambda: cut_rounds(st.get_default_poseidon_parameters(st.BLS12_381_FR, 8)),
+    "goldilocks-r8": lambda: st.get_default_poseidon_parameters(st.GOLDILOCKS_FR, 8),
+    "babybear-r8": lambda: st.get_default_poseidon_parameters(st.BABYBEAR_FR, 8),
 }
 
 
