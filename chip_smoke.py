@@ -54,7 +54,15 @@ configs through kernels 1 and 2 and the 14 Poseidon2 ones through kernel 3
 at 2^14 lanes against the plain versions, the oracle and the host runtime,
 one config per (t, L) beyond rate 2 timed at B = 2^20 beside its bound
 with its census line, lazy and eager sponges at BLS12-381 t = 9 and
-Goldilocks t = 12 and a Goldilocks transcript at 2^16 lanes), and times
+Goldilocks t = 12 and a Goldilocks transcript at 2^16 lanes; every default
+Rescue-Prime, GMiMC, Griffin and Anemoi width: each of the 115 default
+configs through kernels 5, 8, 6 and 7 at 2^12 lanes against the host
+runtime on every lane and the oracle on 16, the first config of each of
+the 44 (t, L) pairs compiled since the wide schedules == plain, each new
+pair at L = 11 and 3 timed at B = 2^20 beside its bound with its census
+line, a lazy Rescue-Prime and an eager GMiMC sponge at BLS12-381 t = 9 (the
+front reduction), a Griffin Goldilocks t = 12 Merkle root and an Anemoi
+BLS12-381 t = 8 transcript at 2^16 lanes), and times
 each kernel beside its plain version with CUDA
 events (kernel 5 at BLS12-381 also with its inverse S-box at windows 3 and
 4, in turns; kernel 8's limb body beside its two-word body at Goldilocks,
@@ -72,7 +80,8 @@ of the kernels and the card's name and power limit; the last line is
 prints no result.  ``--only NAME[,NAME]`` (names of its kernel table) runs
 the build, the window and census lines and the named kernels' checks and
 timings alone (with any of kernels 1, 2 and 3 named, the widths path
-too), to compare two trees in one call.  It imports nothing of JAX or
+too; with any of kernels 5-8, the family widths path), to compare two trees
+in one call.  It imports nothing of JAX or
 sponge_tpu.
 """
 
@@ -89,6 +98,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -144,11 +154,15 @@ def tiny_config(st):
 
 def random_plane(fs, shape, rng, device):
     """Canonical Montgomery plane of shape (..., L, B): random 24-bit limbs,
-    the top limb below p's, so every value is below p."""
-    limbs = rng.integers(0, 1 << 24, size=shape, dtype=np.int64)
+    the top limb below p's, so every value is below p.  Drawn on ``device``
+    by a generator seeded from ``rng`` (a 2^20-lane plane at t = 9 took
+    about 1.6 s through numpy on the host)."""
+    gen = torch.Generator(device=device).manual_seed(int(rng.integers(0, 1 << 62)))
+    limbs = torch.randint(0, 1 << 24, shape, generator=gen, device=device, dtype=torch.int32)
     top = fs.modulus >> (24 * (fs.nlimbs - 1))
-    limbs[..., -1, :] = rng.integers(0, top, size=limbs[..., -1, :].shape)
-    return torch.from_numpy(limbs.astype(np.int32)).to(device)
+    limbs[..., -1, :] = torch.randint(0, top, limbs[..., -1, :].shape, generator=gen, device=device,
+                                      dtype=torch.int32)
+    return limbs
 
 
 def with_edges(fs, plane):
@@ -513,11 +527,11 @@ def window_phase(cfgs, report):
     line gives the body, the registers, spills and blocks per SM with its
     staged constants."""
     import sponge_tpu_torch as st
-    from sponge_tpu_torch.anemoi.config import window
+    from sponge_tpu_torch.anemoi.config import pairwise, window
     from sponge_tpu_torch.griffin.config import window as griffin_window
     from sponge_tpu_torch.ops import _build
     from sponge_tpu_torch.ops.bounds import check_p2_bounds
-    from sponge_tpu_torch.ops.montgomery import blocks_per_sm, window_for, window_table_bytes
+    from sponge_tpu_torch.ops.montgomery import blocks_per_sm, wide_state, window_for, window_table_bytes
     from sponge_tpu_torch.rescue.config import windows
 
     entries = ptxas_entries(report)
@@ -536,14 +550,14 @@ def window_phase(cfgs, report):
                 f"({check_p2_bounds(cfg).body} body); ptxas {regs} registers, spills {spill_st} B stored, "
                 f"{spill_ld} B loaded; {shared:,} B of staged constants, {blocks_per_sm(regs, shared)} blocks per SM")
             continue
-        if isinstance(cfg, st.RescueConfig):
-            symbol, kernel, chains = "sponge_rescue", "rescue_kernel", t
+        if isinstance(cfg, st.RescueConfig):  # one chain at a wide state
+            symbol, kernel, chains = "sponge_rescue", "rescue_kernel", 1 if wide_state(t, L) else t
             exps, shipped = (cfg.alpha, cfg.inv_alpha), windows(cfg)
         elif isinstance(cfg, st.GriffinConfig):
             symbol, kernel, chains = "sponge_griffin", "griffin_kernel", 1
             exps, shipped = (cfg.inv_alpha,), (griffin_window(cfg),)
-        else:
-            symbol, kernel, chains = "sponge_anemoi", "anemoi_kernel", t // 2
+        else:  # one chain where the Flystel runs one pair at a time
+            symbol, kernel, chains = "sponge_anemoi", "anemoi_kernel", 1 if pairwise(cfg) else t // 2
             exps, shipped = (cfg.inv_alpha,), (window(cfg),)
         regs, spill_st, spill_ld = compiled(kernel, (t, L))
         got = tuple(window_for(e, L, chains, regs) for e in exps)
@@ -590,7 +604,9 @@ CENSUS_KERNELS = (
     ("kernel 3, one-word body", "poseidon2_word_kernel"),
     ("kernel 4, generic body", "monolith_kernel"),
     ("kernel 4, Mersenne body", "monolith_mersenne_kernel"),
+    ("kernel 5", "rescue_kernel"),
     ("kernel 6", "griffin_kernel"),
+    ("kernel 7", "anemoi_kernel"),
     ("kernel 8, limb body", "gmimc_kernel"),
     ("kernel 8, two-word body", "gmimc_word_kernel"),
 )
@@ -599,9 +615,12 @@ CENSUS_KERNELS = (
 def census_instance(name, cfg, body=None):
     """(kernel name, template arguments, bytes of shared memory per block)
     of the instantiation that runs ``cfg`` (kernel 8: with ``body``, that
-    body's): kernels 1, 3, 4, 6 and 8 stage their constants in shared memory
+    body's, the limb body's with or without its front reduction as the
+    replay asks): kernels 1, 3, 4, 6 and 8 stage their constants in shared memory
     (kernels 3 and 8: the limb body its limb sections, the one- or two-word
-    body its word section), kernel 6 its window table after them."""
+    body its word section), kernel 6 its window table after them; kernels 5
+    and 7 hold only their window tables there (one chain at a wide state,
+    kernel 7 from three pairs on)."""
     from sponge_tpu_torch.griffin.config import constant_layout as griffin_layout
     from sponge_tpu_torch.griffin.config import window as griffin_window
     from sponge_tpu_torch.monolith.config import constant_layout as monolith_layout
@@ -631,6 +650,15 @@ def census_instance(name, cfg, body=None):
     if name == "griffin_permute":
         table = window_table_bytes(1, L, griffin_window(cfg))
         return "griffin_kernel", (t, L), 4 * layout_size(griffin_layout(cfg)) + table
+    if name == "rescue_permute":
+        from sponge_tpu_torch.ops.montgomery import wide_state
+        from sponge_tpu_torch.rescue.config import windows
+
+        return "rescue_kernel", (t, L), window_table_bytes(1 if wide_state(t, L) else t, L, max(windows(cfg)))
+    if name == "anemoi_permute":
+        from sponge_tpu_torch.anemoi.config import pairwise, window
+
+        return "anemoi_kernel", (t, L), window_table_bytes(1 if pairwise(cfg) else cfg.l, L, window(cfg))
     if name == "gmimc_permute":
         from sponge_tpu_torch.gmimc import config as gmimc_config
 
@@ -640,7 +668,9 @@ def census_instance(name, cfg, body=None):
         limb_words = layout_size(layout[: gmimc_config.LIMB_SECTIONS])
         if (body or gmimc_body(cfg)) == "word":
             return "gmimc_word_kernel", (t,), 4 * (layout_size(layout) - limb_words)
-        return "gmimc_kernel", (t, L), 4 * limb_words
+        from sponge_tpu_torch.ops.bounds import check_gmimc_bounds
+
+        return "gmimc_kernel", (t, L, int(check_gmimc_bounds(cfg).reduce)), 4 * limb_words
     raise ValueError(name)
 
 
@@ -726,7 +756,7 @@ def gmimc_body_comparison(cfg, state, path_out, gpu, rates):
     check_gmimc_bounds(cfg)
     consts = torch.from_numpy(kernel_constants(cfg)).to(state.device)
     limb_words = layout_size(constant_layout(cfg)[:LIMB_SECTIONS])
-    args = {"limb": (0, cfg.rounds, cfg.alpha, consts.data_ptr(), limb_words, cfg.field.n0inv),
+    args = {"limb": (0, cfg.rounds, cfg.alpha, 0, consts.data_ptr(), limb_words, cfg.field.n0inv),
             "word": _launch_args(cfg, consts)}
     check(args["word"][0] == 1, "gmimc_permute at Goldilocks: the wrapper does not take the two-word body")
     best = {}
@@ -1008,7 +1038,8 @@ def main(argv):
     mo_kb4 = st.generate_monolith_parameters(st.KOALABEAR_FR, 2, 2, 6, 2)
     mo_m314 = st.generate_monolith_parameters(st.MERSENNE31_FR, 2, 2, 6, 2)
     window_phase([r_bls, r_bb, r_25, g_bls, g_gl, g_25, a_bls, a_bls1, a_gl, a_25, p2_bls, p2_bb, p2_bb_dense,
-                  p2_25, p2_25_dense, p2_25_t3, p2_tiny, p2_low], _build.ptxas_report())
+                  p2_25, p2_25_dense, p2_25_t3, p2_tiny, p2_low]
+                 + [cfg for name, _, cfg in family_configs(st) if name != "gmimc_permute"], _build.ptxas_report())
     census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("monolith_permute", mo_gl),
                                          ("monolith_permute", mo_m31), ("poseidon2_permute", p2_bls),
                                          ("poseidon2_permute", p2_bb), ("poseidon2_permute", p2_kb),
@@ -1162,9 +1193,9 @@ def main(argv):
         consts = k["perm"](cfg, dev).consts
         small = big[..., lanes]
         ms, _ = time_ms(lambda: k["wrapper"](cfg, consts, big))
-        # a launch-bound plain ladder: one warm call and one timed
-        reps = 1 if id(cfg) in ladder_plain else 3
-        plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small), reps)
+        # the plain version: one run, no warm-up (a ladder family's plain
+        # version is some 10^5 launches, 7-17 s on the card's host)
+        plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small), reps=1, warm=False)
         n = small.shape[-1]
         if path_out is not None:
             check(
@@ -1199,7 +1230,8 @@ def main(argv):
                                  ("poseidon2_permute", p2_bls, every), ("poseidon2_permute", p2_bb, every),
                                  ("poseidon2_permute", p2_kb, every), ("poseidon2_permute", p2_bb_dense, every),
                                  ("griffin_permute", g_bls, ends), ("griffin_permute", g_gl, every),
-                                 ("gmimc_permute", m_bls, every), ("gmimc_permute", m_gl, every)):
+                                 ("gmimc_permute", m_bls, every), ("gmimc_permute", m_gl, every),
+                                 ("rescue_permute", r_bls, ends), ("anemoi_permute", a_bls, ends)):
             if name in only:
                 k = kernels[name]
                 big = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
@@ -1210,6 +1242,9 @@ def main(argv):
         if only & {"poseidon_permute_opt", "poseidon_permute_dense", "poseidon2_permute"}:
             elapsed("the widths")
             widths_phase(st, dev, rng, gpu, kernels, rates, _build.ptxas_report())
+        if only & set(FAMILY_KERNELS):
+            elapsed("the family widths")
+            family_widths_phase(st, dev, rng, gpu, kernels, rates, _build.ptxas_report())
         elapsed("the end")
         return 0
 
@@ -1476,6 +1511,12 @@ def main(argv):
     for name in WIDTH_PATH_KERNELS:
         launches[name] += launches7[name]
 
+    elapsed("the family widths")
+    # ---- 13. every default Rescue-Prime, GMiMC, Griffin and Anemoi width (kernels 5-8), launches counted ----
+    launches8 = family_widths_phase(st, dev, rng, gpu, kernels, rates, _build.ptxas_report())
+    for name in FAMILY_KERNELS:
+        launches[name] += launches8[name]
+
     elapsed("the summary")
     for name, entry in probe_entries.items():
         kernels[name] = entry
@@ -1544,8 +1585,9 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     """Kernels 1, 2 and 3 at every default Poseidon and Poseidon2 width.
     Each default config (52 Poseidon, kernels 1 and 2; 14 Poseidon2, kernel
     3) on B_WIDTH lanes with 0, 1, p-1, p-2 in every element position and
-    the near-bound lanes of all p-1 and all p-2: each kernel torch.equal to
-    its plain version, kernel 1 to kernel 2, 16 lanes to the oracle and
+    the near-bound lanes of all p-1 and all p-2: kernels 1 and 3 torch.equal
+    to their plain versions, kernel 2 to kernel 1 (and to its own plain
+    version on the first config of each (t, L)), 16 lanes to the oracle and
     B_WIDTH_HOST lanes to ``host_permute_states``.  Then per (t, L) pair
     beyond rate 2 over the ~255-bit fields (``POSEIDON_WIDE_PAIRS``,
     ``P2_WIDE_PAIRS``), the first config of that width (the constraints
@@ -1583,6 +1625,9 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
             out_k = k["wrapper"](cfg, consts, state)
             torch.cuda.synchronize()
             check(k["wrapper"].launches == before + 1, f"{name}: the kernel was not launched at {label}")
+            outs.append(out_k)
+            if name == "poseidon_permute_dense" and (name, t, L) in plain_ms:
+                continue  # kernel 2 == kernel 1 == plain below; its plain ran once at this (t, L)
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             e0.record()
             out_p = k["plain"](cfg, consts, state)
@@ -1592,7 +1637,6 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
             err = int((out_k.long() - out_p.long()).abs().max())
             k["max_abs_err"] = max(k["max_abs_err"], err)
             check(torch.equal(out_k, out_p), f"{name} != plain at {label} (max err {err})")
-            outs.append(out_k)
         check(all(torch.equal(outs[0], o) for o in outs[1:]), f"kernel 1 != kernel 2 at {label}")
         sample = [0, 21, 42, 63, *NEAR_BOUND_LANES] + sorted(rng.choice(np.arange(66, B_WIDTH), 10, replace=False).tolist())
         check_lanes_vs_oracle(cfg, state, outs[0], sample, label)
@@ -1601,7 +1645,8 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
         got = host.host_permute_states(cfg, [v for lane in zip(*ins) for v in lane])
         bad = [i // t for i, (a, b) in enumerate(zip(got, (v for lane in zip(*want) for v in lane))) if a != b]
         check(len(got) == t * B_WIDTH_HOST and not bad, f"{label}: host != card on lanes {bad[:8]}")
-        say("widths", f"{label} (t, L) = ({t}, {L}): {' and '.join(names)} == plain at B={B_WIDTH} (edge lanes 0-63, "
+        say("widths", f"{label} (t, L) = ({t}, {L}): {' and '.join(names)} == plain at B={B_WIDTH} (kernel 2's plain "
+            f"on the first config of each (t, L); edge lanes 0-63, "
             f"all p-1 and all p-2 in lanes {NEAR_BOUND_LANES[0]}-{NEAR_BOUND_LANES[1]})"
             f"{', kernel 1 == kernel 2' if len(names) > 1 else ''}; {len(sample)} lanes == oracle; "
             f"{B_WIDTH_HOST} lanes == host_permute_states")
@@ -1716,6 +1761,198 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
         f"absorb 2, squeeze 3) at B={B_CHECK}: 6 lanes == oracle")
     say("widths", f"the widths phase took {time.perf_counter() - start:.1f} s")
     return {name: launches[name] for name in WIDTH_PATH_KERNELS}
+
+
+# ---- every default Rescue-Prime, GMiMC, Griffin and Anemoi width (kernels 5, 8, 6 and 7) ----
+
+FAMILY_KERNELS = ("rescue_permute", "gmimc_permute", "griffin_permute", "anemoi_permute")
+FAMILY_GETTERS = ("get_default_rescue_parameters", "get_default_gmimc_parameters", "get_default_griffin_parameters",
+                  "get_default_anemoi_parameters")
+FAMILY_COUNTS = (56, 32, 11, 16)  # default configs over the seven fields at rates 1-8
+# (t, L) of each kernel compiled before its wide schedules (the pairs beyond
+# them are "new": 22 of kernel 5, 14 of kernel 8, 3 of kernel 6, 5 of kernel 7)
+FAMILY_FIRST_PAIRS = {
+    "rescue_permute": {(3, 11), (16, 2), (3, 2)},
+    "gmimc_permute": {(3, 11), (8, 3), (3, 2)},
+    "griffin_permute": {(3, 11), (8, 3), (3, 2)},
+    "anemoi_permute": {(4, 11), (2, 11), (8, 3), (4, 2)},
+}
+
+
+def family_configs(st):
+    """[(kernel name, label, config)]: every default Rescue-Prime, GMiMC,
+    Griffin and Anemoi parameter set over the seven fields at rates 1-8."""
+    out = []
+    for name, getter in zip(FAMILY_KERNELS, FAMILY_GETTERS):
+        for fs in (getattr(st, f) for f in WIDTH_FIELDS):
+            for rate in range(1, 9):
+                with contextlib.suppress(ValueError):
+                    cfg = getattr(st, getter)(fs, rate)
+                    out.append((name, f"{name.split('_')[0]} {fs.name} rate {rate}", cfg))
+    return out
+
+
+def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
+    """Kernels 5, 8, 6 and 7 at every default width.  Each of the 115
+    default configs on B_WIDTH_HOST lanes with 0, 1, p-1, p-2 in every
+    element position and the near-bound lanes of all p-1 and all p-2: the
+    kernel against ``host_permute_states`` on every lane and against the
+    oracle on 16 lanes; on the first config of each (t, L) compiled since
+    the wide schedules (44 pairs), torch.equal to the plain version on the
+    same lanes.  Then each new pair at L = 11 and L = 3 at B_MAIN lanes,
+    CUDA events, best of 3, beside its bound, with its census line.  Then
+    the main path at full width, the launch counters zeroed just before it
+    and read just after: a lazy Rescue-Prime sponge at BLS12-381 rate 8
+    (t = 9), an eager GMiMC sponge at BLS12-381 rate 8 (t = 9, the front
+    reduction), a Griffin Goldilocks rate 8 (t = 12) Merkle root and an
+    Anemoi compiled transcript at BLS12-381 rate 7 (t = 8), sampled lanes
+    against the oracle.  Returns the path's launch counts; each timed
+    kernel's entry gains its rows under "instantiations"."""
+    from sponge_tpu_torch.fields import limbs_to_ints, mont_tensor_to_ints
+    from sponge_tpu_torch.hash import merkle_root
+    from sponge_tpu_torch.ops.bounds import check_gmimc_bounds
+    from sponge_tpu_torch.ops.montgomery import blocks_per_sm
+    from sponge_tpu_torch.poseidon import host
+    from sponge_tpu_torch.transcript import Absorb, SqueezeNative, compile_transcript
+
+    start = time.perf_counter()
+    configs = family_configs(st)
+    counts = tuple(sum(name == n for n, *_ in configs) for name in FAMILY_KERNELS)
+    check(counts == FAMILY_COUNTS, f"default family configs: {counts}, want {FAMILY_COUNTS}")
+
+    def host_bad_lanes(cfg, ins, want):
+        """Lanes where ``host_permute_states`` differs from the card's output
+        (on half the cores: the plain versions' launches need one)."""
+        t = cfg.t
+        got = host.host_permute_states(cfg, [v for lane in zip(*ins) for v in lane],
+                                       n_threads=max(1, (os.cpu_count() or 2) // 2))
+        check(len(got) == t * B_WIDTH_HOST, f"host_permute_states returned {len(got)} values")
+        return [i // t for i, (a, b) in enumerate(zip(got, (v for lane in zip(*want) for v in lane))) if a != b]
+
+    # the host runtime's checks run on a worker thread (its native call
+    # releases the GIL) while the card and the plain versions go on
+    host_pool, host_jobs = ThreadPoolExecutor(1), []
+    first = {}
+    for name, label, cfg in configs:
+        k, fs, t, L = kernels[name], cfg.field, cfg.t, cfg.field.nlimbs
+        state = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_WIDTH_HOST), rng, dev)))
+        consts = k["perm"](cfg, dev).consts
+        before = k["wrapper"].launches
+        out_k = k["wrapper"](cfg, consts, state)
+        torch.cuda.synchronize()
+        check(k["wrapper"].launches == before + 1, f"{name}: the kernel was not launched at {label}")
+        sample = [0, 21, 42, 63, *NEAR_BOUND_LANES] + sorted(
+            rng.choice(np.arange(66, B_WIDTH_HOST), 10, replace=False).tolist())
+        check_lanes_vs_oracle(cfg, state, out_k, sample, label)
+        ins, want = mont_tensor_to_ints(fs, state), mont_tensor_to_ints(fs, out_k)
+        host_jobs.append((label, host_pool.submit(host_bad_lanes, cfg, ins, want)))
+        extra = ""
+        if (t, L) not in FAMILY_FIRST_PAIRS[name] and (name, t, L) not in first:
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out_p = k["plain"](cfg, consts, state)
+            e1.record()
+            torch.cuda.synchronize()
+            err = int((out_k.long() - out_p.long()).abs().max())
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+            check(torch.equal(out_k, out_p), f"{name} != plain at {label} (max err {err})")
+            first[(name, t, L)] = (label, cfg, e0.elapsed_time(e1))
+            extra = f"; new pair: == plain on all {B_WIDTH_HOST} lanes"
+        plan = f"; front reduction {'on' if check_gmimc_bounds(cfg).reduce else 'off'}" if (
+            name == "gmimc_permute" and gmimc_body(cfg) == "limb") else ""
+        say("widths", f"{label} (t, L) = ({t}, {L}): {name} at B={B_WIDTH_HOST} (edge lanes 0-63, all p-1 and "
+            f"all p-2 in lanes {NEAR_BOUND_LANES[0]}-{NEAR_BOUND_LANES[1]}), {len(sample)} lanes == oracle{extra}{plan}")
+    for label, job in host_jobs:
+        bad = job.result()
+        check(not bad, f"{label}: host != card on lanes {bad[:8]}")
+    host_pool.shutdown()
+    say("widths", f"all {len(host_jobs)} configs: the card's output == host_permute_states on all {B_WIDTH_HOST} "
+        f"lanes")
+    check(len(first) == 44, f"{len(first)} new (t, L) pairs, want 44")
+    say("widths", f"{len(configs)} default Rescue-Prime, GMiMC, Griffin and Anemoi configs through their kernels, "
+        f"none refused, none on the plain version; {len(first)} new (t, L) pairs == plain")
+
+    # each new pair at L = 11 and L = 3 at B_MAIN beside its bound, with its census line
+    entries = ptxas_entries(report)
+    for (name, t, L), (label, cfg, plain_ms) in first.items():
+        if L == 2:
+            continue
+        k, fs = kernels[name], cfg.field
+        base, want, shared = census_instance(name, cfg)
+        found = [v for key, v in entries.items() if f"{base}I" in key and template_args(key) == want]
+        check(len(found) == 1, f"census: {len(found)} ptxas entries for {base} {want}")
+        regs, spill_st, spill_ld = found[0]
+        blocks = blocks_per_sm(regs, shared)
+        say("census", f"{name} ({t}, {L}) at {label}: {base} {want}, {regs} registers, spills {spill_st}/{spill_ld} B, "
+            f"{shared:,} B of shared memory, {blocks} blocks per SM")
+        big = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_MAIN), rng, dev)))
+        consts = k["perm"](cfg, dev).consts
+        ms, out = time_ms(lambda: k["wrapper"](cfg, consts, big))
+        check_lanes_vs_oracle(cfg, big, out, [0, 63, *NEAR_BOUND_LANES, B_MAIN - 1], f"{name} {label} B=2^20")
+        bound_ms, bound_by = kernel_bound(name, cfg, B_MAIN, rates)
+        wide, narrow = limb_products(name, cfg)
+        say("widths", f"{name} ({t}, {L}) at {label}, B={B_MAIN}: kernel {ms:.3f} ms = {B_MAIN / ms * 1e3:,.0f} "
+            f"perms/s; bound {bound_ms:.3f} ms ({bound_by}, {bound_ms / ms:.1%} of it; {wide:,} wide + {narrow:,} "
+            f"32-bit products per permutation); plain torch {plain_ms:.1f} ms at B={B_WIDTH_HOST}; 5 lanes == "
+            f"oracle [{gpu}]")
+        k.setdefault("instantiations", []).append(dict(
+            t=t, L=L, config=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by, plain_ms=plain_ms,
+            plain_batch=B_WIDTH_HOST, registers=regs, spill_store_bytes=spill_st, spill_load_bytes=spill_ld,
+            shared_bytes=shared, blocks_per_sm=blocks))
+        del big, out
+
+    # the main path at full width: sponges, a Merkle root and a transcript at t = 9, 9, 12 and 8
+    bls = st.BLS12_381_FR
+    r9, m9 = st.get_default_rescue_parameters(bls, 8), st.get_default_gmimc_parameters(bls, 8)
+    g12, a8 = st.get_default_griffin_parameters(st.GOLDILOCKS_FR, 8), st.get_default_anemoi_parameters(bls, 7)
+    check(check_gmimc_bounds(m9).reduce, "GMiMC BLS12-381 t = 9 should take the front reduction")
+    lane_vals = {id(cfg): random_plane(bls, (cfg.rate + 3, bls.nlimbs, B_CHECK), rng, dev) for cfg in (r9, m9)}
+    g_leaves = random_plane(g12.field, (g12.field.nlimbs, B_LADDER_PLAIN), rng, dev)
+    steps = (Absorb(a8.rate + 2), SqueezeNative(a8.rate + 1), Absorb(3), SqueezeNative(2))
+    tr_elems = random_plane(bls, (a8.rate + 5, bls.nlimbs, B_CHECK), rng, dev)
+    for k in kernels.values():
+        k["wrapper"].launches = 0
+    squeezed = {}
+    for cfg, lazy in ((r9, True), (m9, False)):
+        s = st.PoseidonSponge(cfg, batch_size=B_CHECK, lazy=lazy, device=dev)
+        s.absorb(b"family widths transcript")
+        s.absorb([st.Fp(bls.modulus - 1, bls), st.Fp(0, bls)])
+        s.absorb_element_plane(lane_vals[id(cfg)])
+        squeezed[id(cfg)] = (s.squeeze_native_field_elements(cfg.rate + 2), s.squeeze_bytes(40))
+    g_root = merkle_root(g12, g_leaves)
+    tr_out = compile_transcript(a8, steps)(tr_elems)
+    torch.cuda.synchronize()
+    launches = {name: k["wrapper"].launches for name, k in kernels.items()}
+    for name in FAMILY_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched on the family widths path")
+    say("launches", f"family widths path: {json.dumps(launches)}")
+
+    for cfg, family in ((r9, "Rescue-Prime"), (m9, "GMiMC")):
+        native, sq_bytes = squeezed[id(cfg)]
+        vals = mont_tensor_to_ints(bls, lane_vals[id(cfg)])
+        for b in list(range(4)) + [B_CHECK // 3, B_CHECK - 3, B_CHECK - 2, B_CHECK - 1]:
+            o = cfg.oracle_sponge()
+            o.absorb(b"family widths transcript")
+            o.absorb([st.Fp(bls.modulus - 1, bls), st.Fp(0, bls)])
+            o.absorb_field_elements([row[b] for row in vals])
+            check(native[b] == o.squeeze_native_field_elements(cfg.rate + 2), f"{family} t={cfg.t} lane {b}: squeeze")
+            check(sq_bytes[b] == o.squeeze_bytes(40), f"{family} t={cfg.t} lane {b}: squeeze_bytes")
+        say("sponge", f"{'lazy' if cfg is r9 else 'eager'} {family} sponge {bls.name} rate {cfg.rate} (t={cfg.t}) "
+            f"B={B_CHECK}: native/bytes squeezes == oracle on 8 lanes")
+    check_merkle(g12, g_leaves, g_root, f"Griffin t={g12.t}")
+    vals = mont_tensor_to_ints(bls, tr_elems)
+    rows = [limbs_to_ints(bls, row) for row in tr_out.cpu().numpy()]
+    for b in list(range(4)) + [B_CHECK // 5, B_CHECK - 1]:
+        o = a8.oracle_sponge()
+        o.absorb_field_elements([row[b] for row in vals[: a8.rate + 2]])
+        want = o.squeeze_native_field_elements(a8.rate + 1)
+        o.absorb_field_elements([row[b] for row in vals[a8.rate + 2 :]])
+        want += o.squeeze_native_field_elements(2)
+        check([row[b] for row in rows] == want, f"Anemoi transcript t={a8.t} lane {b}")
+    say("sponge", f"compile_transcript Anemoi {bls.name} rate {a8.rate} (t={a8.t}; absorb {a8.rate + 2}, squeeze "
+        f"{a8.rate + 1}, absorb 3, squeeze 2) at B={B_CHECK}: 6 lanes == oracle")
+    say("widths", f"the family widths phase took {time.perf_counter() - start:.1f} s")
+    return {name: launches[name] for name in FAMILY_KERNELS}
 
 
 def check_merkle(cfg, leaves, root, family):

@@ -25,7 +25,7 @@ import numpy as np
 
 from ..fields import FieldSpec
 from ..ops._build import registers
-from ..ops.montgomery import window_for, window_schedule
+from ..ops.montgomery import wide_state, window_for, window_schedule
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 
@@ -109,9 +109,17 @@ class AnemoiConfig:
 @functools.lru_cache(maxsize=None)
 def window(cfg: AnemoiConfig) -> int:
     """Kernel 7's window (``montgomery.window_for``) for x^(1/alpha): the l
-    chains of a lane at the kernel's registers."""
+    chains of a lane at the kernel's registers, or one chain where the
+    kernel runs one Flystel pair at a time (``pairwise``)."""
     L = cfg.field.nlimbs
-    return window_for(cfg.inv_alpha, L, cfg.l, registers("sponge_anemoi", 2 * cfg.l, L))
+    chains = 1 if pairwise(cfg) else cfg.l
+    return window_for(cfg.inv_alpha, L, chains, registers("sponge_anemoi", 2 * cfg.l, L))
+
+
+def pairwise(cfg: AnemoiConfig) -> bool:
+    """``csrc/anemoi.cu`` kPairwise: a wide state (``montgomery.wide_state``)
+    of more than two pairs runs the Flystel one pair at a time."""
+    return wide_state(2 * cfg.l, cfg.field.nlimbs) and cfg.l > 2
 
 
 def schedule(cfg: AnemoiConfig) -> list[int]:

@@ -32,6 +32,15 @@
 // per lane, state in registers, one rolled round loop that also runs the
 // closing diffusion, so the diffusion is inlined once.
 //
+// The wide states of more than two pairs (kPairwise: mont.cuh kWideState at
+// l >= 3, l = 3 and 4 over the ~255-bit fields, 66 and 88 words a lane) run
+// the Flystel one pair at a time in a rolled loop (pair 0, then both
+// columns shifted: shift_in), so the chain holds one base and one table
+// (anemoi/config.py window asks window_for for one chain), not l of each.
+// Every pair takes the same products and carries as in lockstep, so the
+// words, and the replay, are the same.  l = 2 at L = 11 (44 words) keeps
+// the lockstep pair it was tuned at (128 registers, 4 blocks per SM).
+//
 // Constant buffer layout (int32, limb axis last; anemoi/config.py
 // constant_layout): p (L) | one = R mod p (L) | rc_x (rounds, l, L) |
 // rc_y (rounds, l, L) | M_x (l, l, L) | g, -g, -g^-1, -1 (4, L) |
@@ -102,6 +111,43 @@ __device__ __forceinline__ void anemoi_diffusion(uint32_t (&x)[N][L], uint32_t (
   }
 }
 
+// The open Flystel on N pairs (x[j], y[j]) in lockstep: u = x + (-g) y^2 +
+// (-g^-1), v = y + (-1) u^(1/alpha), (x, y) <- (u + g v^2, v).
+template <int N, int L>
+__device__ __forceinline__ void flystel(uint32_t (&x)[N][L], uint32_t (&y)[N][L], const int32_t* g,
+                                        const int32_t* neg_g, const int32_t* neg_ginv,
+                                        const int32_t* neg_one, const int32_t* inv_sched, int n_inv,
+                                        int w, uint32_t* table, const Modulus<L>& m) {
+  uint32_t u[N][L], lad[N][L];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {  // u = x + (-g) y^2 + (-g^-1)
+    uint32_t sq[L];
+    mont_sqr(sq, y[j], m);
+    mont_mul_const(sq, sq, neg_g, m);
+#pragma unroll
+    for (int k = 0; k < L; ++k) u[j][k] = x[j][k];
+    add_lazy(u[j], sq);
+    add_const(u[j], neg_ginv);
+#pragma unroll
+    for (int k = 0; k < L; ++k) lad[j][k] = u[j][k];
+  }
+  pow_window<N, L>(lad, inv_sched, n_inv, w, table, m);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mont_mul_const(lad[j], lad[j], neg_one, m);
+    add_lazy(y[j], lad[j]);  // v = y + (-1) u^(1/alpha)
+    uint32_t sq[L];
+    mont_sqr(sq, y[j], m);
+    mont_mul_const(sq, sq, g, m);
+#pragma unroll
+    for (int k = 0; k < L; ++k) x[j][k] = u[j][k];
+    add_lazy(x[j], sq);  // w = u + g v^2
+  }
+}
+
+template <int T, int L>
+constexpr bool kPairwise = kWideState<T, L> && T / 2 > 2;
+
 template <int T, int L>
 __global__ void __launch_bounds__(kThreads)
     anemoi_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
@@ -146,30 +192,21 @@ __global__ void __launch_bounds__(kThreads)
     }
     anemoi_diffusion<N, L>(x, y, mat, reduce, one, m);
     if (r == rounds) break;
-    uint32_t u[N][L], lad[N][L];
+    if constexpr (kPairwise<T, L>) {
+#pragma unroll 1
+      for (int j = 0; j < N; ++j) {
+        uint32_t px[1][L], py[1][L];
 #pragma unroll
-    for (int j = 0; j < N; ++j) {  // u = x + (-g) y^2 + (-g^-1)
-      uint32_t sq[L];
-      mont_sqr(sq, y[j], m);
-      mont_mul_const(sq, sq, neg_g, m);
-#pragma unroll
-      for (int k = 0; k < L; ++k) u[j][k] = x[j][k];
-      add_lazy(u[j], sq);
-      add_const(u[j], neg_ginv);
-#pragma unroll
-      for (int k = 0; k < L; ++k) lad[j][k] = u[j][k];
-    }
-    pow_window<N, L>(lad, inv_sched, n_inv, w, table, m);
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      mont_mul_const(lad[j], lad[j], neg_one, m);
-      add_lazy(y[j], lad[j]);  // v = y + (-1) u^(1/alpha)
-      uint32_t sq[L];
-      mont_sqr(sq, y[j], m);
-      mont_mul_const(sq, sq, g, m);
-#pragma unroll
-      for (int k = 0; k < L; ++k) x[j][k] = u[j][k];
-      add_lazy(x[j], sq);  // w = u + g v^2
+        for (int k = 0; k < L; ++k) {
+          px[0][k] = x[0][k];
+          py[0][k] = y[0][k];
+        }
+        flystel<1, L>(px, py, g, neg_g, neg_ginv, neg_one, inv_sched, n_inv, w, table, m);
+        shift_in<N, L>(x, px[0]);
+        shift_in<N, L>(y, py[0]);
+      }
+    } else {
+      flystel<N, L>(x, y, g, neg_g, neg_ginv, neg_one, inv_sched, n_inv, w, table, m);
     }
   }
 #pragma unroll
@@ -184,7 +221,7 @@ template <int T, int L>
 int launch_anemoi(const int32_t* in, int32_t* out, long long B, int rounds, int w, int n_inv,
                   int reduce, const int32_t* consts, unsigned n0inv, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  const size_t shared = window_table_bytes(T / 2, L, w);
+  const size_t shared = window_table_bytes(kPairwise<T, L> ? 1 : T / 2, L, w);
   if (const int err = allow_dynamic_shared(anemoi_kernel<T, L>, shared)) return err;
   anemoi_kernel<T, L><<<blocks, kThreads, shared, stream>>>(in, out, B, rounds, w, n_inv, reduce,
                                                             consts, n0inv);
@@ -201,13 +238,18 @@ extern "C" int sponge_anemoi(const int32_t* in, int32_t* out, long long B, int t
                              int rounds, int w, int n_inv, int reduce, const int32_t* consts,
                              unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t == 4 && L == 11)
-    return sponge::launch_anemoi<4, 11>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
-  if (t == 2 && L == 11)
-    return sponge::launch_anemoi<2, 11>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
-  if (t == 8 && L == 3)
-    return sponge::launch_anemoi<8, 3>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
-  if (t == 4 && L == 2)
-    return sponge::launch_anemoi<4, 2>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
+#define PAIR(T_, L_)                                                                              \
+  if (t == T_ && L == L_)                                                                         \
+    return sponge::launch_anemoi<T_, L_>(in, out, B, rounds, w, n_inv, reduce, consts, n0inv, s);
+  PAIR(2, 11)
+  PAIR(4, 11)
+  PAIR(6, 11)
+  PAIR(8, 11)
+  PAIR(6, 3)
+  PAIR(8, 3)
+  PAIR(10, 3)
+  PAIR(12, 3)
+  PAIR(4, 2)
+#undef PAIR
   return -1;
 }

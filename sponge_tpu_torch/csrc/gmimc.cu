@@ -16,7 +16,18 @@
 // 2^24 per add (about 2^31.3 at t = 3, 226 rounds) and its value by F.
 // ops/bounds.py check_gmimc_bounds replays this schedule on exclusive value
 // and word bounds and refuses a config whose words could reach 2^32 or whose
-// front could reach R.  Exit: one carry pass and one Montgomery product by 1
+// front could reach R.  The elements grow to hundreds of p, and so does the
+// S-box input f (the front plus c_r); a Montgomery product of such an input
+// leaves its output far above p, and that F feeds every later element.  At
+// BLS12-381 (R = 565p) that passes R from t = 4 on, so where the replay
+// without it fails the kernel takes the front reduction (reduce_front; the
+// runtime flag ``reduce`` picks the instantiation with it, so a config
+// without it launches the body unchanged): f - q p with q = floor(top *
+// qinv / 2^32), top f's top word and qinv = floor((2^32 - 1) / (p_top + 1)),
+// p_top p's top limb, so q p <= f; f leaves below about 2p for L 64-bit
+// multiply-adds and one 32-bit product, against the round's three
+// Montgomery products, and F stays near p.  Exit: one carry pass and one
+// Montgomery product by 1
 // (values below 2p) and a conditional subtraction, so the output is
 // canonical.  Each block first copies its constants (p, R mod p, the round
 // constants: about 10 KB at BLS12-381) to shared memory and reads every
@@ -48,7 +59,11 @@
 // unrolled t times, so round r + j of a block takes its front from register
 // x[j] and no state moves; after the loop the state sits rotated by
 // rounds mod t and is turned back with at most t - 1 register moves of the
-// whole state.
+// whole state.  The limb body's wide states (mont.cuh kWideState: t = 4..9
+// at L = 11) instead run one rolled round loop that rotates as it adds,
+// x[e - 1] = x[e] + F and x[t - 1] = the old front (L moves a round), so
+// the S-box chain is inlined once: unrolled t times at L = 11, nvcc 12.9's
+// cicc crashed (exit 139) on this file.
 //
 // What bounds it on the H100: integer issue (the limb body's widening
 // products; the two-word body's adds and carry fix-ups as much as its
@@ -86,7 +101,25 @@ __device__ __forceinline__ void rotate_left(uint32_t (&x)[T][L]) {
   }
 }
 
-template <int T, int L>
+// f - q p for a carried f (limbs 0..L-2 below 2^24, the rest of its value
+// in the top word) with q = floor(top * qinv / 2^32) <= top / (p_top + 1),
+// so q p <= f and the result is a non-negative carried value: limb by limb in
+// signed 64-bit words (q p_k < 2^56), each borrow a floor shift.
+// ops/bounds.py _Replay.reduce_front bounds its output.
+template <int L>
+__device__ __forceinline__ void reduce_front(uint32_t (&f)[L], const Modulus<L>& m, uint32_t qinv) {
+  const uint64_t q = __umulhi(f[L - 1], qinv);
+  int64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < L - 1; ++k) {
+    const int64_t v = static_cast<int64_t>(f[k]) + c - static_cast<int64_t>(q * m.p[k]);
+    f[k] = static_cast<uint32_t>(v) & kLimbMask;
+    c = v >> kLimbBits;
+  }
+  f[L - 1] = static_cast<uint32_t>(static_cast<int64_t>(f[L - 1]) + c - static_cast<int64_t>(q * m.p[L - 1]));
+}
+
+template <int T, int L, bool Reduce>
 __global__ void __launch_bounds__(kThreads)
     gmimc_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
                  int rounds, uint32_t alpha, const int32_t* __restrict__ consts, int words,
@@ -99,30 +132,50 @@ __global__ void __launch_bounds__(kThreads)
   load_modulus<FromShared>(m, c, n0inv);
   const int32_t* one = c + L;
   const int32_t* rc = one + L;
+  const uint32_t qinv = Reduce ? 0xFFFFFFFFu / (m.p[L - 1] + 1u) : 0u;
 
   uint32_t x[T][L];
   load_state<T, L>(x, in, B, b);
+  if constexpr (kWideState<T, L>) {
 #pragma unroll 1
-  for (int r0 = 0; r0 < rounds; r0 += T) {
+    for (int r = 0; r < rounds; ++r) {
+      uint32_t f[L], front[L];
 #pragma unroll
-    for (int j = 0; j < T; ++j) {
-      if (r0 + j < rounds) {
-        uint32_t f[L];
+      for (int k = 0; k < L; ++k) f[k] = front[k] = x[0][k];
+      add_const<FromShared>(f, rc + r * L);
+      if constexpr (Reduce) reduce_front(f, m, qinv);
+      pow_sqr1<L>(f, alpha, m);
 #pragma unroll
-        for (int k = 0; k < L; ++k) f[k] = x[j][k];
-        add_const<FromShared>(f, rc + (r0 + j) * L);
-        pow_sqr1<L>(f, alpha, m);
+      for (int e = 1; e < T; ++e)
 #pragma unroll
-        for (int e = 0; e < T; ++e) {
-          if (e == j) continue;
+        for (int k = 0; k < L; ++k) x[e - 1][k] = x[e][k] + f[k];  // deferred: no carry
 #pragma unroll
-          for (int k = 0; k < L; ++k) x[e][k] += f[k];  // deferred: no carry
+      for (int k = 0; k < L; ++k) x[T - 1][k] = front[k];
+    }
+  } else {
+#pragma unroll 1
+    for (int r0 = 0; r0 < rounds; r0 += T) {
+#pragma unroll
+      for (int j = 0; j < T; ++j) {
+        if (r0 + j < rounds) {
+          uint32_t f[L];
+#pragma unroll
+          for (int k = 0; k < L; ++k) f[k] = x[j][k];
+          add_const<FromShared>(f, rc + (r0 + j) * L);
+          if constexpr (Reduce) reduce_front(f, m, qinv);
+          pow_sqr1<L>(f, alpha, m);
+#pragma unroll
+          for (int e = 0; e < T; ++e) {
+            if (e == j) continue;
+#pragma unroll
+            for (int k = 0; k < L; ++k) x[e][k] += f[k];  // deferred: no carry
+          }
         }
       }
     }
-  }
 #pragma unroll 1
-  for (int s = 0; s < rounds % T; ++s) rotate_left<T, L>(x);
+    for (int s = 0; s < rounds % T; ++s) rotate_left<T, L>(x);
+  }
 #pragma unroll
   for (int e = 0; e < T; ++e) {
     carry_pass(x[e]);
@@ -311,15 +364,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int T, int L>
-int launch_gmimc(const int32_t* in, int32_t* out, long long B, int rounds, unsigned alpha,
-                 const int32_t* consts, int words, unsigned n0inv, cudaStream_t stream) {
+template <int T, int L, bool Reduce>
+int launch_gmimc_body(const int32_t* in, int32_t* out, long long B, int rounds, unsigned alpha,
+                      const int32_t* consts, int words, unsigned n0inv, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   const size_t bytes = static_cast<size_t>(words) * sizeof(int32_t);
-  if (const int err = allow_dynamic_shared(gmimc_kernel<T, L>, bytes)) return err;
-  gmimc_kernel<T, L><<<blocks, kThreads, bytes, stream>>>(in, out, B, rounds, alpha, consts, words,
-                                                          n0inv);
+  if (const int err = allow_dynamic_shared(gmimc_kernel<T, L, Reduce>, bytes)) return err;
+  gmimc_kernel<T, L, Reduce><<<blocks, kThreads, bytes, stream>>>(in, out, B, rounds, alpha, consts,
+                                                                  words, n0inv);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int T, int L>
+int launch_gmimc(const int32_t* in, int32_t* out, long long B, int rounds, unsigned alpha,
+                 int reduce, const int32_t* consts, int words, unsigned n0inv, cudaStream_t stream) {
+  return reduce ? launch_gmimc_body<T, L, true>(in, out, B, rounds, alpha, consts, words, n0inv, stream)
+                : launch_gmimc_body<T, L, false>(in, out, B, rounds, alpha, consts, words, n0inv, stream);
 }
 
 template <int T>
@@ -337,24 +397,44 @@ int launch_gmimc_word(const int32_t* in, int32_t* out, long long B, int rounds, 
 // Plain C entry point (ctypes): returns the CUDA error of a refused shared
 // memory size or cudaGetLastError() after the launch, or -1 when the body has
 // no instantiation at (t, L).  ``body`` is 0 for the limb body (``consts`` the
-// whole buffer, ``words`` its limb sections) and 1 for the two-word body
-// (``consts`` its section, ``words`` that section's length).  Instantiations
-// must match ops/gmimc.py BODIES and INSTANTIATIONS in
+// whole buffer, ``words`` its limb sections; ``reduce`` takes the front
+// reduction) and 1 for the two-word body (``consts`` its section, ``words``
+// that section's length; ``reduce`` unused).  Instantiations (the limb
+// body's PAIR(t, L) lines, the two-word body's WORD(t) lines at L = 3) must
+// match ops/gmimc.py BODIES and INSTANTIATIONS in
 // sponge_tpu_torch/ops/_build.py.
 extern "C" int sponge_gmimc(const int32_t* in, int32_t* out, long long B, int t, int L, int body,
-                            int rounds, unsigned alpha, const int32_t* consts, int words,
+                            int rounds, unsigned alpha, int reduce, const int32_t* consts, int words,
                             unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (body == 0) {
-    if (t == 3 && L == 11)
-      return sponge::launch_gmimc<3, 11>(in, out, B, rounds, alpha, consts, words, n0inv, s);
-    if (t == 8 && L == 3)
-      return sponge::launch_gmimc<8, 3>(in, out, B, rounds, alpha, consts, words, n0inv, s);
-    if (t == 3 && L == 2)
-      return sponge::launch_gmimc<3, 2>(in, out, B, rounds, alpha, consts, words, n0inv, s);
+#define PAIR(T_, L_)                                                                              \
+  if (t == T_ && L == L_)                                                                         \
+    return sponge::launch_gmimc<T_, L_>(in, out, B, rounds, alpha, reduce, consts, words, n0inv, s);
+    PAIR(2, 11)
+    PAIR(3, 11)
+    PAIR(4, 11)
+    PAIR(5, 11)
+    PAIR(6, 11)
+    PAIR(7, 11)
+    PAIR(8, 11)
+    PAIR(9, 11)
+    PAIR(8, 3)
+    PAIR(3, 2)
+#undef PAIR
     return -1;
   }
-  if (body == 1 && t == 8 && L == 3)
-    return sponge::launch_gmimc_word<8>(in, out, B, rounds, alpha, consts, words, s);
+  if (body != 1 || L != 3) return -1;
+#define WORD(T_) \
+  if (t == T_) return sponge::launch_gmimc_word<T_>(in, out, B, rounds, alpha, consts, words, s);
+  WORD(5)
+  WORD(6)
+  WORD(7)
+  WORD(8)
+  WORD(9)
+  WORD(10)
+  WORD(11)
+  WORD(12)
+#undef WORD
   return -1;
 }

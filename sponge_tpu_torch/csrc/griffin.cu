@@ -148,14 +148,16 @@ extern "C" int sponge_griffin(const int32_t* in, int32_t* out, long long B, int 
                               int rounds, unsigned alpha, int w, int n_inv, int reduce,
                               const int32_t* consts, int words, unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t == 3 && L == 11)
-    return sponge::launch_griffin<3, 11>(in, out, B, rounds, alpha, w, n_inv, reduce, consts,
-                                         words, n0inv, s);
-  if (t == 8 && L == 3)
-    return sponge::launch_griffin<8, 3>(in, out, B, rounds, alpha, w, n_inv, reduce, consts, words,
-                                        n0inv, s);
-  if (t == 3 && L == 2)
-    return sponge::launch_griffin<3, 2>(in, out, B, rounds, alpha, w, n_inv, reduce, consts, words,
-                                        n0inv, s);
+#define PAIR(T_, L_)                                                                              \
+  if (t == T_ && L == L_)                                                                         \
+    return sponge::launch_griffin<T_, L_>(in, out, B, rounds, alpha, w, n_inv, reduce, consts, words, \
+                                          n0inv, s);
+  PAIR(3, 11)
+  PAIR(4, 11)
+  PAIR(8, 11)
+  PAIR(8, 3)
+  PAIR(12, 3)
+  PAIR(3, 2)
+#undef PAIR
   return -1;
 }

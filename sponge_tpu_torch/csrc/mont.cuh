@@ -189,9 +189,10 @@ __device__ __forceinline__ void mat_apply(uint32_t (&x)[T][L], const int32_t* __
 }
 
 // States of more than kWideWords words a lane (the ~255-bit fields at
-// t >= 4: 44 to 99 words) take kernels 1, 2 and 3's wide schedule, whose
-// live set is the state and one element's working words: the S-boxes one
-// element at a time, the MDS rows in a rolled loop (mat_apply_rows), kernel
+// t >= 4: 44 to 99 words; ops/montgomery.py WIDE_WORDS) take the wide
+// schedule of kernels 1, 2, 3, 5 and 7, whose live set is the state and one
+// element's working words: the S-boxes one element (kernel 7: one Flystel
+// pair) at a time, the MDS rows in a rolled loop (mat_apply_rows), kernel
 // 1's sparse round one element at a time (poseidon_opt.cu
 // sparse_linear_wide).  Every product and carry is the lockstep schedule's,
 // so the words are the same; only the order differs.
@@ -199,6 +200,21 @@ constexpr int kWideWords = 40;
 
 template <int T, int L>
 constexpr bool kWideState = T * L > kWideWords;
+
+// x[e] = x[e + 1] for e < T - 1, then x[T - 1] = v: register moves only.  A
+// rolled loop of T steps that each take x[0] (or write a new row) and shift
+// the result in at the top leaves x in its order with every element done,
+// and no register is indexed at run time: kernels 5 and 7's wide S-boxes
+// (mat_apply_rows shifts its rows in the same way).
+template <int T, int L>
+__device__ __forceinline__ void shift_in(uint32_t (&x)[T][L], const uint32_t (&v)[L]) {
+#pragma unroll
+  for (int e = 0; e + 1 < T; ++e)
+#pragma unroll
+    for (int k = 0; k < L; ++k) x[e][k] = x[e + 1][k];
+#pragma unroll
+  for (int k = 0; k < L; ++k) x[T - 1][k] = v[k];
+}
 
 // x = M x with mat_apply's rows, one row at a time in a rolled loop, so one
 // row's code is inlined, not T.  Each row is shifted in at the top of y

@@ -28,6 +28,17 @@
 // over the t elements (independent chains), one rolled loop over the
 // half-rounds so the chain and the MDS are each inlined once.
 //
+// The wide states (mont.cuh kWideState: the ~255-bit fields at t = 4..9, 44
+// to 99 words a lane) take kernel 1's wide schedule: the lockstep chain
+// would hold t bases beside the state and t tables.  There the chain runs
+// one element at a time in a rolled loop (element 0 raised, then shifted in
+// at the top: shift_in), its table one chain (rescue/config.py windows asks
+// window_for for one chain), and the MDS rows run in a rolled loop
+// (mat_apply_rows).  Every element takes the same products and carries as
+// in lockstep, so the words, and the replay, are the same.  The launch bound
+// asks for 4 blocks per SM below kWideWords and for none at the wide states,
+// whose state alone takes 44 to 99 registers.
+//
 // Constant buffer layout (int32, limb axis last; rescue/config.py
 // constant_layout): p (L) | one = R mod p (L) | rc (2N, t, L) | mds (t, t, L) |
 // alpha window schedule | inverse-alpha window schedule.
@@ -36,10 +47,14 @@
 
 namespace sponge {
 
-// At most 128 registers a thread, so that 4 blocks fit an SM: left to
-// itself ptxas takes more at (3, 11) and the SM holds 3.
+// Blocks per SM the launch bound asks for: 4 (at most 128 registers a
+// thread) below kWideWords, where left to itself ptxas takes more at
+// (3, 11) and the SM holds 3; none at the wide states.
 template <int T, int L>
-__global__ void __launch_bounds__(kThreads, 4)
+constexpr int kRescueMinBlocks = kWideState<T, L> ? 1 : 4;
+
+template <int T, int L>
+__global__ void __launch_bounds__(kThreads, kRescueMinBlocks<T, L>)
     rescue_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
                   int rounds, int w_alpha, int n_alpha, int w_inv, int n_inv,
                   const int32_t* __restrict__ consts, uint32_t n0inv) {
@@ -60,9 +75,22 @@ __global__ void __launch_bounds__(kThreads, 4)
 #pragma unroll 1
   for (int h = 0; h < 2 * rounds; ++h) {
     const bool inverse = h & 1;
-    pow_window<T, L>(x, inverse ? inv_sched : alpha_sched, inverse ? n_inv : n_alpha,
-                     inverse ? w_inv : w_alpha, table, m);
-    mat_apply<T, L>(x, mds, m);
+    const int32_t* sched = inverse ? inv_sched : alpha_sched;
+    const int n_sched = inverse ? n_inv : n_alpha, w = inverse ? w_inv : w_alpha;
+    if constexpr (kWideState<T, L>) {
+#pragma unroll 1
+      for (int e = 0; e < T; ++e) {
+        uint32_t y[1][L];
+#pragma unroll
+        for (int k = 0; k < L; ++k) y[0][k] = x[0][k];
+        pow_window<1, L>(y, sched, n_sched, w, table, m);
+        shift_in<T, L>(x, y[0]);
+      }
+      mat_apply_rows<T, L>(x, mds, m);
+    } else {
+      pow_window<T, L>(x, sched, n_sched, w, table, m);
+      mat_apply<T, L>(x, mds, m);
+    }
 #pragma unroll
     for (int e = 0; e < T; ++e) add_const(x[e], rc + (h * T + e) * L);
   }
@@ -76,7 +104,7 @@ int launch_rescue(const int32_t* in, int32_t* out, long long B, int rounds, int 
                   int n_alpha, int w_inv, int n_inv, const int32_t* consts, unsigned n0inv,
                   cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  const size_t shared = window_table_bytes(T, L, w_alpha > w_inv ? w_alpha : w_inv);
+  const size_t shared = window_table_bytes(kWideState<T, L> ? 1 : T, L, w_alpha > w_inv ? w_alpha : w_inv);
   if (const int err = allow_dynamic_shared(rescue_kernel<T, L>, shared)) return err;
   rescue_kernel<T, L><<<blocks, kThreads, shared, stream>>>(in, out, B, rounds, w_alpha, n_alpha,
                                                             w_inv, n_inv, consts, n0inv);
@@ -93,14 +121,35 @@ extern "C" int sponge_rescue(const int32_t* in, int32_t* out, long long B, int t
                              int rounds, int w_alpha, int n_alpha, int w_inv, int n_inv,
                              const int32_t* consts, unsigned n0inv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t == 3 && L == 11)
-    return sponge::launch_rescue<3, 11>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv,
-                                        consts, n0inv, s);
-  if (t == 16 && L == 2)
-    return sponge::launch_rescue<16, 2>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv,
-                                        consts, n0inv, s);
-  if (t == 3 && L == 2)
-    return sponge::launch_rescue<3, 2>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv,
-                                       consts, n0inv, s);
+#define PAIR(T_, L_)                                                                              \
+  if (t == T_ && L == L_)                                                                         \
+    return sponge::launch_rescue<T_, L_>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv, consts, \
+                                         n0inv, s);
+  PAIR(2, 11)
+  PAIR(3, 11)
+  PAIR(4, 11)
+  PAIR(5, 11)
+  PAIR(6, 11)
+  PAIR(7, 11)
+  PAIR(8, 11)
+  PAIR(9, 11)
+  PAIR(5, 3)
+  PAIR(6, 3)
+  PAIR(7, 3)
+  PAIR(8, 3)
+  PAIR(9, 3)
+  PAIR(10, 3)
+  PAIR(11, 3)
+  PAIR(12, 3)
+  PAIR(9, 2)
+  PAIR(10, 2)
+  PAIR(11, 2)
+  PAIR(12, 2)
+  PAIR(13, 2)
+  PAIR(14, 2)
+  PAIR(15, 2)
+  PAIR(16, 2)
+  PAIR(3, 2)
+#undef PAIR
   return -1;
 }

@@ -40,27 +40,35 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# (t, L) pairs compiled into each kernel.  Kernels 1 and 2 (POSEIDON_PAIRS)
-# and kernel 3 (ops/poseidon2.py BODIES) cover every width of their default
-# tables (poseidon/params.py, poseidon2/params.py): the 255/254-bit fields
-# at rates 2-8 (t = 3..9, L = 11; Poseidon2 rates 2, 3 and 7), Goldilocks at
-# rates 4 and 8 (8, 3), (12, 3), the 31-bit fields at capacity 8, rate 8
-# (16, 2); besides them the 35-bit and 25-bit test fields (3, 2) and the
-# 44-bit low-headroom test field at t = 8.  Anemoi at rates 3 and 1 over the
-# 255/254-bit fields (4, 11), (2, 11) and rate 3 over the 25-bit field
-# (4, 2); Monolith at Goldilocks rates 8 and 4 (12, 3), (8, 3), at the
-# 31-bit fields rate 8 (16, 2) and the dense capacity-2 test configs (4, 2).
-# The chain probe's (t, L) are (chains per thread, 32-bit words per chain
-# value); the ablation probe runs kernel 1's BLS12-381 schedule.
+# (t, L) pairs compiled into each kernel.  Every kernel covers every width
+# of its family's default tables over the seven fields at rates 1-8.
+# Kernels 1 and 2 (POSEIDON_PAIRS) and kernel 3 (ops/poseidon2.py BODIES)
+# (poseidon/params.py, poseidon2/params.py): the 255/254-bit fields at rates
+# 2-8 (t = 3..9, L = 11; Poseidon2 rates 2, 3 and 7), Goldilocks at rates 4
+# and 8 (8, 3), (12, 3), the 31-bit fields at capacity 8, rate 8 (16, 2).
+# Kernel 5 (Rescue-Prime, capacity 1 at L = 11, 4 at Goldilocks, 8 at the
+# 31-bit fields): t = 2..9 at L = 11, 5..12 at L = 3, 9..16 at L = 2.
+# Kernel 8 (GMiMC-erf; ops/gmimc.py BODIES): its limb body t = 2..9 at
+# L = 11, its two-word body Goldilocks t = 5..12.  Kernel 6 (Griffin-pi,
+# t = 3, 4, 8 and Goldilocks 8, 12) and kernel 7 (Anemoi, t = 2, 4, 6, 8 at
+# L = 11 and Goldilocks 6..12 even).  Monolith at Goldilocks rates 8 and 4
+# (12, 3), (8, 3), at the 31-bit fields rate 8 (16, 2).  Besides them the
+# 35-bit and 25-bit test fields (3, 2), the 44-bit low-headroom test field
+# at t = 8, the 25-bit Anemoi (4, 2) and the dense capacity-2 Monolith test
+# configs (4, 2).  The chain probe's (t, L) are (chains per thread, 32-bit
+# words per chain value); the ablation probe runs kernel 1's BLS12-381
+# schedule.
 POSEIDON_PAIRS = frozenset({(t, 11) for t in range(3, 10)} | {(8, 3), (12, 3), (16, 2), (3, 2)})
 INSTANTIATIONS = {
     "sponge_poseidon_opt": POSEIDON_PAIRS,
     "sponge_poseidon_dense": POSEIDON_PAIRS,
     "sponge_poseidon2": frozenset({(3, 11), (4, 11), (8, 11), (8, 3), (12, 3), (16, 2), (8, 2), (3, 2)}),
-    "sponge_rescue": frozenset({(3, 11), (16, 2), (3, 2)}),
-    "sponge_gmimc": frozenset({(3, 11), (8, 3), (3, 2)}),
-    "sponge_griffin": frozenset({(3, 11), (8, 3), (3, 2)}),
-    "sponge_anemoi": frozenset({(4, 11), (2, 11), (8, 3), (4, 2)}),
+    "sponge_rescue": frozenset(
+        {(t, 11) for t in range(2, 10)} | {(t, 3) for t in range(5, 13)} | {(t, 2) for t in range(9, 17)} | {(3, 2)}
+    ),
+    "sponge_gmimc": frozenset({(t, 11) for t in range(2, 10)} | {(t, 3) for t in range(5, 13)} | {(3, 2)}),
+    "sponge_griffin": frozenset({(3, 11), (4, 11), (8, 11), (8, 3), (12, 3), (3, 2)}),
+    "sponge_anemoi": frozenset({(2, 11), (4, 11), (6, 11), (8, 11), (6, 3), (8, 3), (10, 3), (12, 3), (4, 2)}),
     "sponge_monolith": frozenset({(12, 3), (8, 3), (16, 2), (4, 2)}),
     "sponge_probe_chains": frozenset(
         {(c, w) for c in (1, 4, 8, 16) for w in (1, 2)} | {(1, 11), (2, 11)}
@@ -73,15 +81,24 @@ INSTANTIATIONS = {
 # SM they allow.  chip_smoke.py checks that the build's own report gives
 # every config the same window.
 REGISTERS = {
-    ("sponge_rescue", 3, 11): 128,
-    ("sponge_rescue", 16, 2): 128,
+    **{("sponge_rescue", t, 11): r for t, r in zip(range(2, 10), (128, 128, 164, 220, 240, 242, 255, 255))},
+    **{("sponge_rescue", t, 3): r for t, r in zip(range(5, 13), (120, 126, 128, 128, 128, 128, 128, 128))},
+    **{("sponge_rescue", t, 2): 128 for t in range(9, 17)},
     ("sponge_rescue", 3, 2): 56,
-    ("sponge_anemoi", 4, 11): 128,
     ("sponge_anemoi", 2, 11): 74,
+    ("sponge_anemoi", 4, 11): 128,
+    ("sponge_anemoi", 6, 11): 140,
+    ("sponge_anemoi", 8, 11): 172,
+    ("sponge_anemoi", 6, 3): 46,
     ("sponge_anemoi", 8, 3): 56,
+    ("sponge_anemoi", 10, 3): 64,
+    ("sponge_anemoi", 12, 3): 72,
     ("sponge_anemoi", 4, 2): 32,
     ("sponge_griffin", 3, 11): 94,
+    ("sponge_griffin", 4, 11): 130,
+    ("sponge_griffin", 8, 11): 255,
     ("sponge_griffin", 8, 3): 64,
+    ("sponge_griffin", 12, 3): 84,
     ("sponge_griffin", 3, 2): 32,
 }
 
@@ -105,9 +122,9 @@ SIGNATURES = {
     # rounds, alpha window and schedule length, inverse-alpha window and
     # schedule length, constants, n0inv
     "sponge_rescue": [c_int, c_int, c_int, c_int, c_int, c_void_p, c_uint],
-    # body (ops/gmimc.py), rounds, alpha, the body's constants and their
-    # length, n0inv
-    "sponge_gmimc": [c_int, c_int, c_uint, c_void_p, c_int, c_uint],
+    # body (ops/gmimc.py), rounds, alpha, front reduction (limb body), the
+    # body's constants and their length, n0inv
+    "sponge_gmimc": [c_int, c_int, c_uint, c_int, c_void_p, c_int, c_uint],
     # rounds, alpha, inverse-alpha window and schedule length, post-linear
     # reduction, constants and their length, n0inv
     "sponge_griffin": [c_int, c_uint, c_int, c_int, c_int, c_void_p, c_int, c_uint],
@@ -195,7 +212,11 @@ def build() -> pathlib.Path:
     t0 = time.perf_counter()
     try:
         with ThreadPoolExecutor(len(cmds)) as pool:
-            logs = list(pool.map(_run, cmds))
+            futures = [pool.submit(_run, cmd) for cmd in cmds]
+        failed = [str(f.exception()) for f in futures if f.exception() is not None]
+        if failed:  # every failing file, not only the first
+            raise RuntimeError("\n\n".join(failed))
+        logs = [f.result() for f in futures]
         logs.append(_run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]))
     finally:
         for obj in objs:

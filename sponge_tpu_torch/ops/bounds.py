@@ -24,8 +24,9 @@ Its one-word body (fields below 2^31) is replayed by ``_P2WordSim``.
 Rescue, GMiMC, Griffin and Anemoi (kernels 5, 8, 6, 7) replay their
 schedules on (value, limb word) bounds through ``_Replay``: GMiMC's limb
 body keeps its rest-branch adds uncarried for the whole permutation (its
-two-word Goldilocks body is replayed by ``_GmimcWordSim``), and Griffin's and Anemoi's optional reductions are taken where
-the replay without them fails.  The TPU kernels' 12-bit fixpoints
+two-word Goldilocks body is replayed by ``_GmimcWordSim``), and GMiMC's,
+Griffin's and Anemoi's optional reductions are taken where the replay
+without them fails.  The TPU kernels' 12-bit fixpoints
 (``pallas_gmimc.py:67``, ``pallas_griffin.py:75``, ``pallas_anemoi.py:69``)
 do not carry over to the port's 24-bit plan.
 """
@@ -422,8 +423,8 @@ def check_p2_bounds(cfg) -> P2Plan:
 class KernelPlan:
     """What a family kernel's replay found: whether the kernel must take its
     optional reduction (Griffin's post-linear, Anemoi's post-PHT Montgomery
-    product by 1; never for GMiMC), and the largest value and 32-bit limb
-    word bound reached."""
+    product by 1, GMiMC's front reduction of its S-box input), and the
+    largest value and 32-bit limb word bound reached."""
 
     reduce: bool
     vmax: int
@@ -526,6 +527,26 @@ class _Replay:
                 acc = self.mul(acc, table[j])
         return acc
 
+    def reduce_front(self, x):
+        """``reduce_front`` (kernel 8): f - q p for a carried f with top word
+        T = f >> S (S = 24 (L - 1)), q = floor(T qinv / 2^32) and qinv =
+        floor((2^32 - 1) / (p_top + 1)), so q p <= f.  Over the values with
+        q = k the largest result is at the largest such T, and it grows
+        with k (a step of q adds at least (p_top + 1) 2^S - p > 0), so the
+        exclusive bound is the larger of the top value's and the top T's of
+        q = kmax - 1."""
+        v, _ = x
+        S = LIMB_BITS * (self.L - 1)
+        qinv = (_W32 - 1) // ((self.p >> S) + 1)
+        q = lambda top: top * qinv >> 32
+        top = (v - 1) >> S
+        kmax = q(top)
+        out = v - kmax * self.p
+        if kmax:
+            below = -(-kmax * _W32 // qinv) - 1  # the largest T with q(T) = kmax - 1
+            out = max(out, ((below + 1) << S) - q(below) * self.p)
+        return self.carried(out)
+
     def exit(self, x):
         """One Montgomery product by 1, then one conditional subtraction."""
         if self.mul(x, self.const)[0] > 2 * self.p:
@@ -551,24 +572,39 @@ def check_rescue_bounds(cfg) -> int:
     return sim.vmax
 
 
-@functools.lru_cache(maxsize=None)
-def check_gmimc_bounds(cfg) -> KernelPlan:
-    """Replay kernel 8's schedule.  Each round copies the front element,
-    adds c_r (carried) and raises it to alpha; F is added word by word,
-    uncarried, to the other t-1 elements, which keep every such add until
-    the exit: values grow by F per add, and limb words by up to 2^24.  The
-    exit is a carry pass and a Montgomery product by 1.  Raises ValueError
-    if a product input could reach R, a limb word 2^32 or the output 2p."""
+def _gmimc_replay(cfg, reduce_front: bool) -> KernelPlan:
     fs, t = cfg.field, cfg.t
     sim = _Replay(f"GMiMC kernel, {fs.name} t={t} rounds={cfg.rounds}", fs)
     xs = [sim.const] * t
     for r in range(cfg.rounds):
         j = r % t  # the front's register; the kernel never moves the state
-        f = sim.pow(sim.add(xs[j], sim.const), cfg.alpha, square=sim.sqr)
+        f = sim.add(xs[j], sim.const)
+        if reduce_front:
+            f = sim.reduce_front(f)
+        f = sim.pow(f, cfg.alpha, square=sim.sqr)
         xs = [x if i == j else sim.lin((1, 1), (x, f)) for i, x in enumerate(xs)]
     for x in xs:
         sim.exit(sim.carry_pass(x))
-    return KernelPlan(False, sim.vmax, sim.wmax)
+    return KernelPlan(reduce_front, sim.vmax, sim.wmax)
+
+
+@functools.lru_cache(maxsize=None)
+def check_gmimc_bounds(cfg) -> KernelPlan:
+    """Replay kernel 8's limb body.  Each round copies the front element,
+    adds c_r (carried), takes the front reduction if the plan has it, and
+    raises the copy to alpha; F is added word by word, uncarried, to the
+    other t-1 elements, which keep every such add until the exit: values
+    grow by F per add, and limb words by up to 2^24.  The exit is a carry
+    pass and a Montgomery product by 1.  Without the reduction the S-box
+    input grows with the elements and F with it: where that replay fails
+    (BLS12-381 at t = 4..9, whose products reach 611-899p of R = 565p), the
+    plan takes the reduction (``reduce``).  Raises ValueError if neither
+    plan keeps every product input below R, every limb word below 2^32 and
+    the output below 2p."""
+    try:
+        return _gmimc_replay(cfg, False)
+    except ValueError:
+        return _gmimc_replay(cfg, True)
 
 
 _W64 = 1 << 64

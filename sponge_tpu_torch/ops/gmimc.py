@@ -7,7 +7,8 @@ by the field (``body``): at Goldilocks the two-word body (one element in two
 32-bit words, plain form, carries of the rest-branch adds kept in an excess
 word; replayed by ``ops/bounds.py`` ``check_gmimc_word_bounds``, its
 constants in the buffer's word section), at every other field the limb body
-(24-bit Montgomery limbs, the rest-branch adds deferred uncarried; bounded by
+(24-bit Montgomery limbs, the rest-branch adds deferred uncarried, the S-box
+input reduced by a quotient estimate where the replay asks for it; bounded by
 ``check_gmimc_bounds``).  ``gmimc_permute_plain`` computes the same function
 with int64 tensor ops, canonical after every step.
 
@@ -25,11 +26,16 @@ from . import _build
 from . import montgomery as mont
 from .bounds import check_gmimc_bounds, check_gmimc_word_bounds
 
-# (t, L) each body is compiled for (csrc/gmimc.cu sponge_gmimc); the union is
-# _build.INSTANTIATIONS["sponge_gmimc"].  The limb body's (8, 3) runs no
-# shipped config (Goldilocks takes the two-word body); chip_smoke.py times it
-# beside the two-word body.
-BODIES = {"limb": frozenset({(3, 11), (8, 3), (3, 2)}), "word": frozenset({(8, 3)})}
+# (t, L) each body is compiled for (csrc/gmimc.cu sponge_gmimc: the limb
+# body's PAIR lines, the two-word body's WORD lines); the union is
+# _build.INSTANTIATIONS["sponge_gmimc"].  The limb body takes every default
+# width of the ~255-bit fields, t = 2..9; the two-word body every Goldilocks
+# one, t = 5..12.  The limb body's (8, 3) runs no shipped config; chip_smoke.py
+# times it beside the two-word body.
+BODIES = {
+    "limb": frozenset({(t, 11) for t in range(2, 10)} | {(8, 3), (3, 2)}),
+    "word": frozenset({(t, 3) for t in range(5, 13)}),
+}
 
 
 def body(cfg: GmimcConfig) -> str:
@@ -51,14 +57,16 @@ def gmimc_permute_plain(cfg: GmimcConfig, consts: torch.Tensor, state: torch.Ten
 
 def _launch_args(cfg: GmimcConfig, consts: torch.Tensor):
     """The body's bound replay, then kernel 8's own C arguments: the body
-    code, the rounds, alpha, the constants the body reads and their length,
-    n0inv.  A body with no instantiation at (t, L) raises: Goldilocks never
-    falls back to the limb body."""
+    code, the rounds, alpha, the front reduction (the limb body's replay
+    asks for it where the values could reach R without it), the constants
+    the body reads and their length, n0inv.  A body with no instantiation at
+    (t, L) raises: Goldilocks never falls back to the limb body."""
     kind = body(cfg)
     if kind == "word":
         check_gmimc_word_bounds(cfg)
+        reduce = 0
     else:
-        check_gmimc_bounds(cfg)
+        reduce = int(check_gmimc_bounds(cfg).reduce)
     if (cfg.t, cfg.field.nlimbs) not in BODIES[kind]:
         raise NotImplementedError(
             f"no CUDA kernel instantiation of kernel 8's {kind} body for t={cfg.t}, L={cfg.field.nlimbs}; "
@@ -67,9 +75,9 @@ def _launch_args(cfg: GmimcConfig, consts: torch.Tensor):
     layout = constant_layout(cfg)
     limb_words = layout_size(layout[:LIMB_SECTIONS])
     if kind == "limb":
-        return 0, cfg.rounds, cfg.alpha, consts.data_ptr(), limb_words, cfg.field.n0inv
+        return 0, cfg.rounds, cfg.alpha, reduce, consts.data_ptr(), limb_words, cfg.field.n0inv
     words = layout_size(layout) - limb_words
-    return 1, cfg.rounds, cfg.alpha, consts[limb_words:].data_ptr(), words, cfg.field.n0inv
+    return 1, cfg.rounds, cfg.alpha, reduce, consts[limb_words:].data_ptr(), words, cfg.field.n0inv
 
 
 def gmimc_permute(cfg: GmimcConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:

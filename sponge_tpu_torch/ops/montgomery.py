@@ -115,16 +115,20 @@ def mont_add(fs: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def mont_pow(fs: FieldSpec, x: torch.Tensor, exponent: int) -> torch.Tensor:
-    """x^exponent by MSB-first square-and-multiply, run by run
-    (``ladder_schedule``), as the CUDA kernels' ``mont_pow``."""
+    """x^exponent of a canonical plane by MSB-first square-and-multiply, run
+    by run (``ladder_schedule``), as the CUDA kernels' ``mont_pow``.  The
+    limb plan leaves R >= 16p (at least 4 bits of headroom), so a product
+    of two values below 2p stays below 4p^2 / R + p < 2p: the chain keeps
+    its products carried but unreduced and reduces the result once (a
+    quarter fewer tensor ops a product than ``mont_mul``)."""
     base = x.long()
     acc = base
     for g in ladder_schedule(exponent):
         for _ in range(abs(g)):
-            acc = mont_mul(fs, acc, acc)
+            acc = redc(fs, columns(acc, acc))
         if g > 0:
-            acc = mont_mul(fs, acc, base)
-    return acc
+            acc = redc(fs, columns(acc, base))
+    return reduce_once(fs, acc)
 
 
 def _exponent_runs(exponent: int) -> tuple[list[int], int]:
@@ -193,6 +197,17 @@ def window_counts(exponent: int, w: int) -> tuple[int, int]:
     if w > 1:
         squarings, muls = squarings + 1, muls + (1 << (w - 1)) - 1
     return squarings, muls
+
+
+# csrc/mont.cuh kWideWords: a state of more words a lane takes the kernels'
+# wide schedule (kernels 5 and 7: one element or Flystel pair at a time, so
+# one window chain, not t or l).
+WIDE_WORDS = 40
+
+
+def wide_state(t: int, L: int) -> bool:
+    """csrc/mont.cuh kWideState: more than ``WIDE_WORDS`` words a lane."""
+    return t * L > WIDE_WORDS
 
 
 # The H100's limits that decide how many 128-thread blocks an SM holds.

@@ -20,7 +20,7 @@ import numpy as np
 
 from ..fields import FieldSpec
 from ..ops._build import registers
-from ..ops.montgomery import window_for, window_schedule
+from ..ops.montgomery import wide_state, window_for, window_schedule
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 
@@ -82,10 +82,12 @@ class RescueConfig:
 @functools.lru_cache(maxsize=None)
 def windows(cfg: RescueConfig) -> tuple[int, int]:
     """Kernel 5's windows (``montgomery.window_for``) for x^alpha and
-    x^(1/alpha): the t chains of a lane at the kernel's registers."""
+    x^(1/alpha): the t chains of a lane at the kernel's registers, or one
+    chain at a wide state (``montgomery.wide_state``: one element at a
+    time)."""
     t, L = cfg.t, cfg.field.nlimbs
-    regs = registers("sponge_rescue", t, L)
-    return window_for(cfg.alpha, L, t, regs), window_for(cfg.inv_alpha, L, t, regs)
+    regs, chains = registers("sponge_rescue", t, L), 1 if wide_state(t, L) else t
+    return window_for(cfg.alpha, L, chains, regs), window_for(cfg.inv_alpha, L, chains, regs)
 
 
 def schedules(cfg: RescueConfig) -> tuple[list[int], list[int]]:

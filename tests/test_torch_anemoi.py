@@ -43,7 +43,7 @@ from sponge_tpu.anemoi.permutation import anemoi_permute_jit
 from sponge_tpu.ops.pallas_anemoi import anemoi_permute_fn
 import sponge_tpu_torch as st
 from sponge_tpu_torch import interop
-from sponge_tpu_torch.anemoi.config import constant_layout, kernel_constants, schedule, unpack_constants, window
+from sponge_tpu_torch.anemoi.config import constant_layout, kernel_constants, pairwise, schedule, unpack_constants, window
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
 from sponge_tpu_torch.hash import merkle_root
 from sponge_tpu_torch.ops import _build
@@ -75,6 +75,12 @@ DEFAULTS = {
     "bls12_381-r3": ("bls12_381", 3),
     "bn254-r3": ("bn254", 3),
     "goldilocks-r4": ("goldilocks", 4),
+    # more widths of the default tables: (6, 11), (8, 11), (6, 3), (10, 3), (12, 3)
+    "bls12_381-r5": ("bls12_381", 5),
+    "bls12_381-r7": ("bls12_381", 7),
+    "goldilocks-r2": ("goldilocks", 2),
+    "goldilocks-r6": ("goldilocks", 6),
+    "goldilocks-r8": ("goldilocks", 8),
 }
 
 
@@ -253,6 +259,12 @@ class Kernel7(Words):
             x, y = [self.mont_mul(v, self.one) for v in x], [self.mont_mul(v, self.one) for v in y]
         return x, y
 
+    def flystel(self, a, b):
+        """One pair (x, y) through the open Flystel."""
+        u = self.add_lazy(self.add_lazy(a, self.mont_mul(self.sqr(b), self.neg_g)), self.neg_ginv)
+        v = self.add_lazy(b, self.mont_mul(self.pow_window(u, self.cfg.inv_alpha, self.w), self.neg_one))
+        return self.add_lazy(u, self.mont_mul(self.sqr(v), self.g)), v
+
     def permute(self, s):
         cfg, L, n = self.cfg, self.L, self.cfg.l
         x, y = s[:n], s[n:]
@@ -260,20 +272,29 @@ class Kernel7(Words):
             x = [self.add_lazy(v, self.rc_x[(r * n + j) * L :][:L]) for j, v in enumerate(x)]
             y = [self.add_lazy(v, self.rc_y[(r * n + j) * L :][:L]) for j, v in enumerate(y)]
             x, y = self.diffusion(x, y)
-            u = [self.add_lazy(self.add_lazy(a, self.mont_mul(self.sqr(b), self.neg_g)), self.neg_ginv)
-                 for a, b in zip(x, y)]
-            y = [self.add_lazy(b, self.mont_mul(self.pow_window(a, cfg.inv_alpha, self.w), self.neg_one))
-                 for a, b in zip(u, y)]
-            x = [self.add_lazy(a, self.mont_mul(self.sqr(b), self.g)) for a, b in zip(u, y)]
+            if pairwise(cfg):  # pair 0, then both columns shifted, l times
+                for _ in range(n):
+                    a, b = self.flystel(x[0], y[0])
+                    x, y = x[1:] + [a], y[1:] + [b]
+            else:
+                x, y = map(list, zip(*(self.flystel(a, b) for a, b in zip(x, y))))
         x, y = self.diffusion(x, y)
         return [self.store(self.mont_mul(v, self.one)) for v in x + y]
 
 
-@pytest.mark.parametrize("name", ["bls12_381_fr-l1-round1", "bls12_381_fr-l2-round1", "goldilocks_fr-l4"])
+KERNEL7 = {
+    **FULL_WIDTH,
+    "bls12_381_fr-l4-round1": lambda: bls_cut(7, package=sponge_tpu),
+    "goldilocks_fr-l6": lambda: sponge_tpu.get_default_anemoi_parameters(sponge_tpu.GOLDILOCKS_FR, 8),
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL7))
 def test_kernel_emulation_matches_oracle(name):
     """Full width (BLS12-381 t = 2 and t = 4 cut to one round, the 254-bit
-    chain at w = 3; Goldilocks t = 8 at w = 4); every column below 2^63."""
-    cfg = interop.config_from_jax(FULL_WIDTH[name]())
+    chain at w = 3; t = 8 one pair at a time, at w = 5; Goldilocks t = 8 and
+    12 in lockstep); every column below 2^63."""
+    cfg = interop.config_from_jax(KERNEL7[name]())
     vals = lanes(cfg.field.modulus, cfg.t, 3, 13)
     kernel = Kernel7(cfg)
     assert emulate(cfg, kernel, vals) == oracle_permute(cfg, vals)

@@ -34,9 +34,9 @@ from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
 from sponge_tpu_torch.gmimc.config import LIMB_SECTIONS, constant_layout, kernel_constants
 from sponge_tpu_torch.ops import _build
-from sponge_tpu_torch.ops.bounds import _GmimcWordSim, check_gmimc_bounds, check_gmimc_word_bounds
+from sponge_tpu_torch.ops.bounds import _GmimcWordSim, _gmimc_replay, check_gmimc_bounds, check_gmimc_word_bounds
 from sponge_tpu_torch.ops.gmimc import BODIES, _launch_args, body, gmimc_permute, gmimc_permute_plain
-from sponge_tpu_torch.ops.montgomery import ladder_schedule, window_schedule
+from sponge_tpu_torch.ops.montgomery import ladder_schedule, wide_state, window_schedule
 from sponge_tpu_torch.poseidon.config import layout_size, mont_limb_rows
 
 JAX_T25 = JaxFieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
@@ -258,7 +258,10 @@ def tiny25(rounds=30, rate=2):
     return jax_generate(JAX_T25, rate, rounds=rounds)
 
 
-DEFAULTS = {"bls12_381-r2": ("bls12_381", 2), "bn254-r2": ("bn254", 2), "goldilocks-r4": ("goldilocks", 4)}
+DEFAULTS = {"bls12_381-r2": ("bls12_381", 2), "bn254-r2": ("bn254", 2), "goldilocks-r4": ("goldilocks", 4),
+            # more widths of the default tables: (4, 11), (9, 11), (2, 11), (5, 3), (12, 3)
+            "bls12_381-r3": ("bls12_381", 3), "bls12_381-r8": ("bls12_381", 8), "bn254-r1": ("bn254", 1),
+            "goldilocks-r1": ("goldilocks", 1), "goldilocks-r8": ("goldilocks", 8)}
 
 
 @pytest.mark.parametrize("name", list(DEFAULTS))
@@ -375,30 +378,58 @@ def test_bound_admits_the_instantiated_configs():
 
 
 def test_bound_refuses_overflowing_round_counts():
-    """BLS12-381 at t = 9 with 238 rounds: the front reaches R.  The 25-bit
-    field (R/p = 2^23) at 400 rounds: about 267 deferred adds of 24-bit
-    limbs reach 2^32 in a word before any value nears R."""
+    """BLS12-381 at t = 9 with 238 rounds: without the front reduction the
+    front reaches R, so the plan takes it.  The 25-bit field (R/p = 2^23) at
+    400 rounds: about 267 deferred adds of 24-bit limbs reach 2^32 in a word
+    before any value nears R, with or without the reduction."""
+    bls9 = st.get_default_gmimc_parameters(st.BLS12_381_FR, 8)
     with pytest.raises(ValueError, match="reach R"):
-        check_gmimc_bounds(st.get_default_gmimc_parameters(st.BLS12_381_FR, 8))
+        _gmimc_replay(bls9, False)
+    assert check_gmimc_bounds(bls9).reduce
     with pytest.raises(ValueError, match="2\\^32"):
         check_gmimc_bounds(st.generate_gmimc_parameters(T25, 2, rounds=400))
-    check_gmimc_bounds(st.generate_gmimc_parameters(T25, 2, rounds=250))
+    assert not check_gmimc_bounds(st.generate_gmimc_parameters(T25, 2, rounds=250)).reduce
 
 
 # ---- word-by-word emulation of csrc/gmimc.cu ----
 
 
+def reduce_front_words(p, f):
+    """``reduce_front`` on carried limb words f (p: the modulus's limbs):
+    f - q p with q = top * qinv / 2^32, qinv = (2^32 - 1) / (p_top + 1),
+    limb by limb with floor-shifted borrows; never negative."""
+    q, c, out = f[-1] * (_M32 // (p[-1] + 1)) >> 32, 0, []
+    for k in range(len(p) - 1):
+        v = f[k] + c - q * p[k]
+        out.append(v & _M24)
+        c = v >> 24
+    top = f[-1] + c - q * p[-1]
+    assert 0 <= top <= _M32
+    return out + [top]
+
+
 class Kernel8(Words):
     """``csrc/gmimc.cu``'s limb body for one lane: the front of round r0 + j
-    is register j and is raised by ``pow_sqr1`` (squarings by ``mont_sqr``);
-    F is added to the other words with no carry; the state is rotated back
-    by rounds mod t at the end."""
+    is register j, its copy plus c_r is reduced by ``reduce_front`` where
+    the plan asks for it and raised by ``pow_sqr1`` (squarings by
+    ``mont_sqr``); F is added to the other words with no carry; the state
+    is rotated back by rounds mod t at the end.  A wide state
+    (``montgomery.wide_state``) rotates as it adds, round by round:
+    x[e - 1] = x[e] + F, x[t - 1] = the old front."""
 
     def __init__(self, cfg):
         super().__init__(cfg.field)
         c = [int(v) for v in kernel_constants(cfg)]
         L = self.L
         self.cfg, self.one, self.rc = cfg, c[L : 2 * L], c[2 * L : 2 * L + cfg.rounds * L]
+        self.reduce = check_gmimc_bounds(cfg).reduce
+
+    def reduce_front(self, f):
+        return reduce_front_words(self.p, f)
+
+    def front(self, x, r):
+        f = self.add_lazy(x, self.rc[r * self.L :][: self.L])
+        return self.pow(self.reduce_front(f) if self.reduce else f, self.cfg.alpha)
 
     def pow(self, x, e):
         """``pow_sqr1``: the run-length schedule of e, squarings by ``sqr``."""
@@ -412,24 +443,40 @@ class Kernel8(Words):
 
     def permute(self, x):
         cfg, L, t = self.cfg, self.L, self.cfg.t
-        for r0 in range(0, cfg.rounds, t):
-            for j in range(min(t, cfg.rounds - r0)):
-                f = self.pow(self.add_lazy(x[j], self.rc[(r0 + j) * L :][:L]), cfg.alpha)
-                x = [v if e == j else [(w + fw) & _M32 for w, fw in zip(v, f)] for e, v in enumerate(x)]
-        s = cfg.rounds % t
-        x = x[s:] + x[:s]
+        add = lambda v, f: [(w + fw) & _M32 for w, fw in zip(v, f)]
+        if wide_state(t, L):
+            for r in range(cfg.rounds):
+                f = self.front(x[0], r)
+                x = [add(v, f) for v in x[1:]] + [x[0]]
+        else:
+            for r0 in range(0, cfg.rounds, t):
+                for j in range(min(t, cfg.rounds - r0)):
+                    f = self.front(x[j], r0 + j)
+                    x = [v if e == j else add(v, f) for e, v in enumerate(x)]
+            s = cfg.rounds % t
+            x = x[s:] + x[:s]
         return [self.store(self.mont_mul(self.carry_pass(v), self.one)) for v in x]
 
 
-@pytest.mark.parametrize("name", ["bls12_381_fr-t3", "goldilocks_fr-t8", "tiny_fr_25-t3"])
+KERNEL8 = {
+    "bls12_381_fr-t3": lambda: st.get_default_gmimc_parameters(st.BLS12_381_FR, 2),
+    "goldilocks_fr-t8": lambda: st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 4),
+    "tiny_fr_25-t3": lambda: st.generate_gmimc_parameters(T25, 2, rounds=250),
+    "bls12_381_fr-t4": lambda: st.get_default_gmimc_parameters(st.BLS12_381_FR, 3),
+    "bls12_381_fr-t9": lambda: st.get_default_gmimc_parameters(st.BLS12_381_FR, 8),
+    "bn254_fr-t9": lambda: st.get_default_gmimc_parameters(st.BN254_FR, 8),
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL8))
 def test_kernel_emulation_matches_oracle(name):
-    cfg = {
-        "bls12_381_fr-t3": lambda: st.get_default_gmimc_parameters(st.BLS12_381_FR, 2),
-        "goldilocks_fr-t8": lambda: st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 4),
-        "tiny_fr_25-t3": lambda: st.generate_gmimc_parameters(T25, 2, rounds=250),
-    }[name]()
+    """All rounds; BLS12-381 t = 4 and t = 9 in the wide order with the
+    front reduction, BN254 t = 9 in the wide order without it."""
+    cfg = KERNEL8[name]()
     vals = lanes(cfg.field.modulus, cfg.t, 4, 13)
-    assert emulate(cfg, Kernel8(cfg), vals) == oracle_permute(cfg, vals)
+    kernel = Kernel8(cfg)
+    assert kernel.reduce == (cfg.field.name == "bls12_381_fr" and cfg.t >= 4)
+    assert emulate(cfg, kernel, vals) == oracle_permute(cfg, vals)
 
 
 # ---- the two-word body (Goldilocks) ----
@@ -576,13 +623,17 @@ def test_body_choice_and_launch_args():
     layout = constant_layout(gl)
     limb_words = layout_size(layout[:LIMB_SECTIONS])
     assert _launch_args(gl, consts) == (
-        1, gl.rounds, gl.alpha, consts.data_ptr() + 4 * limb_words, layout_size(layout) - limb_words, gl.field.n0inv
+        1, gl.rounds, gl.alpha, 0, consts.data_ptr() + 4 * limb_words, layout_size(layout) - limb_words,
+        gl.field.n0inv
     )
     consts = st.GmimcPermutation(bls, "cpu").consts
-    assert _launch_args(bls, consts)[:5] == (0, bls.rounds, bls.alpha, consts.data_ptr(), layout_size(constant_layout(bls)))
-    gl6 = st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 2)  # t = 6
+    assert _launch_args(bls, consts)[:6] == (0, bls.rounds, bls.alpha, 0, consts.data_ptr(),
+                                             layout_size(constant_layout(bls)))
+    bls9 = st.get_default_gmimc_parameters(st.BLS12_381_FR, 8)
+    assert _launch_args(bls9, st.GmimcPermutation(bls9, "cpu").consts)[:4] == (0, bls9.rounds, bls9.alpha, 1)
+    gl3 = st.generate_gmimc_parameters(st.GOLDILOCKS_FR, 2, capacity=1, rounds=20)  # t = 3
     with pytest.raises(NotImplementedError, match="word body"):
-        _launch_args(gl6, st.GmimcPermutation(gl6, "cpu").consts)
+        _launch_args(gl3, st.GmimcPermutation(gl3, "cpu").consts)
 
 
 def test_bound_recount_at_goldilocks():
@@ -622,7 +673,7 @@ def test_dispatch_on_cpu():
     with pytest.raises(NotImplementedError):
         st.batched_permute(tiny25(), state)  # a JAX config
     with pytest.raises(NotImplementedError):
-        _build.check_instantiated("sponge_gmimc", 9, 11)
+        _build.check_instantiated("sponge_gmimc", 10, 11)
     for t, L in _build.INSTANTIATIONS["sponge_gmimc"]:
         _build.check_instantiated("sponge_gmimc", t, L)
     assert gmimc_permute_plain is st.GmimcPermutation.plain

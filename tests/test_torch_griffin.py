@@ -62,17 +62,20 @@ def tiny25(rounds=4, rate=2):
     return jax_generate(JAX_T25, rate, rounds=rounds)
 
 
-def bls_cut(rounds=2, package=st):
-    """The BLS12-381 rate-2 default (of the port, or of the JAX package
+def bls_cut(rounds=2, package=st, rate=2):
+    """The BLS12-381 default of ``rate`` (of the port, or of the JAX package
     ``sponge_tpu``) with its first ``rounds`` rounds."""
-    full = package.get_default_griffin_parameters(package.BLS12_381_FR, 2)
+    full = package.get_default_griffin_parameters(package.BLS12_381_FR, rate)
     return dataclasses.replace(full, rounds=rounds, rc=full.rc[: rounds - 1])
 
 
 # ---- parameters ----
 
 
-DEFAULTS = {"bls12_381-r2": ("bls12_381", 2), "bn254-r2": ("bn254", 2), "goldilocks-r4": ("goldilocks", 4)}
+DEFAULTS = {"bls12_381-r2": ("bls12_381", 2), "bn254-r2": ("bn254", 2), "goldilocks-r4": ("goldilocks", 4),
+            # more widths of the default tables: (4, 11), (8, 11), (12, 3)
+            "bls12_381-r3": ("bls12_381", 3), "bls12_381-r7": ("bls12_381", 7), "bn254-r7": ("bn254", 7),
+            "goldilocks-r8": ("goldilocks", 8)}
 
 
 @pytest.mark.parametrize("name", list(DEFAULTS))
@@ -270,15 +273,28 @@ class Kernel6(Words):
         return acc
 
 
-@pytest.mark.parametrize("name", ["bls12_381_fr-t3-rounds2", "goldilocks_fr-t8", "tiny_fr_25-t8"])
+KERNEL6 = {
+    "bls12_381_fr-t3-rounds2": bls_cut,
+    "goldilocks_fr-t8": lambda: st.get_default_griffin_parameters(st.GOLDILOCKS_FR, 4),
+    "tiny_fr_25-t8": lambda: interop.config_from_jax(tiny25(rate=7)),
+    "bls12_381_fr-t4-rounds2": lambda: bls_cut(rate=3),
+    "bls12_381_fr-t8-rounds6": lambda: bls_cut(6, rate=7),
+    "goldilocks_fr-t12": lambda: st.get_default_griffin_parameters(st.GOLDILOCKS_FR, 8),
+}
+
+
+@pytest.mark.parametrize("name", list(KERNEL6))
 def test_kernel_emulation_matches_oracle(name):
-    cfg = {
-        "bls12_381_fr-t3-rounds2": bls_cut,
-        "goldilocks_fr-t8": lambda: st.get_default_griffin_parameters(st.GOLDILOCKS_FR, 4),
-        "tiny_fr_25-t8": lambda: interop.config_from_jax(tiny25(rate=7)),
-    }[name]()
+    """BLS12-381 t = 3, 4 and 8 cut in rounds (t = 8 at 6 rounds takes the
+    post-linear reduction), Goldilocks t = 8 and 12 (both reduced) and the
+    25-bit t = 8 at all rounds; the 44- and 88-word states (4, 11) and
+    (8, 11) keep kernel 6's one chain per lane and its gates one at a time,
+    the same schedule as at t = 3."""
+    cfg = KERNEL6[name]()
     vals = lanes(cfg.field.modulus, cfg.t, 4, 13)
-    assert emulate(cfg, Kernel6(cfg), vals) == oracle_permute(cfg, vals)
+    kernel = Kernel6(cfg)
+    assert kernel.reduce == (name in ("bls12_381_fr-t8-rounds6", "goldilocks_fr-t8", "goldilocks_fr-t12"))
+    assert emulate(cfg, kernel, vals) == oracle_permute(cfg, vals)
 
 
 def test_window_rule_picks_kernel_6s_windows():
@@ -347,7 +363,7 @@ def test_dispatch_on_cpu():
     with pytest.raises(NotImplementedError):
         st.batched_permute(tiny25(), state)  # a JAX config
     with pytest.raises(NotImplementedError):
-        _build.check_instantiated("sponge_griffin", 4, 11)
+        _build.check_instantiated("sponge_griffin", 10, 11)
     for t, L in _build.INSTANTIATIONS["sponge_griffin"]:
         _build.check_instantiated("sponge_griffin", t, L)
 

@@ -21,6 +21,7 @@ permutation at B = 2^20 against the oracle is a phase of ``chip_smoke.py``.
 The CUDA kernel itself runs on the card.
 """
 
+import dataclasses
 from collections import namedtuple
 
 import jax.numpy as jnp
@@ -45,7 +46,7 @@ from sponge_tpu_torch.hash import merkle_root
 from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops import montgomery as mont
 from sponge_tpu_torch.ops.bounds import _Replay, check_rescue_bounds, sqr_column_bound
-from sponge_tpu_torch.ops.montgomery import _exponent_runs, ladder_schedule, window_counts, window_schedule
+from sponge_tpu_torch.ops.montgomery import _exponent_runs, ladder_schedule, wide_state, window_counts, window_schedule
 from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
 from sponge_tpu_torch.rescue.config import (
     constant_layout,
@@ -107,6 +108,13 @@ DEFAULTS = {
     "mersenne31-r8": ("MERSENNE31_FR", 8),
     "babybear-r8": ("BABYBEAR_FR", 8),
     "goldilocks-r8": ("GOLDILOCKS_FR", 8),
+    # more widths of the default tables: (2, 11), (9, 11), (6, 11), (4, 11), (5, 3), (9, 2)
+    "bls12_381-r1": ("BLS12_381_FR", 1),
+    "bls12_381-r8": ("BLS12_381_FR", 8),
+    "bn254-r5": ("BN254_FR", 5),
+    "bls12_377-r3": ("BLS12_377_FR", 3),
+    "goldilocks-r1": ("GOLDILOCKS_FR", 1),
+    "koalabear-r1": ("KOALABEAR_FR", 1),
 }
 
 
@@ -382,7 +390,9 @@ class Kernel5(Words):
     """``csrc/rescue.cu`` for one lane: per half-round ``pow_window`` on
     every element (x^alpha, then x^(1/alpha), at ``windows(cfg)``), the MDS
     rows summed in 64-bit columns with one REDC each, + rc; the exit
-    product by 1."""
+    product by 1.  A wide state (``montgomery.wide_state``) takes the wide
+    order: element 0 raised and shifted in at the top, t times, then the
+    rows one at a time, each shifted in (``mat_apply_rows``)."""
 
     def __init__(self, cfg):
         super().__init__(cfg.field)
@@ -399,24 +409,39 @@ class Kernel5(Words):
         w_alpha, w_inv = self.windows
         for h in range(2 * cfg.rounds):
             e, w = (cfg.inv_alpha, w_inv) if h % 2 else (cfg.alpha, w_alpha)
-            x = [self.pow_window(v, e, w) for v in x]
-            x = [self.add_lazy(self.mont_row(x, row), self.rc[(h * t + r) * L :][:L])
-                 for r, row in enumerate(self.mds_rows)]
+            if wide_state(t, L):
+                for _ in range(t):
+                    x = x[1:] + [self.pow_window(x[0], e, w)]
+                y = [[0] * L] * t
+                for row in self.mds_rows:
+                    y = y[1:] + [self.mont_row(x, row)]
+            else:
+                x = [self.pow_window(v, e, w) for v in x]
+                y = [self.mont_row(x, row) for row in self.mds_rows]
+            x = [self.add_lazy(v, self.rc[(h * t + r) * L :][:L]) for r, v in enumerate(y)]
         return [self.store(self.mont_mul(v, self.one)) for v in x]
+
+
+def _bls_t9_first_round():
+    full = st.get_default_rescue_parameters(st.BLS12_381_FR, 8)
+    return dataclasses.replace(full, rounds=1, rc=full.rc[:2])
 
 
 KERNEL5 = {
     "bls12_381_fr-t3-round1": _bls_first_round,
     "babybear_fr-t16": lambda: st.get_default_rescue_parameters(st.BABYBEAR_FR, 8),
     "tiny_fr_25-t3": lambda: interop.config_from_jax(tiny25()),
+    "bls12_381_fr-t9-round1": _bls_t9_first_round,
+    "goldilocks_fr-t12": lambda: st.get_default_rescue_parameters(st.GOLDILOCKS_FR, 8),
 }
 
 
 @pytest.mark.parametrize("name", list(KERNEL5))
 def test_kernel_emulation_matches_oracle(name):
     """Full width (BLS12-381 t = 3 cut to one round: both chains, the
-    254-bit one at w = 3) and the small fields on a few lanes with edge
-    values; every column below 2^63."""
+    254-bit one at w = 3; t = 9 in the wide order, the 254-bit chain at
+    w = 5) and the small fields on a few lanes with edge values; every
+    column below 2^63."""
     cfg = KERNEL5[name]()
     vals = lanes(cfg.field.modulus, cfg.t, 3, 17)
     kernel = Kernel5(cfg)

@@ -44,6 +44,7 @@ from sponge_tpu.poseidon2 import OraclePoseidon2Sponge as JaxOracle2
 from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
 from sponge_tpu_torch.ops import _build
+from sponge_tpu_torch.ops import gmimc as gmimc_ops
 from sponge_tpu_torch.ops import poseidon2 as p2_ops
 from sponge_tpu_torch.ops import poseidon_dense, poseidon_opt
 from sponge_tpu_torch.ops.bounds import P2_FOLD_CAPS
@@ -157,15 +158,26 @@ def test_uncompiled_pair_raises_on_a_cuda_tensor_with_no_fallback(index, monkeyp
 
 @pytest.mark.parametrize("source,symbol", [("poseidon_opt.cu", "sponge_poseidon_opt"),
                                            ("poseidon_dense.cu", "sponge_poseidon_dense"),
-                                           ("poseidon2.cu", "limb")])
+                                           ("poseidon2.cu", "limb"),
+                                           ("rescue.cu", "sponge_rescue"),
+                                           ("griffin.cu", "sponge_griffin"),
+                                           ("anemoi.cu", "sponge_anemoi"),
+                                           ("gmimc.cu", "gmimc-limb"),
+                                           ("gmimc.cu", "gmimc-word")])
 def test_c_entry_points_dispatch_the_listed_pairs(source, symbol):
     """Each C entry point's ``PAIR(t, L)`` lines are the pairs ``_build``
-    lists (kernel 3: its limb body's, ``BODIES``), so no listed pair returns
-    -1 on the card and none is compiled unlisted."""
+    lists (kernel 3: its limb body's, ``BODIES``; kernel 8: its limb body's
+    ``PAIR`` lines and its two-word body's ``WORD(t)`` lines at L = 3,
+    ``ops/gmimc.py`` ``BODIES``), so no listed pair returns -1 on the card
+    and none is compiled unlisted."""
     text = (CSRC / source).read_text()
-    pairs = [(int(t), int(L)) for t, L in re.findall(r"^\s*PAIR\((\d+), (\d+)\)$", text, re.M)]
+    if symbol == "gmimc-word":
+        pairs = [(int(t), 3) for t in re.findall(r"^\s*WORD\((\d+)\)$", text, re.M)]
+    else:
+        pairs = [(int(t), int(L)) for t, L in re.findall(r"^\s*PAIR\((\d+), (\d+)\)$", text, re.M)]
     assert len(pairs) == len(set(pairs))
-    want = BODIES["limb"] if symbol == "limb" else _build.INSTANTIATIONS[symbol]
+    want = {"limb": BODIES["limb"], "gmimc-limb": gmimc_ops.BODIES["limb"],
+            "gmimc-word": gmimc_ops.BODIES["word"]}.get(symbol) or _build.INSTANTIATIONS[symbol]
     assert set(pairs) == want
     if symbol == "limb":
         caps = tuple(int(v) for v in re.findall(r"constexpr int kMax(?:Sbox)?Folds = (\d+);", text))
