@@ -11,9 +11,10 @@ Monolith (kernel 4), Rescue-Prime (kernel 5), Griffin-pi (kernel 6), Anemoi
 window, table bytes, registers and spills of each instantiation of kernels
 5, 6 and 7 (failing if the compiled registers would pick another window
 than the shipped one) and kernel 3's registers and staged bytes per body,
-and for kernels 1, 3, 4, 6 and 8 every instantiation's registers, spills
+and for kernels 1-4, 6 and 8 every instantiation's registers, spills
 and blocks per SM and a static SASS census of the timed ones beside the
-products the bound counts (kernel 8: both bodies at Goldilocks).  It first runs
+products the bound counts (kernels 2 and 8: each body, and the limb body at
+Goldilocks).  It first runs
 the probes (launches counted): the dependent latency and the saturated issue
 rate of 32-bit and widening multiply-adds against their peaks, their SASS
 instruction counts, one chain of 64 Montgomery products against two of 32,
@@ -59,8 +60,7 @@ Rescue-Prime, GMiMC, Griffin and Anemoi width: each of the 115 default
 configs through kernels 5, 8, 6 and 7 at 2^12 lanes against the host
 runtime on every lane and the oracle on 16, the first config of each of
 the 44 (t, L) pairs compiled since the wide schedules == plain, each new
-pair at L = 11 and 3 timed at B = 2^20 beside its bound with its census
-line, a lazy Rescue-Prime and an eager GMiMC sponge at BLS12-381 t = 9 (the
+pair timed at B = 2^20 beside its bound with its census line, a lazy Rescue-Prime and an eager GMiMC sponge at BLS12-381 t = 9 (the
 front reduction), a Griffin Goldilocks t = 12 Merkle root and an Anemoi
 BLS12-381 t = 8 transcript at 2^16 lanes), and times
 each kernel beside its plain version with CUDA
@@ -206,6 +206,12 @@ def check_lanes_vs_oracle(cfg, state_in, state_out, lanes, what):
     for b in lanes:
         want = oracle_permute(cfg, lane_ints(cfg.field, state_in, b))
         check(lane_ints(cfg.field, state_out, b) == want, f"{what}: lane {b} differs from the oracle")
+
+
+def call_kernel(k, cfg, perm, state):
+    """Kernel ``k``'s wrapper on ``state`` with ``perm``'s buffers (kernel 2
+    also reads its word bodies' ``perm.words``)."""
+    return k["wrapper"](cfg, perm.consts, state, *((perm.words,) if k.get("words") else ()))
 
 
 def time_ms(fn, reps=3, warm=True):
@@ -599,7 +605,9 @@ def template_args(mangled):
 
 CENSUS_KERNELS = (
     ("kernel 1", "poseidon_opt_kernel"),
-    ("kernel 2", "poseidon_dense_kernel"),
+    ("kernel 2, limb body", "poseidon_dense_kernel"),
+    ("kernel 2, one-word body", "poseidon_dense_word_kernel"),
+    ("kernel 2, two-word body", "poseidon_dense_gl_kernel"),
     ("kernel 3, limb body", "poseidon2_kernel"),
     ("kernel 3, one-word body", "poseidon2_word_kernel"),
     ("kernel 4, generic body", "monolith_kernel"),
@@ -615,12 +623,13 @@ CENSUS_KERNELS = (
 def census_instance(name, cfg, body=None):
     """(kernel name, template arguments, bytes of shared memory per block)
     of the instantiation that runs ``cfg`` (kernel 8: with ``body``, that
-    body's, the limb body's with or without its front reduction as the
-    replay asks): kernels 1, 3, 4, 6 and 8 stage their constants in shared memory
-    (kernels 3 and 8: the limb body its limb sections, the one- or two-word
-    body its word section), kernel 6 its window table after them; kernels 5
-    and 7 hold only their window tables there (one chain at a wide state,
-    kernel 7 from three pairs on)."""
+    body's, its limb body's with or without its front reduction
+    as the replay asks): kernels 1, 2, 3, 4, 6 and 8 stage their constants
+    in shared memory (kernel 2: the limb body p | ark | mds, a word body its
+    own buffer; kernels 3 and 8: the limb body its limb sections, the one-
+    or two-word body its word section), kernel 6 its window table after
+    them; kernels 5 and 7 hold only their window tables there (one chain at
+    a wide state, kernel 7 from three pairs on)."""
     from sponge_tpu_torch.griffin.config import constant_layout as griffin_layout
     from sponge_tpu_torch.griffin.config import window as griffin_window
     from sponge_tpu_torch.monolith.config import constant_layout as monolith_layout
@@ -634,8 +643,14 @@ def census_instance(name, cfg, body=None):
     t, L = cfg.t, cfg.field.nlimbs
     if name == "poseidon_permute_opt":
         return "poseidon_opt_kernel", (t, L), 4 * layout_size(constant_layout(cfg))
-    if name == "poseidon_permute_dense":  # reads its constants from global memory
-        return "poseidon_dense_kernel", (t, L), 0
+    if name == "poseidon_permute_dense":
+        from sponge_tpu_torch.ops import poseidon_dense
+
+        kind = poseidon_dense.body(cfg)
+        if kind == "limb":
+            return "poseidon_dense_kernel", (t, L), 4 * layout_size(constant_layout(cfg)[:3])
+        base = "poseidon_dense_word_kernel" if kind == "one-word" else "poseidon_dense_gl_kernel"
+        return base, (t,), 4 * len(poseidon_dense.word_constants(cfg))
     if name == "monolith_permute":
         plan = check_monolith_bounds(cfg)
         want = (t, L, chunk_pattern(cfg.field), int(plan.concrete == "scaled"), plan_code(plan.folds))
@@ -675,10 +690,10 @@ def census_instance(name, cfg, body=None):
 
 
 def census_phase(report, cfgs):
-    """Kernels 1, 3, 4, 6 and 8: every instantiation's ptxas registers,
+    """Kernels 1-4, 6 and 8: every instantiation's ptxas registers,
     spills and blocks per SM of 128 threads by registers; then for the
     instantiation each path times (``cfgs``: (name, config) pairs, or (name,
-    config, body) for a kernel 8 body the config does not take) its blocks
+    config, body) for a kernel 2 or 8 body the config does not take) its blocks
     per SM with the shared memory it takes and the static SASS census
     (``CENSUS_OPS``, the code of one kernel, loops counted once) beside the
     products one permutation needs (``limb_products``)."""
@@ -772,6 +787,21 @@ def gmimc_body_comparison(cfg, state, path_out, gpu, rates):
         f"in turns limb, word, word, limb, best of each; both outputs == the path's); bound {bound_ms:.3f} ms "
         f"(limb {bound_ms / best['limb']:.1%}, word {bound_ms / best['word']:.1%}), "
         f"{limb_ms:.3f} ms by the limb count [{gpu}]")
+
+
+def dense_plan_text(cfg):
+    """Kernel 2's body and its replay (``ops/bounds.py``
+    ``check_dense_word_bounds``, ``check_dense_gl_bounds`` or
+    ``check_kernel_bounds``)."""
+    from sponge_tpu_torch.ops import bounds
+    from sponge_tpu_torch.ops.poseidon_dense import body
+
+    kind = body(cfg)
+    if kind == "one-word":
+        return f"one-word body, largest row total {bounds.check_dense_word_bounds(cfg) / cfg.field.modulus:.1f}p"
+    if kind == "two-word":
+        return f"two-word body, largest row sum {bounds.check_dense_gl_bounds(cfg) + 1} x 2^128"
+    return "limb body, " + value_bound_text(cfg, bounds.check_kernel_bounds(cfg, False))
 
 
 def probe_phase(st, dev, rng, gpu, peak):
@@ -958,6 +988,7 @@ def main(argv):
     from sponge_tpu_torch.ops.gmimc import gmimc_permute, gmimc_permute_plain
     from sponge_tpu_torch.ops.griffin import griffin_permute, griffin_permute_plain
     from sponge_tpu_torch.ops.poseidon2 import permute_p2, permute_p2_plain
+    from sponge_tpu_torch.ops.poseidon_dense import BODIES as dense_bodies
     from sponge_tpu_torch.ops.poseidon_dense import permute_dense, permute_dense_plain
     from sponge_tpu_torch.ops.poseidon_opt import permute_opt, permute_opt_plain
     from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
@@ -1030,6 +1061,8 @@ def main(argv):
     a_gl = st.get_default_anemoi_parameters(gl, 4)
     a_25 = st.generate_anemoi_parameters(fr25, 3, rounds=5)
     ladder_plain = {id(c) for c in (r_bls, g_bls, a_bls, a_bls1)}  # plain runs at B_LADDER_PLAIN
+    pos_gl = st.get_default_poseidon_parameters(gl, 4)  # kernel 2's two-word body, (8, 3)
+    pos_bb = st.get_default_poseidon_parameters(st.BABYBEAR_FR, 8)  # its one-word body, (16, 2)
     mo_gl = st.get_default_monolith_parameters(gl)
     mo_gl8 = st.get_default_monolith_parameters(gl, 4)
     mo_m31 = st.get_default_monolith_parameters(st.MERSENNE31_FR)
@@ -1040,7 +1073,9 @@ def main(argv):
     window_phase([r_bls, r_bb, r_25, g_bls, g_gl, g_25, a_bls, a_bls1, a_gl, a_25, p2_bls, p2_bb, p2_bb_dense,
                   p2_25, p2_25_dense, p2_25_t3, p2_tiny, p2_low]
                  + [cfg for name, _, cfg in family_configs(st) if name != "gmimc_permute"], _build.ptxas_report())
-    census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("monolith_permute", mo_gl),
+    census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("poseidon_permute_dense", bls),
+                                         ("poseidon_permute_dense", pos_bb), ("poseidon_permute_dense", pos_gl),
+                                         ("monolith_permute", mo_gl),
                                          ("monolith_permute", mo_m31), ("poseidon2_permute", p2_bls),
                                          ("poseidon2_permute", p2_bb), ("poseidon2_permute", p2_kb),
                                          ("poseidon2_permute", p2_bb_dense), ("griffin_permute", g_bls),
@@ -1103,11 +1138,14 @@ def main(argv):
             replaces="sponge_tpu/ops/pallas_cios.py:1248",
         ),
         "poseidon_permute_dense": dict(
-            wrapper=permute_dense, plain=permute_dense_plain, perm=permutation_for,
-            bound=lambda cfg: value_bound_text(cfg, check_kernel_bounds(cfg, False)),
-            configs=[bls, bn, tiny],
+            wrapper=permute_dense, plain=permute_dense_plain, perm=permutation_for, words=True,
+            bound=dense_plan_text,
+            configs=[bls, bn, tiny, pos_gl, pos_bb],
             source="sponge_tpu_torch/csrc/poseidon_dense.cu",
             replaces="sponge_tpu/ops/pallas_permute.py:96",
+            bodies={kind: {"source": "sponge_tpu_torch/csrc/" + ("poseidon_dense.cu" if kind == "limb" else
+                                                                  "poseidon_dense_words.cu"),
+                           "pairs": sorted(pairs)} for kind, pairs in dense_bodies.items()},
         ),
         "poseidon2_permute": dict(
             wrapper=permute_p2, plain=permute_p2_plain,
@@ -1170,7 +1208,7 @@ def main(argv):
             state = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B), rng, dev))
             bound_text = k["bound"](cfg)
             before = k["wrapper"].launches
-            out_k = k["wrapper"](cfg, perm.consts, state)
+            out_k = call_kernel(k, cfg, perm, state)
             torch.cuda.synchronize()
             check(k["wrapper"].launches == before + 1, f"{name}: the kernel was not launched")
             out_p = k["plain"](cfg, perm.consts, state)
@@ -1190,9 +1228,10 @@ def main(argv):
     # path's output there
     def time_kernel(name, cfg, big, lanes, path_out=None):
         k = kernels[name]
-        consts = k["perm"](cfg, dev).consts
+        perm = k["perm"](cfg, dev)
+        consts = perm.consts
         small = big[..., lanes]
-        ms, _ = time_ms(lambda: k["wrapper"](cfg, consts, big))
+        ms, _ = time_ms(lambda: call_kernel(k, cfg, perm, big))
         # the plain version: one run, no warm-up (a ladder family's plain
         # version is some 10^5 launches, 7-17 s on the card's host)
         plain_ms, plain_out = time_ms(lambda: k["plain"](cfg, consts, small), reps=1, warm=False)
@@ -1235,7 +1274,7 @@ def main(argv):
             if name in only:
                 k = kernels[name]
                 big = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
-                big_out = k["wrapper"](cfg, k["perm"](cfg, dev).consts, big)
+                big_out = call_kernel(k, cfg, k["perm"](cfg, dev), big)
                 time_kernel(name, cfg, big, lanes, big_out)
                 if cfg is m_gl:
                     gmimc_body_comparison(cfg, big, big_out, gpu, rates)
@@ -1535,6 +1574,7 @@ def main(argv):
             "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"],
             "library_ms": None,  # no single PyTorch call computes a permutation or a probe chain
+            **({"bodies": k["bodies"]} if "bodies" in k else {}),
             **({"instantiations": k["instantiations"]} if "instantiations" in k else {}),
         }
         for name, k in kernels.items()
@@ -1592,7 +1632,8 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     beyond rate 2 over the ~255-bit fields (``POSEIDON_WIDE_PAIRS``,
     ``P2_WIDE_PAIRS``), the first config of that width (the constraints
     table; BLS12-381 at L = 11) at B_MAIN lanes, CUDA events, best of 3,
-    beside its bound, with its census line.  Then the main path at full
+    beside its bound, with its census line (kernel 2's word pairs (8, 3),
+    (12, 3) and (16, 2) through their word bodies).  Then the main path at full
     width, the launch counters zeroed just before it and read just after: a
     lazy and an eager PoseidonSponge at BLS12-381 rate 8 (t = 9) and
     Goldilocks rate 8 (t = 12) and a lazy Poseidon2 sponge at BLS12-381
@@ -1603,6 +1644,7 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     "instantiations"."""
     from sponge_tpu_torch.fields import limbs_to_ints, mont_tensor_to_ints
     from sponge_tpu_torch.ops.montgomery import blocks_per_sm
+    from sponge_tpu_torch.ops.poseidon_dense import body as dense_body
     from sponge_tpu_torch.poseidon import host
     from sponge_tpu_torch.transcript import Absorb, SqueezeNative, compile_transcript
 
@@ -1620,9 +1662,10 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
         outs = []
         for name in names:
             k = kernels[name]
-            consts = k["perm"](cfg, dev).consts
+            perm = k["perm"](cfg, dev)
+            consts = perm.consts
             before = k["wrapper"].launches
-            out_k = k["wrapper"](cfg, consts, state)
+            out_k = call_kernel(k, cfg, perm, state)
             torch.cuda.synchronize()
             check(k["wrapper"].launches == before + 1, f"{name}: the kernel was not launched at {label}")
             outs.append(out_k)
@@ -1669,8 +1712,8 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
         say("census", f"{name} ({t}, {L}) at {label}: {regs} registers, spills {spill_st}/{spill_ld} B, "
             f"{shared:,} B of shared memory, {blocks} blocks per SM")
         big = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_MAIN), rng, dev)))
-        consts = k["perm"](cfg, dev).consts
-        ms, out = time_ms(lambda: k["wrapper"](cfg, consts, big))
+        perm = k["perm"](cfg, dev)
+        ms, out = time_ms(lambda: call_kernel(k, cfg, perm, big))
         check_lanes_vs_oracle(cfg, big, out, [0, 63, *NEAR_BOUND_LANES, B_MAIN - 1], f"{name} {label} B=2^20")
         bound_ms, bound_by = kernel_bound(name, cfg, B_MAIN, rates)
         wide, narrow = limb_products(name, cfg)
@@ -1678,10 +1721,12 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
             f"perms/s; bound {bound_ms:.3f} ms ({bound_by}, {bound_ms / ms:.1%} of it; {wide:,} wide + {narrow:,} "
             f"32-bit products per permutation); plain torch {plain_ms[(name, t, L)]:.1f} ms at B={B_WIDTH}; "
             f"5 lanes == oracle [{gpu}]")
-        k.setdefault("instantiations", []).append(dict(
-            t=t, L=L, config=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
-            plain_ms=plain_ms[(name, t, L)], plain_batch=B_WIDTH, registers=regs, spill_store_bytes=spill_st,
-            spill_load_bytes=spill_ld, shared_bytes=shared, blocks_per_sm=blocks))
+        row = dict(t=t, L=L, config=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                   plain_ms=plain_ms[(name, t, L)], plain_batch=B_WIDTH, registers=regs, spill_store_bytes=spill_st,
+                   spill_load_bytes=spill_ld, shared_bytes=shared, blocks_per_sm=blocks)
+        if name == "poseidon_permute_dense":
+            row["body"] = dense_body(cfg)
+        k.setdefault("instantiations", []).append(row)
         del big, out
 
     # the main path at full width: sponges and a transcript at t = 9 and 12
@@ -1799,8 +1844,8 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
     kernel against ``host_permute_states`` on every lane and against the
     oracle on 16 lanes; on the first config of each (t, L) compiled since
     the wide schedules (44 pairs), torch.equal to the plain version on the
-    same lanes.  Then each new pair at L = 11 and L = 3 at B_MAIN lanes,
-    CUDA events, best of 3, beside its bound, with its census line.  Then
+    same lanes.  Then each new pair at B_MAIN lanes, CUDA events, best of
+    3, beside its bound, with its census line.  Then
     the main path at full width, the launch counters zeroed just before it
     and read just after: a lazy Rescue-Prime sponge at BLS12-381 rate 8
     (t = 9), an eager GMiMC sponge at BLS12-381 rate 8 (t = 9, the front
@@ -1872,11 +1917,9 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
     say("widths", f"{len(configs)} default Rescue-Prime, GMiMC, Griffin and Anemoi configs through their kernels, "
         f"none refused, none on the plain version; {len(first)} new (t, L) pairs == plain")
 
-    # each new pair at L = 11 and L = 3 at B_MAIN beside its bound, with its census line
+    # each new pair at B_MAIN beside its bound, with its census line
     entries = ptxas_entries(report)
     for (name, t, L), (label, cfg, plain_ms) in first.items():
-        if L == 2:
-            continue
         k, fs = kernels[name], cfg.field
         base, want, shared = census_instance(name, cfg)
         found = [v for key, v in entries.items() if f"{base}I" in key and template_args(key) == want]

@@ -10,8 +10,8 @@
 // add.  A column holds at most (terms + 1) * L such products plus a carry,
 // below 2^55 for every instantiated config.  All limb loops are unrolled
 // except the outer loop of mont_mul_const (the constant is read from memory
-// with the loop index), which kernels 2, 5 and 7 and the probes keep;
-// kernels 1, 3, 4, 6 and 8 stage their constants in shared memory and run
+// with the loop index), which kernels 5 and 7 and the probes keep;
+// kernels 1, 2, 3, 4, 6 and 8 stage their constants in shared memory and run
 // their constant products fully unrolled (mont_mul_staged; kernel 1's
 // sparse round in poseidon_opt.cu sparse_linear).  Results are carried back into
 // 24-bit limbs but only lazily reduced (value < a*b/R + p); the Python side
@@ -19,12 +19,12 @@
 // refuses a config whose values could reach R or end at 2p or more.
 // Kernels 5, 6 and 7 square with mont_sqr and raise to long exponents with
 // pow_window, whose odd-power table sits in dynamic shared memory; kernels
-// 1, 6 and 8 (its limb body) and the probe ablation raise to alpha with
-// pow_sqr (mont_sqr, the t elements of a full round in lockstep, or one at
-// a time at a wide state: kWideWords), kernel 3's limb body with the same
-// chain and its folds (poseidon2.cu p2_sbox);
-// kernel 2 keeps mont_pow.  Kernels 3 and 8 run fields that fit one or two
-// 32-bit words (below 2^31; Goldilocks) in bodies of their own.
+// 1, 2, 6 and 8 (their limb bodies) and the probe ablation raise to alpha
+// with pow_sqr (mont_sqr, the t elements of a full round in lockstep, or
+// one at a time at a wide state: kWideWords), kernel 3's limb body with the
+// same chain and its folds (poseidon2.cu p2_sbox).  Kernels 2, 3 and 8 run
+// fields that fit one or two 32-bit words (below 2^31; Goldilocks) in bodies
+// of their own (words.cuh).
 #pragma once
 
 #include <cstdint>
@@ -49,7 +49,7 @@ __device__ __forceinline__ uint32_t ldc(const int32_t* __restrict__ c) {
 }
 
 // Where a routine reads the constant buffer: the read-only global path, or
-// shared memory the kernel staged the buffer in (kernels 1, 3, 4, 6 and 8
+// shared memory the kernel staged the buffer in (kernels 1, 2, 3, 4, 6 and 8
 // and the probe ablation).  A word read from shared memory lands in an ordinary
 // register; one read from global memory at a warp-uniform address may be
 // kept in a uniform register, and an IMAD.WIDE.U32 with a uniform operand
@@ -330,19 +330,6 @@ __device__ __forceinline__ void small_mat_apply(uint32_t (&x)[T][L],
     for (int k = 0; k < L; ++k) x[i][k] = y[i][k];
 }
 
-// x^alpha by MSB-first square-and-multiply over the bits of alpha.
-template <int L>
-__device__ __forceinline__ void mont_pow(uint32_t (&x)[L], uint32_t alpha, const Modulus<L>& m) {
-  uint32_t base[L];
-#pragma unroll
-  for (int k = 0; k < L; ++k) base[k] = x[k];
-#pragma unroll 1
-  for (int bit = 30 - __clz(static_cast<int>(alpha)); bit >= 0; --bit) {
-    mont_mul(x, x, x, m);
-    if ((alpha >> bit) & 1u) mont_mul(x, x, base, m);
-  }
-}
-
 // out = a^2 / R (mod p), equal word for word to mont_mul(out, a, a, m): the
 // same operand-scanning frame (acc[k] holds column i + k), where row i adds
 // a_i * a_i into column 2i and a_k * 2 a_i into column i + k for k > i, so
@@ -372,9 +359,9 @@ __device__ __forceinline__ void mont_sqr(uint32_t (&out)[L], const uint32_t (&a)
 // the bits of alpha (a runtime value: any PoseidonConfig's alpha runs),
 // squaring with mont_sqr: kernel 1's S-box (N = t in a full round below
 // kWideWords words, else one element at a time; element 0 alone in a partial
-// round) and the probe ablation's.  The bit loop stays
-// rolled, so the chain inlines one squaring and one multiply per element.
-// The words equal mont_pow's, which squares with mont_mul.
+// round), kernel 2's limb body's and the probe ablation's.  The bit loop
+// stays rolled, so the chain inlines one squaring and one multiply per
+// element.  The words equal those of the same chain squaring with mont_mul.
 template <int N, int L>
 __device__ __forceinline__ void pow_sqr(uint32_t (&x)[N][L], uint32_t alpha, const Modulus<L>& m) {
   uint32_t base[N][L];
@@ -543,19 +530,6 @@ __device__ __forceinline__ void store_state(int32_t* __restrict__ out, uint32_t 
   }
 }
 
-
-// A full round: ARK, x^alpha on every element, dense MDS.
-template <int T, int L>
-__device__ __forceinline__ void full_round(uint32_t (&x)[T][L], const int32_t* __restrict__ ark_r,
-                                           const int32_t* __restrict__ mds, uint32_t alpha,
-                                           const Modulus<L>& m) {
-#pragma unroll
-  for (int e = 0; e < T; ++e) {
-    add_const(x[e], ark_r + e * L);
-    mont_pow(x[e], alpha, m);
-  }
-  mds_apply<T, L>(x, mds, m);
-}
 
 static_assert(kLimbBits == 24, "the Python side assumes 24-bit limbs");
 

@@ -67,6 +67,7 @@
 // mat_e (t, t).
 
 #include "mont.cuh"
+#include "words.cuh"
 
 namespace sponge {
 
@@ -185,50 +186,7 @@ __global__ void __launch_bounds__(kThreads)
   store_state<T, L>(out, x, B, b, m);
 }
 
-// ---- the one-word body ----
-
-struct WordField {
-  uint32_t p, n0, barrett;  // p, -p^-1 mod 2^32, floor(2^48 / p)
-};
-
-// (a b + q p) / 2^32 = a b / R' (mod p), below a b / 2^32 + p; the replay
-// keeps a b + q p below 2^64.
-__device__ __forceinline__ uint32_t word_mul(uint32_t a, uint32_t b, const WordField& f) {
-  const uint64_t t = static_cast<uint64_t>(a) * b;
-  const uint32_t q = static_cast<uint32_t>(t) * f.n0;
-  return static_cast<uint32_t>((t + static_cast<uint64_t>(q) * f.p) >> 32);
-}
-
-// v < 2p -> v mod p.
-__device__ __forceinline__ uint32_t word_sub(uint32_t v, const WordField& f) {
-  return min(v, v - f.p);
-}
-
-// A 64-bit sum s < 2^40 -> s mod p up to one p (below 2p): the quotient
-// floor(floor(s / 2^8) * floor(2^48 / p) / 2^40) is floor(s / p) or one less.
-__device__ __forceinline__ uint32_t reduce_wide(uint64_t s, const WordField& f) {
-  const uint32_t q =
-      static_cast<uint32_t>((static_cast<uint64_t>(static_cast<uint32_t>(s >> 8)) * f.barrett) >> 40);
-  return static_cast<uint32_t>(s) - q * f.p;
-}
-
-// x^alpha on N canonical words in lockstep (square-and-multiply over the
-// bits of alpha, a rolled loop); every product ends below p.
-template <int N>
-__device__ __forceinline__ void word_sbox(uint32_t (&x)[N], uint32_t alpha, const WordField& f) {
-  uint32_t base[N];
-#pragma unroll
-  for (int e = 0; e < N; ++e) base[e] = x[e];
-#pragma unroll 1
-  for (int bit = 30 - __clz(static_cast<int>(alpha)); bit >= 0; --bit) {
-#pragma unroll
-    for (int e = 0; e < N; ++e) x[e] = word_sub(word_mul(x[e], x[e], f), f);
-    if ((alpha >> bit) & 1u) {
-#pragma unroll
-      for (int e = 0; e < N; ++e) x[e] = word_sub(word_mul(x[e], base[e], f), f);
-    }
-  }
-}
+// ---- the one-word body (its word arithmetic: words.cuh) ----
 
 // x <- M_E x, each row reduced below 2p.  Structured: M_E = circ(2 M4, M4,
 // ..., M4) with M4 = (5 7 1 3; 4 6 1 1; 1 3 5 7; 1 1 4 6): z = M4 on each

@@ -42,7 +42,8 @@ NVCC_FLAGS = (
 
 # (t, L) pairs compiled into each kernel.  Every kernel covers every width
 # of its family's default tables over the seven fields at rates 1-8.
-# Kernels 1 and 2 (POSEIDON_PAIRS) and kernel 3 (ops/poseidon2.py BODIES)
+# Kernels 1 and 2 (POSEIDON_PAIRS; kernel 2's bodies: ops/poseidon_dense.py
+# BODIES) and kernel 3 (ops/poseidon2.py BODIES)
 # (poseidon/params.py, poseidon2/params.py): the 255/254-bit fields at rates
 # 2-8 (t = 3..9, L = 11; Poseidon2 rates 2, 3 and 7), Goldilocks at rates 4
 # and 8 (8, 3), (12, 3), the 31-bit fields at capacity 8, rate 8 (16, 2).
@@ -114,7 +115,9 @@ def registers(symbol: str, t: int, L: int) -> int:
 SIGNATURES = {
     # alpha, full rounds, partial rounds, constants, n0inv
     "sponge_poseidon_opt": [c_int, c_int, c_int, c_void_p, c_uint],
-    "sponge_poseidon_dense": [c_int, c_int, c_int, c_void_p, c_uint],
+    # the same, then the body (ops/poseidon_dense.py), the word bodies'
+    # constants and their length
+    "sponge_poseidon_dense": [c_int, c_int, c_int, c_void_p, c_uint, c_int, c_void_p, c_int],
     # body (ops/poseidon2.py), full rounds, partial rounds, alpha, small
     # diagonal, the body's constants and their length, fold table (device
     # int32, limb body), n0inv

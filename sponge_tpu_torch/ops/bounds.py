@@ -148,7 +148,7 @@ def check_kernel_bounds(cfg: PoseidonConfig, optimized: bool) -> int:
         raise ValueError(f"{fs.name} t={cfg.t}: output bound {vout / fs.modulus:.2f}p >= 2p")
     if column_bound(cfg.t, fs.nlimbs) >= 1 << 63:
         raise ValueError(f"{fs.name} t={cfg.t}: REDC columns can overflow 63 bits")
-    if optimized and sqr_column_bound(fs.nlimbs) >= 1 << 63:  # kernel 1 squares with mont_sqr
+    if sqr_column_bound(fs.nlimbs) >= 1 << 63:  # both kernels square with mont_sqr
         raise ValueError(f"{fs.name}: squaring columns can overflow 63 bits")
     return vmax
 
@@ -727,6 +727,144 @@ def check_gmimc_word_bounds(cfg) -> int:
     sim.run()
     return sim.emax
 
+
+
+# ---------------------------------------------------------------------------
+# Kernel 2's word bodies (csrc/poseidon_dense_words.cu)
+# ---------------------------------------------------------------------------
+
+DENSE_WORD_GROUP = 4  # products per 64-bit group sum (kWordGroup)
+
+
+class _DenseWordSim(_P2WordSim):
+    """Exclusive bounds through kernel 2's one-word body
+    (``poseidon_dense_word_kernel``): canonical words in and out of every
+    step (products and sums below 2p, then ``word_sub``), and each MDS row
+    (``word_row``) summed in groups of ``DENSE_WORD_GROUP`` products of
+    canonical words by canonical constants, each group sum below 2^64, its
+    high words and its low words summed apart, one REDC of the low sum
+    (low + q p below 2^64), and the total below 2^40 (``reduce_wide``).
+    ``vmax`` is the largest row total."""
+
+    def _fail(self, msg):
+        cfg = self.cfg
+        raise ValueError(f"Poseidon one-word kernel, {cfg.field.name} t={cfg.t}: {msg}")
+
+    def row(self, xs):
+        p, hi, lo = self.p, 0, 0
+        for g in range(0, len(xs), DENSE_WORD_GROUP):
+            s = sum((x - 1) * (p - 1) for x in xs[g : g + DENSE_WORD_GROUP])  # inclusive
+            if s >= _W64:
+                self._fail(f"a group sum of {DENSE_WORD_GROUP} products can reach 2^64")
+            hi, lo = hi + (s >> 32), lo + min(s, _W32 - 1)
+        if lo + (_W32 - 1) * p >= _W64:
+            self._fail("the low sum's REDC can reach 2^64")
+        total = hi + (lo + (_W32 - 1) * p) // _W32 + 1
+        self.vmax = max(self.vmax, total)
+        if total > _WIDE_LIMIT:
+            self._fail(f"a row total can reach 2^{(total - 1).bit_length()} (reduce_wide takes below 2^40)")
+        return self.sub(self.word(2 * p))
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        half = cfg.full_rounds // 2
+        xs = [self.sub(self.mul(p, p))] * cfg.t  # the entry's product by 2^16 mod p
+        for r in range(cfg.rounds):
+            xs = [self.sub(self.add(x, p)) for x in xs]
+            if half <= r < half + cfg.partial_rounds:
+                xs[0] = self.sbox(xs[0])
+            else:
+                xs = [self.sbox(x) for x in xs]
+            xs = [self.row(xs)] * cfg.t  # every row has the same bound
+        for x in xs:
+            self.sub(self.mul(x, p))  # the exit's product by 2^48 mod p: canonical
+
+
+@functools.lru_cache(maxsize=None)
+def check_dense_word_bounds(cfg: PoseidonConfig) -> int:
+    """Replay kernel 2's one-word body on exclusive bounds; raises
+    ValueError if a word, group sum or REDC could reach 2^64 or 2^32 as the
+    body needs, a row total reach 2^40, or the field not lie in (2^16,
+    2^31).  Returns the largest row total."""
+    sim = _DenseWordSim(cfg)
+    sim.run()
+    return sim.vmax
+
+
+class _DenseGLSim(_GmimcWordSim):
+    """Exclusive bounds through kernel 2's two-word body
+    (``poseidon_dense_gl_kernel``, Goldilocks only).  An element is (v, 1):
+    a 64-bit word below v and no excess word.  ARK (``gl_add``) adds a
+    constant below p and brings a carry out of 2^64 back as 2^32 - 1, which
+    must not wrap again; a product is ``_GmimcWordSim.mul``/``sqr``; an MDS
+    row sums t 128-bit products in five 32-bit words (``gl_mac``) and
+    reduces them once (``gl_reduce5``).  ``tmax`` is the largest row sum's
+    top word n4."""
+
+    def __init__(self, cfg):
+        super().__init__(cfg)
+        self.tmax = 0
+
+    def _fail(self, msg):
+        cfg = self.cfg
+        raise ValueError(f"Poseidon two-word kernel, {cfg.field.name} t={cfg.t}: {msg}")
+
+    def add_const(self, x):
+        v = self._word(x[0], "an ARK input") - 1 + self.p - 1  # inclusive
+        if v >= _W64 and v - _W64 + _EPS >= _W64:
+            self._fail("an ARK add's carry fix-up can wrap")
+        return _W64, 1
+
+    def reduce5(self, total):
+        """``gl_reduce5`` of a sum below ``total``: V = n1:n0 - n3 - n2 +
+        (n2 - n4) 2^32 with n2, n3 below 2^32 and n4 below total / 2^128;
+        V + 2^64 less 2^32 - 1 must stay non-negative when V < 0, and
+        V - 2^64 plus 2^32 - 1 below 2^64 when V >= 2^64."""
+        n4 = (total - 1) >> 128
+        self.tmax = max(self.tmax, n4)
+        if n4 >= _W32:
+            self._fail("a row sum can reach 2^160")
+        v_min = -2 * (_W32 - 1) - n4 * _W32
+        v_max = _W64 - 1 + (_W32 - 1) * _W32
+        if v_min + _W64 - _EPS < 0:
+            self._fail("the row reduction's fix-up of a negative sum can wrap")
+        if v_max - _W64 + _EPS >= _W64:
+            self._fail("the row reduction's fix-up of a sum past 2^64 can wrap")
+        return _W64, 1
+
+    def row(self, xs):
+        p = self.p
+        for x in xs:
+            self._halves(x)  # a product input: a word, no excess
+        return self.reduce5(sum((x[0] - 1) * (p - 1) for x in xs) + 1)
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        half = cfg.full_rounds // 2
+        xs = [self.mul((p, 1), (p, 1))] * cfg.t  # the entry's product by 2^-72 mod p
+        for r in range(cfg.rounds):
+            xs = [self.add_const(x) for x in xs]
+            if half <= r < half + cfg.partial_rounds:
+                xs[0] = self.pow(xs[0], cfg.alpha)
+            else:
+                xs = [self.pow(x, cfg.alpha) for x in xs]
+            xs = [self.row(xs)] * cfg.t
+        for x in xs:  # the exit: the product by 2^72 mod p, one subtraction
+            if self.mul(x, (p, 1))[0] > 2 * p:
+                self._fail("the exit's conditional subtraction takes an input of 2p or more")
+
+
+@functools.lru_cache(maxsize=None)
+def check_dense_gl_bounds(cfg: PoseidonConfig) -> int:
+    """Replay kernel 2's two-word body (Goldilocks) on exclusive bounds:
+    every product input a word below 2^64 with no excess, every partial
+    product, middle column and reduction fix-up in range, every ARK add's
+    and row reduction's fix-up unable to wrap.  Raises ValueError if any
+    could fail (or the field is not Goldilocks); returns the largest top
+    word n4 of a row sum."""
+    sim = _DenseGLSim(cfg)
+    sim.run()
+    return sim.tmax
 
 def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:
     fs, t = cfg.field, cfg.t

@@ -5,9 +5,10 @@ Counterpart of ``sponge_tpu/poseidon/permutation.py``.  The state of B
 independent sponges is a ``(t, L, B)`` int32 plane of canonical Montgomery
 limbs; a permutation maps it to a new plane of the same shape.
 
-``PoseidonPermutation`` is an ``nn.Module`` whose constant buffer (round
-constants, MDS, sparse factorization; ``kernel_constants``) is a registered
-buffer, so ``.to("cuda")`` moves it.  ``batched_permute`` keeps one module
+``PoseidonPermutation`` is an ``nn.Module`` whose constant buffers (round
+constants, MDS, sparse factorization: ``kernel_constants``; kernel 2's word
+bodies' own: ``word_constants``) are registered buffers, so ``.to("cuda")``
+moves them.  ``batched_permute`` keeps one module
 per (config, device).  Backends:
 
 * ``"auto"``: the sparse-factorized kernel (``ops/poseidon_opt.py``) for a
@@ -26,7 +27,7 @@ import torch
 from torch import nn
 
 from ..fields import FieldSpec
-from ..ops.poseidon_dense import permute_dense, permute_dense_plain
+from ..ops.poseidon_dense import permute_dense, permute_dense_plain, word_constants
 from ..ops.poseidon_opt import permute_opt
 from .config import PoseidonConfig, kernel_constants
 
@@ -49,13 +50,15 @@ class SpongeConfig(Protocol):
 
 class PoseidonPermutation(nn.Module):
     """The Poseidon permutation of one config as a module (no parameters,
-    no gradient: one int32 constant buffer)."""
+    no gradient: int32 constant buffers, ``consts`` for every backend and
+    ``words`` for kernel 2's word bodies, empty at the other fields)."""
 
     def __init__(self, cfg: PoseidonConfig, device):
         super().__init__()
         self.cfg = cfg
         consts = torch.from_numpy(kernel_constants(cfg))
         self.register_buffer("consts", consts.to(device), persistent=False)
+        self.register_buffer("words", torch.from_numpy(word_constants(cfg)).to(device), persistent=False)
 
     @torch.no_grad()
     def forward(self, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
@@ -66,7 +69,7 @@ class PoseidonPermutation(nn.Module):
                 f"backend={backend!r} runs a CUDA kernel; the state is on {state.device}"
             )
         if backend == "dense" or (backend == "auto" and self.cfg.partial_rounds < 2):
-            return permute_dense(self.cfg, self.consts, state)
+            return permute_dense(self.cfg, self.consts, state, self.words)
         if backend in ("auto", "opt"):
             return permute_opt(self.cfg, self.consts, state)
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")

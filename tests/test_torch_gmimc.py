@@ -200,7 +200,7 @@ class Words:
         return self.add_lazy(x, [0] * self.L)
 
     def pow(self, x, e):
-        """``mont_pow``: the run-length schedule of e."""
+        """x^e by the run-length schedule of e, squaring by ``mont_mul``."""
         acc = x
         for g in ladder_schedule(e):
             for _ in range(abs(g)):

@@ -94,11 +94,11 @@ def test_every_default_poseidon_config_is_instantiated():
     pos = default_poseidon_configs()
     assert len(pos) == 52
     for label, cfg in pos.items():
-        consts = st.PoseidonPermutation(cfg, "cpu").consts
+        perm = st.PoseidonPermutation(cfg, "cpu")
         for symbol in ("sponge_poseidon_opt", "sponge_poseidon_dense"):
             _build.check_instantiated(symbol, cfg.t, cfg.field.nlimbs)
         for optimized in (False, True):
-            args = poseidon_dense._launch_args(cfg, consts, optimized=optimized)
+            args = poseidon_dense._launch_args(cfg, perm.consts, optimized=optimized, words=perm.words)
             assert args[:3] == (cfg.alpha, cfg.full_rounds, cfg.partial_rounds), label
 
 
@@ -163,21 +163,30 @@ def test_uncompiled_pair_raises_on_a_cuda_tensor_with_no_fallback(index, monkeyp
                                            ("griffin.cu", "sponge_griffin"),
                                            ("anemoi.cu", "sponge_anemoi"),
                                            ("gmimc.cu", "gmimc-limb"),
-                                           ("gmimc.cu", "gmimc-word")])
+                                           ("gmimc.cu", "gmimc-word"),
+                                           ("poseidon_dense_words.cu", "dense-one-word"),
+                                           ("poseidon_dense_words.cu", "dense-two-word")])
 def test_c_entry_points_dispatch_the_listed_pairs(source, symbol):
     """Each C entry point's ``PAIR(t, L)`` lines are the pairs ``_build``
-    lists (kernel 3: its limb body's, ``BODIES``; kernel 8: its limb body's
+    lists (kernel 2: its limb body's, ``ops/poseidon_dense.py`` ``BODIES``,
+    and its word bodies' ``WORD(t)`` lines at L = 2 and ``GL(t)`` lines at
+    L = 3; kernel 3: its limb body's, ``BODIES``; kernel 8: its limb body's
     ``PAIR`` lines and its two-word body's ``WORD(t)`` lines at L = 3,
     ``ops/gmimc.py`` ``BODIES``), so no listed pair returns -1 on the card
     and none is compiled unlisted."""
     text = (CSRC / source).read_text()
-    if symbol == "gmimc-word":
-        pairs = [(int(t), 3) for t in re.findall(r"^\s*WORD\((\d+)\)$", text, re.M)]
+    if symbol in ("gmimc-word", "dense-one-word"):
+        L = 2 if symbol == "dense-one-word" else 3
+        pairs = [(int(t), L) for t in re.findall(r"^\s*WORD\((\d+)\)$", text, re.M)]
+    elif symbol == "dense-two-word":
+        pairs = [(int(t), 3) for t in re.findall(r"^\s*GL\((\d+)\)$", text, re.M)]
     else:
         pairs = [(int(t), int(L)) for t, L in re.findall(r"^\s*PAIR\((\d+), (\d+)\)$", text, re.M)]
     assert len(pairs) == len(set(pairs))
     want = {"limb": BODIES["limb"], "gmimc-limb": gmimc_ops.BODIES["limb"],
-            "gmimc-word": gmimc_ops.BODIES["word"]}.get(symbol) or _build.INSTANTIATIONS[symbol]
+            "gmimc-word": gmimc_ops.BODIES["word"], "sponge_poseidon_dense": poseidon_dense.BODIES["limb"],
+            "dense-one-word": poseidon_dense.BODIES["one-word"],
+            "dense-two-word": poseidon_dense.BODIES["two-word"]}.get(symbol) or _build.INSTANTIATIONS[symbol]
     assert set(pairs) == want
     if symbol == "limb":
         caps = tuple(int(v) for v in re.findall(r"constexpr int kMax(?:Sbox)?Folds = (\d+);", text))
