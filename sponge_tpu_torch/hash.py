@@ -6,16 +6,21 @@ Merkle root and tree with batched opening and verification, the same over
 wide digests (d-element nodes, for small fields), and Jive-mode trees
 (``sponge_tpu/hash.py:509-619``).  Every config of the port drives them.
 The kernels take any batch width, so levels are neither chunked nor padded
-(the JAX package pads to reuse XLA compilations).
+(the JAX package pads to reuse XLA compilations).  A tree, each of its
+levels, a batch of openings and a ``hash_elements`` call are spans
+(``utils.profiling``: ``merkle.tree``, ``merkle.level``, ``merkle.open``,
+``hash.elements``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .ops import montgomery as mont
 from .poseidon.permutation import SpongeConfig, batched_permute, zero_state
 from .transcript import add_rows
+from .utils.profiling import ELEMENTS, LEVEL, OPEN, TREE, annotate
 
 
 def hash_elements(
@@ -24,29 +29,30 @@ def hash_elements(
     """(k, L, B) Montgomery element plane -> (num_outputs, L, B): fresh
     sponge, absorb k elements, squeeze ``num_outputs`` (Montgomery form)."""
     k, _, B = elems.shape
-    state = zero_state(cfg, B, elems.device)
-    cap = cfg.capacity
-    pos = 0
-    while True:
-        chunk = elems[pos : pos + cfg.rate]
-        n = chunk.shape[0]
-        if n:
-            state = add_rows(cfg, state, 0, chunk)
-        pos += n
-        if pos >= k:
-            break
-        state = batched_permute(cfg, state, backend)
-    state = batched_permute(cfg, state, backend)  # absorb -> squeeze flip
-    outs = []
-    remaining = num_outputs
-    while True:
-        if remaining <= cfg.rate:
-            outs.append(state[cap : cap + remaining])
-            break
-        outs.append(state[cap : cap + cfg.rate])
-        remaining -= cfg.rate
-        state = batched_permute(cfg, state, backend)
-    return torch.cat(outs)
+    with annotate(ELEMENTS, B):
+        state = zero_state(cfg, B, elems.device)
+        cap = cfg.capacity
+        pos = 0
+        while True:
+            chunk = elems[pos : pos + cfg.rate]
+            n = chunk.shape[0]
+            if n:
+                state = add_rows(cfg, state, 0, chunk)
+            pos += n
+            if pos >= k:
+                break
+            state = batched_permute(cfg, state, backend)
+        state = batched_permute(cfg, state, backend)  # absorb -> squeeze flip
+        outs = []
+        remaining = num_outputs
+        while True:
+            if remaining <= cfg.rate:
+                outs.append(state[cap : cap + remaining])
+                break
+            outs.append(state[cap : cap + cfg.rate])
+            remaining -= cfg.rate
+            state = batched_permute(cfg, state, backend)
+        return torch.cat(outs)
 
 
 def _pairwise(cfg: SpongeConfig) -> None:
@@ -101,12 +107,14 @@ def merkle_open_batch(levels: list, indices) -> torch.Tensor:
     """Authentication paths of K leaves as one (depth, ..., K) gather: path
     [d][..., k] is the sibling of leaf k's ancestor at depth d.  Serves the
     narrow (L, N) and the wide (d, L, N) levels alike."""
-    idx = _indices(indices, levels[0].shape[-1], f"{levels[0].shape[-1]} leaves", levels[0].device)
-    sibs = []
-    for level in levels[:-1]:
-        sibs.append(level.index_select(-1, idx ^ 1))
-        idx = idx >> 1
-    return torch.stack(sibs)
+    count = indices.numel() if isinstance(indices, torch.Tensor) else int(np.size(indices))
+    with annotate(OPEN, count):
+        idx = _indices(indices, levels[0].shape[-1], f"{levels[0].shape[-1]} leaves", levels[0].device)
+        sibs = []
+        for level in levels[:-1]:
+            sibs.append(level.index_select(-1, idx ^ 1))
+            idx = idx >> 1
+        return torch.stack(sibs)
 
 
 def merkle_verify_batch(
@@ -160,9 +168,12 @@ def _tree_levels(cfg, leaves: torch.Tensor, backend: str, compress) -> list:
     if N < 1 or N & (N - 1):
         raise ValueError("leaf count must be a power of two")
     levels = [leaves]
-    while levels[-1].shape[-1] > 1:
-        pairs = levels[-1].reshape(d, L, levels[-1].shape[-1] // 2, 2)
-        levels.append(compress(cfg, pairs[..., 0], pairs[..., 1], backend))
+    with annotate(TREE, N):
+        while levels[-1].shape[-1] > 1:
+            half = levels[-1].shape[-1] // 2
+            with annotate(LEVEL, half):
+                pairs = levels[-1].reshape(d, L, half, 2)
+                levels.append(compress(cfg, pairs[..., 0], pairs[..., 1], backend))
     return levels
 
 

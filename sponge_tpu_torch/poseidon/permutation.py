@@ -29,6 +29,7 @@ from torch import nn
 from ..fields import FieldSpec
 from ..ops.poseidon_dense import permute_dense, permute_dense_plain, word_constants
 from ..ops.poseidon_opt import permute_opt
+from ..utils.profiling import PERMUTE, annotate
 from .config import PoseidonConfig, kernel_constants
 
 BACKENDS = ("auto", "opt", "dense", "plain")
@@ -85,12 +86,14 @@ def batched_permute(cfg: SpongeConfig, state: torch.Tensor, backend: str = "auto
     """Backend-dispatched batched permutation (see module docstring).  Any
     other config of the port (Poseidon2, Rescue-Prime, GMiMC, Griffin,
     Anemoi) goes to its family's hook, ``cfg.batched_permute(state,
-    backend)``, with backends "auto", "kernel" and "plain"."""
+    backend)``, with backends "auto", "kernel" and "plain".  Each call is
+    one ``sponge.permute`` span (``utils.profiling``), its count the lanes."""
     if not isinstance(getattr(cfg, "field", None), FieldSpec):
         raise NotImplementedError(f"{type(cfg).__name__}: not a config of the PyTorch port")
-    if isinstance(cfg, PoseidonConfig):
-        return permutation_for(cfg, state.device)(state, backend)
-    return cfg.batched_permute(state, backend)
+    with annotate(PERMUTE, state.shape[-1]):
+        if isinstance(cfg, PoseidonConfig):
+            return permutation_for(cfg, state.device)(state, backend)
+        return cfg.batched_permute(state, backend)
 
 
 def permute(cfg: SpongeConfig, state: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch
 
 from .ops import montgomery as mont
 from .poseidon.permutation import SpongeConfig, batched_permute, zero_state
+from .utils.profiling import ABSORB, annotate
 
 
 @dataclass(frozen=True)
@@ -44,11 +45,13 @@ Step = Union[Absorb, SqueezeNative]
 
 def add_rows(cfg: SpongeConfig, state: torch.Tensor, start: int, chunk: torch.Tensor):
     """``state[capacity+start : +k] += chunk`` as a NEW tensor: sponges share
-    planes between clones, so a plane is never written in place."""
-    lo = cfg.capacity + start
-    hi = lo + chunk.shape[0]
-    rows = mont.mont_add(cfg.field, state[lo:hi], chunk).int()
-    return torch.cat([state[:lo], rows, state[hi:]])
+    planes between clones, so a plane is never written in place.  One
+    ``sponge.absorb`` span (``utils.profiling``), its count the lanes."""
+    with annotate(ABSORB, chunk.shape[-1]):
+        lo = cfg.capacity + start
+        hi = lo + chunk.shape[0]
+        rows = mont.mont_add(cfg.field, state[lo:hi], chunk).int()
+        return torch.cat([state[:lo], rows, state[hi:]])
 
 
 def _replay(

@@ -1,15 +1,31 @@
-"""Tracing, throughput and static cost counts of sponge workloads.
+"""Tracing of sponge workloads.
 
 Counterpart of ``sponge_tpu/utils/profiling.py``:
 
 * ``trace``: a ``torch.profiler`` capture of the enclosed block (CPU and,
   where there is a GPU, CUDA activity), written as a Chrome trace;
-* ``annotate``: a named span in that trace (``record_function``);
+* ``annotate``: the port's span.  While a profiler records, it is a named
+  range in the profiler's trace (``record_function``) and a record kept in
+  memory: its name, the enclosing span, a count, its host time and, once
+  CUDA is initialised, its device time on the current stream.  While none
+  records, it is one shared no-op;
+* ``spans`` and ``reset``: the records since the last reset;
 * ``device_busy_share``: the share of the traced window in which a CUDA
-  kernel ran;
-* ``ThroughputMeter``: permutations per second of a step function;
-* ``sbox_muls`` and ``op_counts``: the static per-permutation arithmetic
-  count of a Poseidon config.
+  kernel ran.
+
+The port opens these spans, each with the count named beside it:
+
+* ``merkle.tree``: ``hash._tree_levels``, the leaves;
+* ``merkle.level``: each level of it, the nodes the level produces;
+* ``merkle.open``: ``hash.merkle_open_batch``, the openings;
+* ``hash.elements``: ``hash.hash_elements``, the lanes;
+* ``sponge.absorb``: ``transcript.add_rows``, the lanes;
+* ``sponge.permute``: ``poseidon.permutation.batched_permute``, the lanes,
+  which are the permutations.
+
+    with profiling.trace("run"):
+        hash.merkle_tree(cfg, leaves)
+    profiling.spans()  # [{"name": "merkle.tree", "parent": None, ...}, ...]
 """
 
 from __future__ import annotations
@@ -17,27 +33,136 @@ from __future__ import annotations
 import contextlib
 import json
 import pathlib
+import threading
 import time
-from dataclasses import dataclass
 
 import torch
+from torch.autograd import profiler as autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from ..poseidon.config import PoseidonConfig
-
 TRACE_FILE = "trace.json"
+
+TREE = "merkle.tree"
+LEVEL = "merkle.level"
+OPEN = "merkle.open"
+ELEMENTS = "hash.elements"
+ABSORB = "sponge.absorb"
+PERMUTE = "sponge.permute"
+
+
+class _Recorder:
+    """The spans of this process, in the order they opened, and each
+    thread's open spans (their indices)."""
+
+    def __init__(self):
+        self.records: list = []
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def open_spans(self) -> list:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def reset(self) -> None:
+        with self.lock:
+            self.records = []
+        self.open_spans().clear()
+
+    def spans(self) -> list:
+        with self.lock:
+            records = list(self.records)
+        if any(r.events is not None for r in records):
+            torch.cuda.synchronize()
+        for r in records:
+            if r.events is not None and r.host_ns is not None:
+                start, end = r.events
+                r.device_us, r.events = start.elapsed_time(end) * 1e3, None
+        return [{"name": r.name, "parent": r.parent, "count": r.count,
+                 "host_us": None if r.host_ns is None else r.host_ns * 1e-3, "device_us": r.device_us}
+                for r in records]
+
+
+_RECORDER = _Recorder()
+
+
+class _Span:
+    """One span while a profiler records (``annotate``), and its record."""
+
+    __slots__ = ("name", "count", "parent", "index", "range", "events", "t0", "host_ns", "device_us")
+
+    def __init__(self, name: str, count):
+        self.name, self.count = name, count
+        self.events = self.host_ns = self.device_us = None
+
+    def __enter__(self):
+        stack = _RECORDER.open_spans()
+        self.parent = stack[-1] if stack else None
+        with _RECORDER.lock:
+            self.index = len(_RECORDER.records)
+            _RECORDER.records.append(self)
+        stack.append(self.index)
+        self.range = record_function(self.name)
+        self.range.__enter__()
+        if torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.events = (start, torch.cuda.Event(enable_timing=True))
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        if self.events is not None:
+            self.events[1].record()
+        self.range.__exit__(*exc)
+        self.host_ns = t1 - self.t0
+        stack = _RECORDER.open_spans()
+        if stack and stack[-1] == self.index:
+            stack.pop()
+        return False
+
+
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str, count=None):
+    """A span called ``name`` over the ``with`` block, with ``count`` units
+    of work.  Only while a profiler records (PyTorch's own flag for fast
+    checks) does it record anything; otherwise it is one shared no-op."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, count)
+
+
+def spans() -> list:
+    """The spans recorded since the last ``reset``, in the order they opened:
+    dicts of ``name``, ``parent`` (the enclosing span's index in this list,
+    or None), ``count``, ``host_us`` and ``device_us`` (the time between
+    CUDA events on the current stream at entry and exit, idle included;
+    None without CUDA).  A span still open has neither time.  Synchronises
+    the device."""
+    return _RECORDER.spans()
+
+
+def reset() -> None:
+    """Forget every span recorded so far."""
+    _RECORDER.reset()
 
 
 @contextlib.contextmanager
 def trace(log_dir):
     """Profile the enclosed block and write ``log_dir/trace.json`` (Chrome
     trace format; open it in Perfetto).  CUDA work is traced where a GPU is
-    present and synchronized before the trace ends."""
+    present and synchronized before the trace ends.  The spans start afresh
+    (``reset``) and stay readable by ``spans`` afterwards."""
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     path = pathlib.Path(log_dir)
     path.mkdir(parents=True, exist_ok=True)
+    reset()
     with profile(activities=activities) as prof:
         try:
             yield
@@ -45,9 +170,6 @@ def trace(log_dir):
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
     prof.export_chrome_trace(str(path / TRACE_FILE))
-
-
-annotate = record_function
 
 
 def _events(trace_path) -> list:
@@ -79,57 +201,3 @@ def device_busy_share(trace_path) -> dict:
             reach = hi
     window = end - start
     return {"window_us": window, "kernel_us": busy, "busy_share": busy / window, "kernels": by_name}
-
-
-@dataclass
-class ThroughputMeter:
-    """Sustained permutations per second of a state -> state step function."""
-
-    reps: int = 8
-
-    def measure(self, step_fn, state: torch.Tensor) -> float:
-        out = step_fn(state)
-        _sync(out)
-        t0 = time.perf_counter()
-        for _ in range(self.reps):
-            out = step_fn(out)
-        _sync(out)
-        dt = (time.perf_counter() - t0) / self.reps
-        return out.shape[-1] / dt
-
-
-def _sync(x: torch.Tensor) -> None:
-    if x.is_cuda:
-        torch.cuda.synchronize(x.device)
-
-
-def sbox_muls(alpha: int) -> int:
-    """Field multiplies per S-box application (square-and-multiply chain)."""
-    bits = bin(alpha)[2:]
-    return (len(bits) - 1) + bits[1:].count("1")
-
-
-def op_counts(cfg: PoseidonConfig) -> dict:
-    """Static per-permutation arithmetic count of ``cfg``, as the JAX
-    package's: Montgomery multiplies as the scalar reference performs them
-    (S-boxes and a dense MDS every round), and its estimate of the 32-bit
-    multiplies per lane of its kernel, whose limbs have 12 bits (not the
-    port's 24)."""
-    p = cfg.field.modulus
-    L = -(-(p.bit_length() + 4) // 12)  # the JAX package's limb count
-    t = cfg.t
-    s = sbox_muls(cfg.alpha)
-    sbox_apps = cfg.full_rounds * t + cfg.partial_rounds
-    field_muls = sbox_apps * s + cfg.rounds * t * t
-    redc = sum(1 for k in range(L) if (p >> (12 * k)) & 0xFFF) * L
-    per_mul = L * L + redc
-    mds_per_round = t * (t * L * L + redc)
-    int32_muls = sbox_apps * s * per_mul + cfg.rounds * mds_per_round
-    return {
-        "rounds": cfg.rounds,
-        "sbox_applications": sbox_apps,
-        "sbox_muls_each": s,
-        "field_muls": field_muls,
-        "int32_muls_cios_per_lane": int32_muls,
-        "r1cs_constraints_per_permutation": s * sbox_apps,
-    }

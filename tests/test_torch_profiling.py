@@ -1,33 +1,15 @@
-"""The port's profiling helpers (``utils/profiling.py``): the static cost
-counts equal the JAX package's on the 14 default BLS12-381 Poseidon
-configs; ``trace`` writes a Chrome trace holding an ``annotate`` span;
-``device_busy_share`` reads kernel time from a trace; ``ThroughputMeter``
-gives a positive rate.  On the CPU a trace holds no CUDA kernel, so its
-busy share is 0: the device's share is read on the card (chip_smoke.py)."""
+"""The port's profiling helpers (``utils/profiling.py``): ``trace`` writes
+a Chrome trace holding an ``annotate`` span; ``device_busy_share`` reads
+kernel time from a trace.  On the CPU a trace holds no CUDA kernel, so its
+busy share is 0: the device's share is read on the card (chip_smoke.py).
+The spans' records are tested in ``test_torch_spans.py``."""
 
 import json
 
 import pytest
 
-import sponge_tpu
-from sponge_tpu.utils import profiling as jprof
 import sponge_tpu_torch as st
 from sponge_tpu_torch.utils import profiling as prof
-
-DEFAULTS = [(rate, opt) for opt in (False, True) for rate in range(2, 9)]
-
-
-@pytest.mark.parametrize("rate,opt", DEFAULTS, ids=[f"rate{r}-{'w' if o else 'c'}" for r, o in DEFAULTS])
-def test_op_counts_match_jax(rate, opt):
-    jcfg = sponge_tpu.get_default_poseidon_parameters(sponge_tpu.BLS12_381_FR, rate, opt)
-    cfg = st.get_default_poseidon_parameters(st.BLS12_381_FR, rate, opt)
-    assert prof.op_counts(cfg) == jprof.op_counts(jcfg)
-    assert prof.sbox_muls(cfg.alpha) == jprof.sbox_muls(jcfg.alpha)
-
-
-def test_sbox_muls_match_jax():
-    for alpha in (3, 5, 7, 11, 17, 257, 2**64 - 2**32 + 1):
-        assert prof.sbox_muls(alpha) == jprof.sbox_muls(alpha)
 
 
 def test_trace_writes_annotated_chrome_trace(tmp_path):
@@ -62,9 +44,3 @@ def test_device_busy_share_counts_overlaps_once(tmp_path):
     path.write_text(json.dumps([]))
     with pytest.raises(ValueError, match="no timed events"):
         prof.device_busy_share(path)
-
-
-def test_throughput_meter_gives_positive_rate():
-    cfg = st.get_default_poseidon_parameters(st.GOLDILOCKS_FR, 4)
-    rate = prof.ThroughputMeter(reps=2).measure(lambda s: st.batched_permute(cfg, s), st.zero_state(cfg, 16, "cpu"))
-    assert isinstance(rate, float) and rate > 0
