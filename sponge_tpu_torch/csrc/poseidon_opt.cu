@@ -51,6 +51,18 @@
 // Constant buffer layout (int32, limb axis last; poseidon/config.py
 // constant_layout): p (L) | ark (R, t, L) | mds (t, t, L) |
 // chat (R_P-1, t, L) | row0 (R_P-1, t, L) | col0 (R_P-1, t-1, L) | D (t, t, L).
+//
+// The sponge's rate I/O happens at the kernel's edges (RateIO), so a sponge
+// step (absorb, permute, squeeze) is one launch: the absorbed rows are added
+// into the state as it is loaded, and only the rows the caller keeps are
+// stored.  Without it a step cost a dozen small PyTorch kernels around this
+// one (an int64 add with its carry pass and conditional subtraction, casts,
+// a cat that rebuilt the whole state, the squeeze's copy): 11% of a
+// BLS12-381 Merkle commitment's device time and 29% of a Goldilocks row
+// commitment's (PERF.md).  The rows are canonical and so is the state, so a
+// sum needs one conditional subtraction (mont_add's arithmetic) and the
+// permutation's input stays canonical.  The I/O is read from kernel
+// parameters at run time, so there is one instantiation per (t, L) still.
 
 #include "mont.cuh"
 
@@ -136,11 +148,63 @@ __device__ __forceinline__ void add_round_constants(uint32_t (&x)[T][L], const i
 template <int T>
 constexpr int kOptMinBlocks = T == 3 ? 4 : 1;
 
+// A launch's rate I/O (ops/poseidon_opt.py absorb_permute_opt).  rows[v]:
+// up to two (k, L, B) views (null: absent), element v * k + r of them added
+// into state row lo + v * k + r; each view is read through its own element
+// strides (row, limb, lane), so the even and odd lanes of a Merkle level
+// are two views of it with lane stride 2.  fresh: the state is zero and
+// ``in`` is not read.  Rows [out_lo, out_hi) of the permuted state are
+// stored, as an (out_hi - out_lo, L, B) plane.  No rows, not fresh and rows
+// [0, t) is the plain permutation.
+struct RateIO {
+  const int32_t* rows[2];
+  long long stride[2][3];
+  int k, lo, fresh, out_lo, out_hi;
+};
+
+// Load the state (or zeros) and add the rate rows into it: each added row
+// is canonical, so x + row < 2p, and one conditional subtraction leaves it
+// canonical.  The branches are uniform across the grid.
+template <int T, int L>
+__device__ __forceinline__ void load_absorb(uint32_t (&x)[T][L], const int32_t* __restrict__ in, long long B,
+                                            long long b, const RateIO io, const Modulus<L>& m) {
+#pragma unroll
+  for (int e = 0; e < T; ++e) {
+#pragma unroll
+    for (int k = 0; k < L; ++k) x[e][k] = io.fresh ? 0u : static_cast<uint32_t>(in[(e * L + k) * B + b]);
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int r = e - io.lo - v * io.k;
+      if (io.rows[v] == nullptr || r < 0 || r >= io.k) continue;
+      const int32_t* __restrict__ src = io.rows[v] + r * io.stride[v][0] + b * io.stride[v][2];
+      uint32_t y[L];
+#pragma unroll
+      for (int k = 0; k < L; ++k) y[k] = static_cast<uint32_t>(src[k * io.stride[v][1]]);
+      add_lazy(x[e], y);
+      reduce_once(x[e], m);
+    }
+  }
+}
+
+// store_state for rows [lo, hi) of the state alone, into an (hi - lo, L, B)
+// plane.
+template <int T, int L>
+__device__ __forceinline__ void store_rows(int32_t* __restrict__ out, uint32_t (&x)[T][L], long long B,
+                                           long long b, int lo, int hi, const Modulus<L>& m) {
+#pragma unroll
+  for (int e = 0; e < T; ++e) {
+    if (e < lo || e >= hi) continue;
+    reduce_once(x[e], m);
+#pragma unroll
+    for (int k = 0; k < L; ++k) out[((e - lo) * L + k) * B + b] = static_cast<int32_t>(x[e][k]);
+  }
+}
+
 template <int T, int L>
 __global__ void __launch_bounds__(kThreads, kOptMinBlocks<T>)
     poseidon_opt_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
                         uint32_t alpha, int full_rounds, int partial_rounds,
-                        const int32_t* __restrict__ consts, int words, uint32_t n0inv) {
+                        const int32_t* __restrict__ consts, int words, uint32_t n0inv, const RateIO io) {
   extern __shared__ int32_t c[];
   stage_constants(c, consts, words);
   const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -158,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, kOptMinBlocks<T>)
   const int half = full_rounds / 2;
 
   uint32_t x[T][L];
-  load_state<T, L>(x, in, B, b);
+  load_absorb<T, L>(x, in, B, b, io, m);
   // Stage s = 0..R_F: the linear layer of the stage before (D after the
   // partial phase, the MDS after a full round), then full round s (s < half)
   // or s + R_P - 1 (s > half), or at s = half the partial phase; stage
@@ -192,34 +256,45 @@ __global__ void __launch_bounds__(kThreads, kOptMinBlocks<T>)
         sparse_linear<T, L>(x, row0 + r * T * L, col0 + r * (T - 1) * L, m);
     }
   }
-  store_state<T, L>(out, x, B, b, m);
+  store_rows<T, L>(out, x, B, b, io.out_lo, io.out_hi, m);
 }
 
 template <int T, int L>
 int launch_opt(const int32_t* in, int32_t* out, long long B, int alpha, int full_rounds,
-               int partial_rounds, const int32_t* consts, unsigned n0inv, cudaStream_t stream) {
+               int partial_rounds, const int32_t* consts, unsigned n0inv, const RateIO& io, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   // p | ark | mds | chat | row0 | col0 | D
   const int words = L + ((full_rounds + partial_rounds) * T + 2 * T * T + (partial_rounds - 1) * (3 * T - 1)) * L;
   const size_t bytes = static_cast<size_t>(words) * sizeof(int32_t);
   if (const int err = allow_dynamic_shared(poseidon_opt_kernel<T, L>, bytes)) return err;
   poseidon_opt_kernel<T, L><<<blocks, kThreads, bytes, stream>>>(
-      in, out, B, static_cast<uint32_t>(alpha), full_rounds, partial_rounds, consts, words, n0inv);
+      in, out, B, static_cast<uint32_t>(alpha), full_rounds, partial_rounds, consts, words, n0inv, io);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sponge
 
-// Plain C entry point (ctypes), same contract as sponge_poseidon_dense; the
-// same (t, L) pairs.
+// Plain C entry point (ctypes), the contract of sponge_poseidon_dense and
+// the same (t, L) pairs, then the rate I/O (sponge::RateIO): the two row
+// views (null: absent) with their element strides (row, limb, lane), the
+// rows per view, the state row of the first, fresh (``in`` may be null),
+// and the stored rows [out_lo, out_hi) (``out`` is (out_hi - out_lo, L, B)).
 extern "C" int sponge_poseidon_opt(const int32_t* in, int32_t* out, long long B, int t, int L,
                                    int alpha, int full_rounds, int partial_rounds,
-                                   const int32_t* consts, unsigned n0inv, void* stream) {
+                                   const int32_t* consts, unsigned n0inv, const int32_t* rows0,
+                                   const int32_t* rows1, int k, long long row0_stride, long long limb0_stride,
+                                   long long lane0_stride, long long row1_stride, long long limb1_stride,
+                                   long long lane1_stride, int lo, int fresh, int out_lo, int out_hi,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (partial_rounds < 2) return -1;
+  if (k < 0 || lo < 0 || lo + (rows1 ? 2 : 1) * k > t || out_lo < 0 || out_lo >= out_hi || out_hi > t) return -1;
+  const sponge::RateIO io{{rows0, rows1},
+                          {{row0_stride, limb0_stride, lane0_stride}, {row1_stride, limb1_stride, lane1_stride}},
+                          k, lo, fresh, out_lo, out_hi};
 #define PAIR(T_, L_)                                                                              \
   if (t == T_ && L == L_)                                                                         \
-    return sponge::launch_opt<T_, L_>(in, out, B, alpha, full_rounds, partial_rounds, consts, n0inv, s);
+    return sponge::launch_opt<T_, L_>(in, out, B, alpha, full_rounds, partial_rounds, consts, n0inv, io, s);
   PAIR(3, 11)
   PAIR(4, 11)
   PAIR(5, 11)

@@ -18,8 +18,7 @@ import numpy as np
 import torch
 
 from .ops import montgomery as mont
-from .poseidon.permutation import SpongeConfig, batched_permute, zero_state
-from .transcript import add_rows
+from .poseidon.permutation import SpongeConfig, absorb_permute, batched_permute
 from .utils.profiling import ELEMENTS, LEVEL, OPEN, TREE, annotate
 
 
@@ -27,32 +26,30 @@ def hash_elements(
     cfg: SpongeConfig, elems: torch.Tensor, num_outputs: int = 1, backend: str = "auto"
 ) -> torch.Tensor:
     """(k, L, B) Montgomery element plane -> (num_outputs, L, B): fresh
-    sponge, absorb k elements, squeeze ``num_outputs`` (Montgomery form)."""
+    sponge, absorb k elements, squeeze ``num_outputs`` (Montgomery form).
+    Each rate's chunk is one sponge step (``absorb_permute``), the last one
+    the absorb -> squeeze flip, which keeps only the squeezed rows when they
+    fit the rate."""
     k, _, B = elems.shape
+    cap, rate = cfg.capacity, cfg.rate
     with annotate(ELEMENTS, B):
-        state = zero_state(cfg, B, elems.device)
-        cap = cfg.capacity
-        pos = 0
+        state = None
+        chunks = max(1, -(-k // rate))  # no elements: the flip alone
+        for i in range(chunks):
+            squeeze = i == chunks - 1 and num_outputs <= rate
+            state = absorb_permute(cfg, state, 0, elems[i * rate : (i + 1) * rate],
+                                   out_rows=(cap, cap + num_outputs) if squeeze else None, backend=backend)
+        if num_outputs <= rate:
+            return state
+        outs = [state[cap : cap + rate]]
+        remaining = num_outputs - rate
         while True:
-            chunk = elems[pos : pos + cfg.rate]
-            n = chunk.shape[0]
-            if n:
-                state = add_rows(cfg, state, 0, chunk)
-            pos += n
-            if pos >= k:
-                break
             state = batched_permute(cfg, state, backend)
-        state = batched_permute(cfg, state, backend)  # absorb -> squeeze flip
-        outs = []
-        remaining = num_outputs
-        while True:
-            if remaining <= cfg.rate:
+            if remaining <= rate:
                 outs.append(state[cap : cap + remaining])
-                break
-            outs.append(state[cap : cap + cfg.rate])
-            remaining -= cfg.rate
-            state = batched_permute(cfg, state, backend)
-        return torch.cat(outs)
+                return torch.cat(outs)
+            outs.append(state[cap : cap + rate])
+            remaining -= rate
 
 
 def _pairwise(cfg: SpongeConfig) -> None:
@@ -156,9 +153,14 @@ def compress_digest_pairs(
     cfg: SpongeConfig, left: torch.Tensor, right: torch.Tensor, backend: str = "auto"
 ) -> torch.Tensor:
     """(d, L, B) x (d, L, B) -> (d, L, B): a fresh sponge absorbs the 2d
-    elements and squeezes d (``hash_elements``; one permutation when
-    2d <= rate)."""
-    return hash_elements(cfg, torch.cat([left, right]), num_outputs=left.shape[0], backend=backend)
+    elements and squeezes d (``hash_elements``).  When 2d <= rate that is one
+    sponge step, which reads ``left`` and ``right`` where they lie (a
+    level's even and odd lanes, with no copy)."""
+    d = left.shape[0]
+    if 2 * d > cfg.rate:
+        return hash_elements(cfg, torch.cat([left, right]), num_outputs=d, backend=backend)
+    with annotate(ELEMENTS, left.shape[-1]):
+        return absorb_permute(cfg, None, 0, left, right, (cfg.capacity, cfg.capacity + d), backend)
 
 
 def _tree_levels(cfg, leaves: torch.Tensor, backend: str, compress) -> list:

@@ -113,8 +113,12 @@ def registers(symbol: str, t: int, L: int) -> int:
 # Arguments between (in, out, B, t, L) and the stream, per symbol (the C
 # functions in csrc/*.cu).
 SIGNATURES = {
-    # alpha, full rounds, partial rounds, constants, n0inv
-    "sponge_poseidon_opt": [c_int, c_int, c_int, c_void_p, c_uint],
+    # alpha, full rounds, partial rounds, constants, n0inv, then the rate
+    # I/O (csrc/poseidon_opt.cu RateIO): two row views, the rows per view,
+    # each view's element strides (row, limb, lane), the state row of the
+    # first view, fresh, the stored rows [lo, hi)
+    "sponge_poseidon_opt": [c_int, c_int, c_int, c_void_p, c_uint, c_void_p, c_void_p, c_int,
+                            *[c_longlong] * 6, c_int, c_int, c_int, c_int],
     # the same, then the body (ops/poseidon_dense.py), the word bodies'
     # constants and their length
     "sponge_poseidon_dense": [c_int, c_int, c_int, c_void_p, c_uint, c_int, c_void_p, c_int],
@@ -247,33 +251,43 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(symbol: str, state, out, *args) -> None:
-    """Launch ``symbol`` on the current CUDA stream of ``state``'s device with
+def launch(symbol: str, state, out, *args, shape=None) -> None:
+    """Launch ``symbol`` on the current CUDA stream of ``out``'s device with
     the symbol's own arguments ``args`` (``SIGNATURES``); raises if the launch
-    is refused."""
-    t, L, B = state.shape
-    with torch.cuda.device(state.device):
-        stream = torch.cuda.current_stream(state.device).cuda_stream
-        rc = getattr(library(), symbol)(state.data_ptr(), out.data_ptr(), B, t, L, *args, stream)
+    is refused.  ``state`` None passes a null input (a kernel told to read
+    none), and ``shape`` then gives its (t, L, B)."""
+    t, L, B = state.shape if shape is None else shape
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = getattr(library(), symbol)(None if state is None else state.data_ptr(), out.data_ptr(), B, t, L,
+                                        *args, stream)
     if rc != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {rc}")
+
+
+def check_constants(consts: torch.Tensor, device, layout) -> None:
+    """Validate a constant buffer laid out by ``layout`` (the config
+    family's ``constant_layout(cfg)``) for data on ``device``."""
+    size = layout_size(layout)
+    if consts.dtype != torch.int32:
+        raise TypeError("constants must be int32")
+    if tuple(consts.shape) != (size,) or not consts.is_contiguous():
+        raise ValueError(f"constants must be kernel_constants(cfg): {size} words")
+    if consts.device != device:
+        raise ValueError(f"constants on {consts.device}, data on {device}")
 
 
 def check_state(cfg, consts: torch.Tensor, state: torch.Tensor, layout) -> None:
     """Validate a (t, L, B) int32 state plane and its constant buffer, laid
     out by ``layout`` (the config family's ``constant_layout(cfg)``)."""
-    size = layout_size(layout)
     shape = (cfg.t, cfg.field.nlimbs)
     if state.dim() != 3 or tuple(state.shape[:2]) != shape:
         raise ValueError(f"state must be (t, L, B) = {shape + ('B',)}, got {tuple(state.shape)}")
-    if state.dtype != torch.int32 or consts.dtype != torch.int32:
-        raise TypeError("state and constants must be int32")
+    if state.dtype != torch.int32:
+        raise TypeError("state must be int32")
     if not state.is_contiguous():
         raise ValueError("state must be contiguous")
-    if tuple(consts.shape) != (size,) or not consts.is_contiguous():
-        raise ValueError(f"constants must be kernel_constants(cfg): {size} words")
-    if consts.device != state.device:
-        raise ValueError(f"constants on {consts.device}, state on {state.device}")
+    check_constants(consts, state.device, layout)
 
 
 def run(wrapper, symbol: str, cfg, consts: torch.Tensor, state: torch.Tensor, layout, plain, launch_args):

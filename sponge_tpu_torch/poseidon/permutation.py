@@ -16,6 +16,12 @@ per (config, device).  Backends:
 * ``"opt"`` / ``"dense"``: that CUDA kernel; a CPU tensor raises;
 * ``"plain"``: the dense plain PyTorch permutation (``permute``), on any
   device.
+
+``absorb_permute`` is one sponge step: rate rows added into a state (or a
+fresh zero sponge), the permutation, the rows the caller keeps.  Where
+``batched_permute`` would run kernel 1 it is one launch of kernel 1
+(``ops/poseidon_opt.py`` ``absorb_permute_opt``; on the CPU its plain
+version); elsewhere ``add_rows``, ``batched_permute`` and a slice.
 """
 
 from __future__ import annotations
@@ -28,8 +34,9 @@ from torch import nn
 
 from ..fields import FieldSpec
 from ..ops.poseidon_dense import permute_dense, permute_dense_plain, word_constants
-from ..ops.poseidon_opt import permute_opt
-from ..utils.profiling import PERMUTE, annotate
+from ..ops import montgomery as mont
+from ..ops.poseidon_opt import absorb_permute_opt, permute_opt
+from ..utils.profiling import ABSORB, ABSORB_FUSED, PERMUTE, annotate
 from .config import PoseidonConfig, kernel_constants
 
 BACKENDS = ("auto", "opt", "dense", "plain")
@@ -94,6 +101,51 @@ def batched_permute(cfg: SpongeConfig, state: torch.Tensor, backend: str = "auto
         if isinstance(cfg, PoseidonConfig):
             return permutation_for(cfg, state.device)(state, backend)
         return cfg.batched_permute(state, backend)
+
+
+def add_rows(cfg: SpongeConfig, state: torch.Tensor, start: int, chunk: torch.Tensor):
+    """``state[capacity+start : +k] += chunk`` as a NEW tensor: sponges share
+    planes between clones, so a plane is never written in place.  One
+    ``sponge.absorb`` span (``utils.profiling``), its count the lanes."""
+    with annotate(ABSORB, chunk.shape[-1]):
+        lo = cfg.capacity + start
+        hi = lo + chunk.shape[0]
+        rows = mont.mont_add(cfg.field, state[lo:hi], chunk).int()
+        return torch.cat([state[:lo], rows, state[hi:]])
+
+
+def absorb_permute(
+    cfg: SpongeConfig, state, start: int, rows: torch.Tensor, rows2=None, out_rows=None, backend: str = "auto"
+) -> torch.Tensor:
+    """One sponge step: the canonical (k, L, B) planes ``rows`` and then
+    ``rows2`` (views of any strides) added into the rate of ``state`` from
+    rate position ``start`` (``state`` None: a fresh zero sponge), the
+    permutation, and the permuted state's rows ``out_rows`` = (lo, hi) as a
+    new (hi - lo, L, B) plane (all t rows by default).  Where
+    ``batched_permute`` would launch kernel 1 (a ``PoseidonConfig`` with
+    R_P >= 2, backend "auto", or "opt" on a CUDA tensor) the step is one
+    launch of it, or its plain version on the CPU: a ``sponge.absorb_fused``
+    span around a ``sponge.permute`` span, both counting the lanes.  Every
+    other config, backend or device runs ``add_rows`` (of the two planes'
+    ``cat``), ``batched_permute`` and a copy of the rows kept, as a sponge
+    does."""
+    views = (rows,) if rows2 is None else (rows, rows2)
+    k = sum(v.shape[0] for v in views)
+    if start < 0 or start + k > cfg.rate:
+        raise ValueError(f"{k} rows from rate position {start} pass the rate {cfg.rate}")
+    lanes = rows.shape[-1]
+    if (isinstance(cfg, PoseidonConfig) and cfg.partial_rounds >= 2
+            and (backend == "auto" or (backend == "opt" and rows.device.type == "cuda"))):
+        with annotate(ABSORB_FUSED, lanes), annotate(PERMUTE, lanes):
+            consts = permutation_for(cfg, rows.device).consts
+            return absorb_permute_opt(cfg, consts, state, cfg.capacity + start, views,
+                                      (0, cfg.t) if out_rows is None else out_rows)
+    if state is None:
+        state = zero_state(cfg, lanes, rows.device)
+    if k:
+        state = add_rows(cfg, state, start, rows if rows2 is None else torch.cat(views))
+    state = batched_permute(cfg, state, backend)
+    return state if out_rows is None else state[out_rows[0] : out_rows[1]].clone()
 
 
 def permute(cfg: SpongeConfig, state: torch.Tensor) -> torch.Tensor:

@@ -22,8 +22,7 @@ from typing import Sequence, Tuple, Union
 import torch
 
 from .ops import montgomery as mont
-from .poseidon.permutation import SpongeConfig, batched_permute, zero_state
-from .utils.profiling import ABSORB, annotate
+from .poseidon.permutation import SpongeConfig, add_rows, batched_permute, zero_state
 
 
 @dataclass(frozen=True)
@@ -41,17 +40,6 @@ class SqueezeNative:
 
 
 Step = Union[Absorb, SqueezeNative]
-
-
-def add_rows(cfg: SpongeConfig, state: torch.Tensor, start: int, chunk: torch.Tensor):
-    """``state[capacity+start : +k] += chunk`` as a NEW tensor: sponges share
-    planes between clones, so a plane is never written in place.  One
-    ``sponge.absorb`` span (``utils.profiling``), its count the lanes."""
-    with annotate(ABSORB, chunk.shape[-1]):
-        lo = cfg.capacity + start
-        hi = lo + chunk.shape[0]
-        rows = mont.mont_add(cfg.field, state[lo:hi], chunk).int()
-        return torch.cat([state[:lo], rows, state[hi:]])
 
 
 def _replay(

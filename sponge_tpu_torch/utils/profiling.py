@@ -19,9 +19,11 @@ The port opens these spans, each with the count named beside it:
 * ``merkle.level``: each level of it, the nodes the level produces;
 * ``merkle.open``: ``hash.merkle_open_batch``, the openings;
 * ``hash.elements``: ``hash.hash_elements``, the lanes;
-* ``sponge.absorb``: ``transcript.add_rows``, the lanes;
-* ``sponge.permute``: ``poseidon.permutation.batched_permute``, the lanes,
-  which are the permutations.
+* ``sponge.absorb``: ``poseidon.permutation.add_rows``, the lanes;
+* ``sponge.absorb_fused``: ``poseidon.permutation.absorb_permute`` where
+  kernel 1 adds the rows as it loads the state, the lanes;
+* ``sponge.permute``: ``poseidon.permutation.batched_permute``, and inside
+  ``sponge.absorb_fused``, the lanes, which are the permutations.
 
     with profiling.trace("run"):
         hash.merkle_tree(cfg, leaves)
@@ -47,6 +49,7 @@ LEVEL = "merkle.level"
 OPEN = "merkle.open"
 ELEMENTS = "hash.elements"
 ABSORB = "sponge.absorb"
+ABSORB_FUSED = "sponge.absorb_fused"
 PERMUTE = "sponge.permute"
 
 

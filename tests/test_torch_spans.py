@@ -3,7 +3,7 @@
 absorb and permutation dispatch of the port is one span, nested as the
 calls nest, with its count; the ``sponge.permute`` counts add up to the
 permutations a shape needs; while none records, ``annotate`` is one shared
-no-op and nothing is kept.  The benchmark's four readers of the spans
+no-op and nothing is kept.  The benchmark's five readers of the spans
 (``spongebench/metrics``) on hand-built span lists.  On the CPU no span has
 a device time."""
 
@@ -42,18 +42,30 @@ def ceil_div(a, b):
     return -(-a // b)
 
 
-def expected_hash(k, outputs, rate, lanes, parent, out):
+def fused(cfg):
+    """Whether the config's sponge steps are one launch of kernel 1 (or its
+    plain version): a Poseidon config."""
+    return isinstance(cfg, st.PoseidonConfig)
+
+
+def expected_hash(k, outputs, rate, lanes, parent, out, fused=False):
     """The spans of ``hash_elements`` over k elements, appended to ``out``
     as (name, parent, count): the absorbs, the permutations between them,
-    the flip to squeezing, one more per further rate of outputs."""
+    the flip to squeezing, one more per further rate of outputs.  Fused, each
+    rate's absorb holds its permutation, the last one the flip."""
     me = len(out)
     out.append((prof.ELEMENTS, parent, lanes))
     chunks = ceil_div(k, rate)
     for i in range(chunks):
+        if fused:
+            out.append((prof.ABSORB_FUSED, me, lanes))
+            out.append((prof.PERMUTE, len(out) - 1, lanes))
+            continue
         out.append((prof.ABSORB, me, lanes))
         if i < chunks - 1:
             out.append((prof.PERMUTE, me, lanes))
-    out.append((prof.PERMUTE, me, lanes))
+    if not fused:
+        out.append((prof.PERMUTE, me, lanes))
     out.extend([(prof.PERMUTE, me, lanes)] * (ceil_div(outputs, rate) - 1))
 
 
@@ -67,7 +79,7 @@ def expected_tree(cfg, kind, d, n, out, parent=None):
         if kind == "jive":
             out.append((prof.PERMUTE, level, n))
         else:
-            expected_hash(2 * d, d, cfg.rate, n, level, out)
+            expected_hash(2 * d, d, cfg.rate, n, level, out, fused(cfg))
 
 
 def shape(spans):
@@ -91,7 +103,7 @@ def run_path(cfg, path, kind, d):
     elif path == "hash_elements":
         k = cfg.rate + 1
         sthash.hash_elements(cfg, torch.zeros((k, L, B), dtype=torch.int32), 2)
-        expected_hash(k, 2, cfg.rate, B, None, want)
+        expected_hash(k, 2, cfg.rate, B, None, want, fused(cfg))
     else:
         run = compile_transcript(cfg, [Absorb(cfg.rate + 1), SqueezeNative(2)])
         run(torch.zeros((cfg.rate + 1, L, B), dtype=torch.int32))
@@ -177,6 +189,27 @@ def test_permute_counts_add_up_to_the_cells_permutations(cell):
     assert outer == ([prof.ELEMENTS] if k > d else []) + [prof.TREE] + ([prof.OPEN] if openings else [])
     if openings:
         assert got[-1]["count"] == openings
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_cells_absorb_inside_the_permutation_launch(cell):
+    """Every absorb of both cells' commitments is a sponge step of kernel 1
+    (its plain version here): a ``sponge.absorb_fused`` span around one
+    ``sponge.permute`` span of the same lanes, and no ``sponge.absorb``
+    span; the permutations' lanes are the job's count, as before."""
+    field, rate, k, d, openings = CELLS[cell]
+    cfg = st.get_default_poseidon_parameters(field, rate)
+    log2n = 3 if k == 1 else 2
+    prof.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        commitment(cfg, 1 << log2n, k, d, openings)
+    got = prof.spans()
+    absorbs = [i for i, s in enumerate(got) if s["name"] == prof.ABSORB_FUSED]
+    permutes = [s for s in got if s["name"] == prof.PERMUTE]
+    assert not [s for s in got if s["name"] == prof.ABSORB]
+    assert [s["parent"] for s in permutes] == absorbs
+    assert [got[i]["count"] for i in absorbs] == [s["count"] for s in permutes]
+    assert sum(s["count"] for s in permutes) == cell_permutations(rate, k, d, 1 << log2n)
 
 
 def test_annotate_is_one_shared_noop_with_the_profiler_off():
@@ -351,6 +384,23 @@ def test_readers_give_none_without_what_they_read(readers, monkeypatch, name, ca
     else:  # a run on the host
         monkeypatch.setattr(prof, "spans", lambda: [dict(s, device_us=None) for s in HAND_MADE])
     assert read[name](ctx) is None
+
+
+def test_absorb_fused_share_counts_lanes(monkeypatch):
+    """``absorb_fused_share.commit``: the fused absorbs' lanes over all
+    absorbed lanes, with or without device times; None with no absorb."""
+    from spongebench.harness import resolve
+
+    cell = resolve("gl-fri-commit-2p21")
+    read = {name: reader for name, _, reader in cell.per_layer}["absorb_fused_share.commit"]
+    fused = [span(prof.ABSORB_FUSED, None, 1 << 18, 40.0, 300.0), span(prof.PERMUTE, 0, 1 << 18, 30.0, 290.0),
+             span(prof.ABSORB_FUSED, None, 1 << 16, 40.0, None)]
+    for spans, want in ((HAND_MADE, 0.0), (fused, 100.0), (HAND_MADE + fused, 100 * 5 / 12),
+                        ([], None), (HAND_MADE[3:5], None)):
+        monkeypatch.setattr(prof, "spans", lambda spans=spans: [dict(s) for s in spans])
+        assert read(None) == (None if want is None else pytest.approx(want))
+    monkeypatch.delattr(prof, "spans")
+    assert read(None) is None
 
 
 def test_permute_bound_share_needs_the_cards_peaks(readers, monkeypatch):
