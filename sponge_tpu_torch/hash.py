@@ -3,13 +3,15 @@
 Counterpart of ``sponge_tpu/hash.py:23-506``: batched 2-to-1 compression
 (one permutation per node), fixed-length hashing of element blocks, the
 Merkle root and tree with batched opening and verification, the same over
-wide digests (d-element nodes, for small fields), and Jive-mode trees
-(``sponge_tpu/hash.py:509-619``).  Every config of the port drives them.
+wide digests (d-element nodes, for small fields), Jive-mode trees
+(``sponge_tpu/hash.py:509-619``), and Plonky3's padding-free sponge and
+truncated-permutation trees.  Every config of the port drives them.
 The kernels take any batch width, so levels are neither chunked nor padded
 (the JAX package pads to reuse XLA compilations).  A tree, each of its
-levels, a batch of openings and a ``hash_elements`` call are spans
+levels, a batch of openings, a ``hash_elements`` and a
+``padding_free_hash`` call and each truncated compression are spans
 (``utils.profiling``: ``merkle.tree``, ``merkle.level``, ``merkle.open``,
-``hash.elements``).
+``hash.elements``, ``hash.padding_free``, ``merkle.truncate``).
 """
 
 from __future__ import annotations
@@ -18,8 +20,8 @@ import numpy as np
 import torch
 
 from .ops import montgomery as mont
-from .poseidon.permutation import SpongeConfig, absorb_permute, batched_permute
-from .utils.profiling import ELEMENTS, LEVEL, OPEN, TREE, annotate
+from .poseidon.permutation import SpongeConfig, absorb_permute, batched_permute, overwrite_rows, zero_state
+from .utils.profiling import ELEMENTS, LEVEL, OPEN, PADDING_FREE, TREE, TRUNCATE, annotate
 
 
 def hash_elements(
@@ -94,24 +96,37 @@ def merkle_open(levels: list, index: int) -> list:
 
 
 def _indices(indices, bound: int, what: str, device) -> torch.Tensor:
-    idx = torch.as_tensor(indices, dtype=torch.int64, device=device).reshape(-1)
-    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= bound):
+    """K leaf indices as an int64 tensor on ``device``, each in [0, bound).
+    Indices given on the host are checked there and reach a CUDA device by
+    a pinned, non-blocking copy, so neither waits for the device's queue:
+    the gathers that use them queue behind the tree the device is still
+    computing."""
+    if isinstance(indices, torch.Tensor):
+        idx = indices.to(device=device, dtype=torch.int64).reshape(-1)
+        lo, hi = (int(idx.min()), int(idx.max())) if idx.numel() else (0, 0)
+    else:
+        host = np.asarray(indices, dtype=np.int64).reshape(-1)
+        lo, hi = (int(host.min()), int(host.max())) if host.size else (0, 0)
+        idx = torch.from_numpy(host)
+        if torch.device(device).type == "cuda":
+            idx = idx.pin_memory().to(device, non_blocking=True)
+        else:
+            idx = idx.to(device)
+    if lo < 0 or hi >= bound:
         raise IndexError(f"leaf index out of range for {what}")
     return idx
 
 
 def merkle_open_batch(levels: list, indices) -> torch.Tensor:
     """Authentication paths of K leaves as one (depth, ..., K) gather: path
-    [d][..., k] is the sibling of leaf k's ancestor at depth d.  Serves the
-    narrow (L, N) and the wide (d, L, N) levels alike."""
+    [d][..., k] is the sibling of leaf k's ancestor at depth d, whose index
+    is (k >> d) ^ 1.  Serves the narrow (L, N) and the wide (d, L, N)
+    levels alike."""
     count = indices.numel() if isinstance(indices, torch.Tensor) else int(np.size(indices))
     with annotate(OPEN, count):
         idx = _indices(indices, levels[0].shape[-1], f"{levels[0].shape[-1]} leaves", levels[0].device)
-        sibs = []
-        for level in levels[:-1]:
-            sibs.append(level.index_select(-1, idx ^ 1))
-            idx = idx >> 1
-        return torch.stack(sibs)
+        sib = (idx >> torch.arange(len(levels) - 1, device=idx.device)[:, None]) ^ 1
+        return torch.stack([level.index_select(-1, sib[d]) for d, level in enumerate(levels[:-1])])
 
 
 def merkle_verify_batch(
@@ -259,3 +274,66 @@ def merkle_verify_batch_jive(
     """``merkle_verify_batch_wide`` with the Jive_2 compression: root (d, L),
     leaves (d, L, K), paths (depth, d, L, K) -> (K,) bool."""
     return merkle_verify_batch_wide(cfg, root, leaves, paths, indices, backend, jive_compress_pairs)
+
+
+# ---- Plonky3's modes: the padding-free sponge and the truncated permutation ----
+#
+# Plonky3 (and SP1, which commits with it) puts the rate in front of the
+# capacity.  ``PaddingFreeSponge`` hashes a row by overwriting the rate with
+# each chunk and permuting, with no padding; ``TruncatedPermutation``
+# compresses two d-element digests by permuting left ‖ right and keeping the
+# first d elements: one permutation per node, with no capacity and no
+# feed-forward (t = 2d).  Any config drives them.
+
+
+def padding_free_hash(
+    cfg: SpongeConfig, elems: torch.Tensor, num_outputs: int, backend: str = "auto"
+) -> torch.Tensor:
+    """(k, L, B) Montgomery element plane -> (num_outputs, L, B), Plonky3's
+    ``PaddingFreeSponge``: a zero state; for each chunk of up to ``rate``
+    elements, rows [0, len(chunk)) overwritten (``overwrite_rows``) and the
+    state permuted, so a k that is a multiple of the rate takes no further
+    permutation; then rows [0, num_outputs) of the state, num_outputs <=
+    rate."""
+    k, _, B = elems.shape
+    if not 0 < num_outputs <= cfg.rate:
+        raise ValueError(f"num_outputs must be in [1, rate={cfg.rate}]; got {num_outputs}")
+    with annotate(PADDING_FREE, B):
+        state = zero_state(cfg, B, elems.device)
+        for lo in range(0, k, cfg.rate):
+            state = batched_permute(cfg, overwrite_rows(cfg, state, elems[lo : lo + cfg.rate]), backend)
+        return state[:num_outputs].clone()
+
+
+def truncated_compress_pairs(
+    cfg: SpongeConfig, left: torch.Tensor, right: torch.Tensor, backend: str = "auto"
+) -> torch.Tensor:
+    """(d, L, B) x (d, L, B) -> (d, L, B), t = 2d, Plonky3's
+    ``TruncatedPermutation``: the first d rows of the permuted left ‖ right."""
+    d = left.shape[0]
+    if cfg.t != 2 * d:
+        raise ValueError(f"a truncated permutation needs t = 2 * digest width; got t={cfg.t}, d={d}")
+    with annotate(TRUNCATE, left.shape[-1]):
+        return batched_permute(cfg, torch.cat([left, right]), backend)[:d].clone()
+
+
+def merkle_tree_truncated(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> list:
+    """All levels of a truncated-permutation tree, leaves first: [(d, L, N),
+    ..., (d, L, 1)], d = t/2, N a power of two.  Open proofs with
+    ``merkle_open_batch_wide``; check them with
+    ``merkle_verify_batch_truncated``."""
+    return _tree_levels(cfg, leaves, backend, truncated_compress_pairs)
+
+
+def merkle_root_truncated(cfg: SpongeConfig, leaves: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """(d, L, N) digest plane -> (d, L) root, one permutation per node."""
+    return merkle_tree_truncated(cfg, leaves, backend)[-1][..., 0]
+
+
+def merkle_verify_batch_truncated(
+    cfg: SpongeConfig, root: torch.Tensor, leaves: torch.Tensor, paths: torch.Tensor, indices,
+    backend: str = "auto",
+) -> torch.Tensor:
+    """``merkle_verify_batch_wide`` with the truncated permutation: root
+    (d, L), leaves (d, L, K), paths (depth, d, L, K) -> (K,) bool."""
+    return merkle_verify_batch_wide(cfg, root, leaves, paths, indices, backend, truncated_compress_pairs)

@@ -22,6 +22,7 @@ fresh zero sponge), the permutation, the rows the caller keeps.  Where
 ``batched_permute`` would run kernel 1 it is one launch of kernel 1
 (``ops/poseidon_opt.py`` ``absorb_permute_opt``; on the CPU its plain
 version); elsewhere ``add_rows``, ``batched_permute`` and a slice.
+``overwrite_rows`` is the overwrite mode's write of a chunk into a state.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..fields import FieldSpec
 from ..ops.poseidon_dense import permute_dense, permute_dense_plain, word_constants
 from ..ops import montgomery as mont
 from ..ops.poseidon_opt import absorb_permute_opt, permute_opt
-from ..utils.profiling import ABSORB, ABSORB_FUSED, PERMUTE, annotate
+from ..utils.profiling import ABSORB, ABSORB_FUSED, OVERWRITE, PERMUTE, annotate
 from .config import PoseidonConfig, kernel_constants
 
 BACKENDS = ("auto", "opt", "dense", "plain")
@@ -112,6 +113,18 @@ def add_rows(cfg: SpongeConfig, state: torch.Tensor, start: int, chunk: torch.Te
         hi = lo + chunk.shape[0]
         rows = mont.mont_add(cfg.field, state[lo:hi], chunk).int()
         return torch.cat([state[:lo], rows, state[hi:]])
+
+
+def overwrite_rows(cfg: SpongeConfig, state: torch.Tensor, chunk: torch.Tensor):
+    """``state[:k] = chunk`` as a NEW tensor, as ``add_rows`` writes: the
+    overwrite mode of Plonky3's sponges, whose rate sits in front of the
+    capacity.  One ``sponge.overwrite`` span (``utils.profiling``), its
+    count the lanes."""
+    k = chunk.shape[0]
+    if k > cfg.rate:
+        raise ValueError(f"{k} rows pass the rate {cfg.rate}")
+    with annotate(OVERWRITE, chunk.shape[-1]):
+        return torch.cat([chunk, state[k:]])
 
 
 def absorb_permute(

@@ -23,7 +23,10 @@ The port opens these spans, each with the count named beside it:
 * ``sponge.absorb_fused``: ``poseidon.permutation.absorb_permute`` where
   kernel 1 adds the rows as it loads the state, the lanes;
 * ``sponge.permute``: ``poseidon.permutation.batched_permute``, and inside
-  ``sponge.absorb_fused``, the lanes, which are the permutations.
+  ``sponge.absorb_fused``, the lanes, which are the permutations;
+* ``hash.padding_free``: ``hash.padding_free_hash``, the lanes;
+* ``sponge.overwrite``: ``poseidon.permutation.overwrite_rows``, the lanes;
+* ``merkle.truncate``: ``hash.truncated_compress_pairs``, the nodes.
 
     with profiling.trace("run"):
         hash.merkle_tree(cfg, leaves)
@@ -51,6 +54,9 @@ ELEMENTS = "hash.elements"
 ABSORB = "sponge.absorb"
 ABSORB_FUSED = "sponge.absorb_fused"
 PERMUTE = "sponge.permute"
+PADDING_FREE = "hash.padding_free"
+OVERWRITE = "sponge.overwrite"
+TRUNCATE = "merkle.truncate"
 
 
 class _Recorder:

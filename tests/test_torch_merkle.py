@@ -175,3 +175,20 @@ def test_refusals(case):
         paths = h.merkle_open_batch(levels, [3])
         with pytest.raises(IndexError):
             h.merkle_verify_batch(CFG, levels[-1][:, 0], leaves[:, [3]], paths, [N])
+
+
+@pytest.mark.parametrize("form", ["list", "numpy", "tensor"])
+def test_open_batch_takes_indices_in_any_form(form):
+    """A list, a numpy array and a tensor of the same indices open the same
+    paths, each sibling at (k >> d) ^ 1; each form's out-of-range index
+    raises, and no index opens an empty batch."""
+    leaves = narrow(7)[1]
+    levels = h.merkle_tree(CFG, leaves)
+    make = {"list": list, "numpy": lambda v: np.asarray(v, dtype=np.int64), "tensor": torch.tensor}[form]
+    paths = h.merkle_open_batch(levels, make(INDICES))
+    assert torch.equal(paths, torch.stack([torch.stack([lv[:, (k >> d) ^ 1] for k in INDICES], -1)
+                                           for d, lv in enumerate(levels[:-1])]))
+    for bad in ([0, N], [-1, 2]):
+        with pytest.raises(IndexError):
+            h.merkle_open_batch(levels, make(bad))
+    assert h.merkle_open_batch(levels, make([])).shape == (len(levels) - 1, FS.nlimbs, 0)

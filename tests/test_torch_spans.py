@@ -212,6 +212,44 @@ def test_cells_absorb_inside_the_permutation_launch(cell):
     assert sum(s["count"] for s in permutes) == cell_permutations(rate, k, d, 1 << log2n)
 
 
+def expected_mmcs(k, rate, n, openings):
+    """Spans of one commitment of the benchmark's MMCS job: the
+    padding-free leaf hash (an overwrite and a permutation a chunk), the
+    truncated tree (each level one truncated compression around one
+    permutation), the openings."""
+    out = [(prof.PADDING_FREE, None, n)]
+    for _ in range(ceil_div(k, rate)):
+        out += [(prof.OVERWRITE, 0, n), (prof.PERMUTE, 0, n)]
+    tree = len(out)
+    out.append((prof.TREE, None, n))
+    while n > 1:
+        n //= 2
+        out += [(prof.LEVEL, tree, n), (prof.TRUNCATE, len(out), n), (prof.PERMUTE, len(out) + 1, n)]
+    if openings:
+        out.append((prof.OPEN, None, openings))
+    return out
+
+
+@pytest.mark.parametrize("k", [64, 61, 8, 3])
+def test_spans_of_an_mmcs_commitment(k):
+    """The BabyBear Poseidon2 t = 16 commitment as the MMCS job makes it:
+    ``hash.padding_free``, ``sponge.overwrite`` and ``merkle.truncate``
+    counted in lanes and nodes, ``merkle.tree`` and ``merkle.level`` nested
+    as in every other tree, and the permutations' lanes the job's count
+    (no permutation after a whole last chunk)."""
+    cfg = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    n, openings = 8, 3
+    prof.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        digests = sthash.padding_free_hash(cfg, torch.zeros((k, cfg.field.nlimbs, n), dtype=torch.int32), 8)
+        levels = sthash.merkle_tree_truncated(cfg, digests)
+        sthash.merkle_open_batch(levels, list(range(openings)))
+    got = prof.spans()
+    assert shape(got) == expected_mmcs(k, cfg.rate, n, openings)
+    assert sum(s["count"] for s in got if s["name"] == prof.PERMUTE) == n * ceil_div(k, 8) + n - 1
+    assert not [s for s in got if s["name"] in (prof.ABSORB, prof.ABSORB_FUSED, prof.ELEMENTS)]
+
+
 def test_annotate_is_one_shared_noop_with_the_profiler_off():
     assert not torch.autograd.profiler._is_profiler_enabled
     assert prof.annotate(prof.PERMUTE, 4) is prof.annotate("other")
