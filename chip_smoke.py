@@ -209,9 +209,10 @@ def check_lanes_vs_oracle(cfg, state_in, state_out, lanes, what):
 
 
 def call_kernel(k, cfg, perm, state):
-    """Kernel ``k``'s wrapper on ``state`` with ``perm``'s buffers (kernel 2
-    also reads its word bodies' ``perm.words``)."""
-    return k["wrapper"](cfg, perm.consts, state, *((perm.words,) if k.get("words") else ()))
+    """Kernel ``k``'s wrapper on ``state`` with ``perm``'s buffers (kernels 1
+    and 2 also read their word bodies' buffer, the attribute ``k["words"]``
+    names: ``perm.opt_words``, ``perm.words``)."""
+    return k["wrapper"](cfg, perm.consts, state, *((getattr(perm, k["words"]),) if k.get("words") else ()))
 
 
 def time_ms(fn, reps=3, warm=True):
@@ -604,7 +605,7 @@ def template_args(mangled):
 
 
 CENSUS_KERNELS = (
-    ("kernel 1", "poseidon_opt_kernel"),
+    ("kernel 1 (limb body: t, L; two-word body: t)", "poseidon_opt_kernel"),
     ("kernel 2, limb body", "poseidon_dense_kernel"),
     ("kernel 2, one-word body", "poseidon_dense_word_kernel"),
     ("kernel 2, two-word body", "poseidon_dense_gl_kernel"),
@@ -642,6 +643,10 @@ def census_instance(name, cfg, body=None):
 
     t, L = cfg.t, cfg.field.nlimbs
     if name == "poseidon_permute_opt":
+        from sponge_tpu_torch.ops import poseidon_opt
+
+        if poseidon_opt.body(cfg) == "two-word":
+            return "poseidon_opt_kernel", (t,), 4 * len(poseidon_opt.word_constants(cfg))
         return "poseidon_opt_kernel", (t, L), 4 * layout_size(constant_layout(cfg))
     if name == "poseidon_permute_dense":
         from sponge_tpu_torch.ops import poseidon_dense
@@ -787,6 +792,17 @@ def gmimc_body_comparison(cfg, state, path_out, gpu, rates):
         f"in turns limb, word, word, limb, best of each; both outputs == the path's); bound {bound_ms:.3f} ms "
         f"(limb {bound_ms / best['limb']:.1%}, word {bound_ms / best['word']:.1%}), "
         f"{limb_ms:.3f} ms by the limb count [{gpu}]")
+
+
+def opt_plan_text(cfg):
+    """Kernel 1's body and its replay (``ops/bounds.py``
+    ``check_opt_gl_bounds`` or ``check_kernel_bounds``)."""
+    from sponge_tpu_torch.ops import bounds
+    from sponge_tpu_torch.ops.poseidon_opt import body
+
+    if body(cfg) == "two-word":
+        return f"two-word body, largest accumulator {bounds.check_opt_gl_bounds(cfg) + 1} x 2^128"
+    return "limb body, " + value_bound_text(cfg, bounds.check_kernel_bounds(cfg, True))
 
 
 def dense_plan_text(cfg):
@@ -1061,7 +1077,7 @@ def main(argv):
     a_gl = st.get_default_anemoi_parameters(gl, 4)
     a_25 = st.generate_anemoi_parameters(fr25, 3, rounds=5)
     ladder_plain = {id(c) for c in (r_bls, g_bls, a_bls, a_bls1)}  # plain runs at B_LADDER_PLAIN
-    pos_gl = st.get_default_poseidon_parameters(gl, 4)  # kernel 2's two-word body, (8, 3)
+    pos_gl = st.get_default_poseidon_parameters(gl, 4)  # kernels 1 and 2's two-word bodies, (8, 3)
     pos_bb = st.get_default_poseidon_parameters(st.BABYBEAR_FR, 8)  # its one-word body, (16, 2)
     mo_gl = st.get_default_monolith_parameters(gl)
     mo_gl8 = st.get_default_monolith_parameters(gl, 4)
@@ -1073,7 +1089,8 @@ def main(argv):
     window_phase([r_bls, r_bb, r_25, g_bls, g_gl, g_25, a_bls, a_bls1, a_gl, a_25, p2_bls, p2_bb, p2_bb_dense,
                   p2_25, p2_25_dense, p2_25_t3, p2_tiny, p2_low]
                  + [cfg for name, _, cfg in family_configs(st) if name != "gmimc_permute"], _build.ptxas_report())
-    census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("poseidon_permute_dense", bls),
+    census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("poseidon_permute_opt", pos_gl),
+                                         ("poseidon_permute_dense", bls),
                                          ("poseidon_permute_dense", pos_bb), ("poseidon_permute_dense", pos_gl),
                                          ("monolith_permute", mo_gl),
                                          ("monolith_permute", mo_m31), ("poseidon2_permute", p2_bls),
@@ -1131,14 +1148,14 @@ def main(argv):
     # ---- 4. each kernel against its plain version ----
     kernels = {
         "poseidon_permute_opt": dict(
-            wrapper=permute_opt, plain=permute_opt_plain, perm=permutation_for,
-            bound=lambda cfg: value_bound_text(cfg, check_kernel_bounds(cfg, True)),
-            configs=[bls, bn, tiny],
+            wrapper=permute_opt, plain=permute_opt_plain, perm=permutation_for, words="opt_words",
+            bound=opt_plan_text,
+            configs=[bls, bn, tiny, pos_gl],
             source="sponge_tpu_torch/csrc/poseidon_opt.cu",
             replaces="sponge_tpu/ops/pallas_cios.py:1248",
         ),
         "poseidon_permute_dense": dict(
-            wrapper=permute_dense, plain=permute_dense_plain, perm=permutation_for, words=True,
+            wrapper=permute_dense, plain=permute_dense_plain, perm=permutation_for, words="words",
             bound=dense_plan_text,
             configs=[bls, bn, tiny, pos_gl, pos_bb],
             source="sponge_tpu_torch/csrc/poseidon_dense.cu",
@@ -1645,6 +1662,7 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     from sponge_tpu_torch.fields import limbs_to_ints, mont_tensor_to_ints
     from sponge_tpu_torch.ops.montgomery import blocks_per_sm
     from sponge_tpu_torch.ops.poseidon_dense import body as dense_body
+    from sponge_tpu_torch.ops.poseidon_opt import body as opt_body
     from sponge_tpu_torch.poseidon import host
     from sponge_tpu_torch.transcript import Absorb, SqueezeNative, compile_transcript
 
@@ -1724,8 +1742,7 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
         row = dict(t=t, L=L, config=label, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                    plain_ms=plain_ms[(name, t, L)], plain_batch=B_WIDTH, registers=regs, spill_store_bytes=spill_st,
                    spill_load_bytes=spill_ld, shared_bytes=shared, blocks_per_sm=blocks)
-        if name == "poseidon_permute_dense":
-            row["body"] = dense_body(cfg)
+        row["body"] = dense_body(cfg) if name == "poseidon_permute_dense" else opt_body(cfg)
         k.setdefault("instantiations", []).append(row)
         del big, out
 
@@ -1741,6 +1758,8 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     tr_elems = random_plane(gl8.field, (gl8.rate + 5, gl8.field.nlimbs, B_CHECK), rng, dev)
     for k in kernels.values():
         k["wrapper"].launches = 0
+    by_body = kernels["poseidon_permute_opt"]["wrapper"].body_launches
+    by_body.update(dict.fromkeys(by_body, 0))
     squeezed, by_pair = {}, {}
     for cfg in (bls8, gl8):
         fs = cfg.field
@@ -1762,8 +1781,10 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for name in WIDTH_PATH_KERNELS:
         check(launches[name] > 0, f"{name} was not launched on the widths path")
+    check(sum(by_body.values()) == launches["poseidon_permute_opt"] and by_body["two-word"] >= by_pair[(12, 3)] > 0
+          and by_body["limb"] >= by_pair[(9, 11)] > 0, f"kernel 1's launches by body: {by_body}")
     say("launches", f"widths path: {json.dumps(launches)}; kernel 1 by (t, L): "
-        + ", ".join(f"{pair} {n}" for pair, n in by_pair.items()))
+        + ", ".join(f"{pair} {n}" for pair, n in by_pair.items()) + f"; by body: {json.dumps(by_body)}")
 
     for cfg in (bls8, gl8):
         fs = cfg.field

@@ -15,6 +15,16 @@
 // wide_interleave, mds_mxu, lane_streams) have no counterpart: this kernel
 // has one schedule.
 //
+// Two bodies run it, chosen by the field (ops/poseidon_opt.py body): this
+// file's limb body at every field but Goldilocks, and at Goldilocks the
+// two-word body of poseidon_opt_words.cu (an element one 64-bit word in
+// plain form: a product is 4 widening products and no REDC, against 2 L^2
+// = 18 and a REDC pass on three limbs).  Both are instantiations of
+// sponge::poseidon_opt_kernel, the limb body's template over (t, L) and the
+// two-word body's over t, with the same rate I/O (poseidon_opt.cuh RateIO),
+// so callers and profiles see one kernel 1.  Everything below is the limb
+// body.
+//
 // What bounds it on the H100: integer multiply-add issue, as kernel 2; the
 // sparse phase cuts a partial round's linear layer from t^2 = 9 to
 // 2t - 1 = 5 products.  Design: one thread per lane, state in registers,
@@ -65,6 +75,7 @@
 // parameters at run time, so there is one instantiation per (t, L) still.
 
 #include "mont.cuh"
+#include "poseidon_opt.cuh"
 
 namespace sponge {
 
@@ -147,20 +158,6 @@ __device__ __forceinline__ void add_round_constants(uint32_t (&x)[T][L], const i
 // alone takes 24 to 99 registers.
 template <int T>
 constexpr int kOptMinBlocks = T == 3 ? 4 : 1;
-
-// A launch's rate I/O (ops/poseidon_opt.py absorb_permute_opt).  rows[v]:
-// up to two (k, L, B) views (null: absent), element v * k + r of them added
-// into state row lo + v * k + r; each view is read through its own element
-// strides (row, limb, lane), so the even and odd lanes of a Merkle level
-// are two views of it with lane stride 2.  fresh: the state is zero and
-// ``in`` is not read.  Rows [out_lo, out_hi) of the permuted state are
-// stored, as an (out_hi - out_lo, L, B) plane.  No rows, not fresh and rows
-// [0, t) is the plain permutation.
-struct RateIO {
-  const int32_t* rows[2];
-  long long stride[2][3];
-  int k, lo, fresh, out_lo, out_hi;
-};
 
 // Load the state (or zeros) and add the rate rows into it: each added row
 // is canonical, so x + row < 2p, and one conditional subtraction leaves it
@@ -274,24 +271,31 @@ int launch_opt(const int32_t* in, int32_t* out, long long B, int alpha, int full
 
 }  // namespace sponge
 
-// Plain C entry point (ctypes), the contract of sponge_poseidon_dense and
-// the same (t, L) pairs, then the rate I/O (sponge::RateIO): the two row
+// Plain C entry point (ctypes), the contract of sponge_poseidon_dense: the
+// body (0: this file's limb body, reading ``consts``, kernel_constants; 2:
+// the two-word body, reading ``words``, ops/poseidon_opt.py word_constants,
+// of ``n_words`` int32), then the rate I/O (sponge::RateIO): the two row
 // views (null: absent) with their element strides (row, limb, lane), the
 // rows per view, the state row of the first, fresh (``in`` may be null),
-// and the stored rows [out_lo, out_hi) (``out`` is (out_hi - out_lo, L, B)).
+// and the stored rows [out_lo, out_hi) (``out`` is (out_hi - out_lo, L,
+// B)).  The limb body's PAIR(t, L) lines (and the two-word body's GL lines
+// in poseidon_opt_words.cu) must match ops/poseidon_opt.py BODIES.
 extern "C" int sponge_poseidon_opt(const int32_t* in, int32_t* out, long long B, int t, int L,
                                    int alpha, int full_rounds, int partial_rounds,
-                                   const int32_t* consts, unsigned n0inv, const int32_t* rows0,
-                                   const int32_t* rows1, int k, long long row0_stride, long long limb0_stride,
-                                   long long lane0_stride, long long row1_stride, long long limb1_stride,
-                                   long long lane1_stride, int lo, int fresh, int out_lo, int out_hi,
-                                   void* stream) {
+                                   const int32_t* consts, unsigned n0inv, int body, const int32_t* words,
+                                   int n_words, const int32_t* rows0, const int32_t* rows1, int k,
+                                   long long row0_stride, long long limb0_stride, long long lane0_stride,
+                                   long long row1_stride, long long limb1_stride, long long lane1_stride, int lo,
+                                   int fresh, int out_lo, int out_hi, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (partial_rounds < 2) return -1;
   if (k < 0 || lo < 0 || lo + (rows1 ? 2 : 1) * k > t || out_lo < 0 || out_lo >= out_hi || out_hi > t) return -1;
   const sponge::RateIO io{{rows0, rows1},
                           {{row0_stride, limb0_stride, lane0_stride}, {row1_stride, limb1_stride, lane1_stride}},
                           k, lo, fresh, out_lo, out_hi};
+  if (body == 2)
+    return sponge::launch_opt_words(in, out, B, t, L, alpha, full_rounds, partial_rounds, words, n_words, io, s);
+  if (body != 0) return -1;
 #define PAIR(T_, L_)                                                                              \
   if (t == T_ && L == L_)                                                                         \
     return sponge::launch_opt<T_, L_>(in, out, B, alpha, full_rounds, partial_rounds, consts, n0inv, io, s);
@@ -302,8 +306,6 @@ extern "C" int sponge_poseidon_opt(const int32_t* in, int32_t* out, long long B,
   PAIR(7, 11)
   PAIR(8, 11)
   PAIR(9, 11)
-  PAIR(8, 3)
-  PAIR(12, 3)
   PAIR(16, 2)
   PAIR(3, 2)
 #undef PAIR

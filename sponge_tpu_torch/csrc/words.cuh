@@ -1,15 +1,18 @@
 // Field arithmetic on one or two 32-bit words per element, shared by the
 // port's word bodies: kernel 3's one-word body (poseidon2.cu), kernel 8's
-// two-word body (gmimc.cu) and kernel 2's two (poseidon_dense_words.cu).
+// two-word body (gmimc.cu), kernel 2's two (poseidon_dense_words.cu) and
+// kernel 1's two-word body (poseidon_opt_words.cu).
 //
 // One word (fields below 2^31): an element is one 32-bit word in Montgomery
 // form with R' = 2^32 (WordField, word_mul, word_sub, reduce_wide,
 // word_sbox).  Two words (Goldilocks, p = 2^64 - 2^32 + 1): an element is a
 // 64-bit word in plain form, not necessarily below p; a product's 128 bits
 // reduce with 2^64 = 2^32 - 1 and 2^96 = -1 mod p by shifts and adds
-// (GL_REDUCE_N, gl_mul, gl_sqr, gl_pow, gl_sbox).  The replays in
-// ops/bounds.py (_P2WordSim, _GmimcWordSim, _DenseWordSim, _DenseGLSim)
-// prove each kernel's words in range.
+// (GL_REDUCE_N, gl_mul, gl_sqr, gl_pow, gl_sbox); a sum of such products
+// is held in five 32-bit words and reduced once (gl_mac, gl_reduce5,
+// gl_row).  The replays in ops/bounds.py (_P2WordSim,
+// _GmimcWordSim, _DenseWordSim, _DenseGLSim, _OptGLSim) prove each
+// kernel's words in range.
 #pragma once
 
 #include <cstdint>
@@ -161,6 +164,89 @@ __device__ __forceinline__ void gl_sbox(uint64_t (&x)[N], uint32_t alpha) {
       for (int e = 0; e < N; ++e) x[e] = gl_mul(x[e], base[e]);
     }
   }
+}
+
+// 64-bit words at the head of the Poseidon two-word bodies' constant
+// buffers (kernels 1 and 2): 2^-72 mod p and 2^72 mod p, which convert the
+// plane's Montgomery form (R = 2^72) to plain form and back.
+constexpr int kGlHead = 2;
+
+// x + c mod p for a word x below 2^64 and c below p: the carry out of 2^64
+// comes back as 2^32 - 1, which cannot wrap again (x + c - 2^64 is below
+// 2^64 - 2^32).
+__device__ __forceinline__ uint64_t gl_add(uint64_t x, uint64_t c) {
+  const uint64_t s = x + c;
+  return s + (s < c ? 0xFFFFFFFFull : 0ull);
+}
+
+// n4..n0 (32-bit words) += a b, the 128-bit product from the four 32-bit
+// halves' products in multiply-add carry chains, the carries out of 2^128
+// into n4.
+__device__ __forceinline__ void gl_mac(uint32_t (&n)[5], uint64_t a, uint64_t b) {
+  asm("{\n\t"
+      ".reg .u32 a0, a1, b0, b1;\n\t"
+      "mov.b64 {a0, a1}, %5;\n\t"
+      "mov.b64 {b0, b1}, %6;\n\t"
+      "mad.lo.cc.u32 %0, a0, b0, %0;\n\t"
+      "madc.hi.cc.u32 %1, a0, b0, %1;\n\t"
+      "madc.lo.cc.u32 %2, a1, b1, %2;\n\t"
+      "madc.hi.cc.u32 %3, a1, b1, %3;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mad.lo.cc.u32 %1, a0, b1, %1;\n\t"
+      "madc.hi.cc.u32 %2, a0, b1, %2;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mad.lo.cc.u32 %1, a1, b0, %1;\n\t"
+      "madc.hi.cc.u32 %2, a1, b0, %2;\n\t"
+      "addc.cc.u32 %3, %3, 0;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "}"
+      : "+r"(n[0]), "+r"(n[1]), "+r"(n[2]), "+r"(n[3]), "+r"(n[4])
+      : "l"(a), "l"(b));
+}
+
+// The 160-bit value n4..n0 mod p as a word below 2^64: GL_REDUCE_N's
+// V = n1:n0 - n3 - n2 + n2 2^32 less n4 2^32 (2^128 = -2^32), summed into
+// 96 bits (s, n1, n0), s as a signed word -1, 0 or 1 (V lies in
+// (-2^64, 2^65) while n4 < 2^32 - 2), then s 2^64 = s (2^32 - 1) added back
+// as k1:k0, which cannot wrap again (ops/bounds.py _DenseGLSim.reduce).
+__device__ __forceinline__ uint64_t gl_reduce5(const uint32_t (&n)[5]) {
+  uint64_t r;
+  asm("{\n\t"
+      ".reg .u32 n0, n1, n2, n3, n4, s, k0, k1;\n\t"
+      "mov.b32 n0, %1;\n\t"
+      "mov.b32 n1, %2;\n\t"
+      "mov.b32 n2, %3;\n\t"
+      "mov.b32 n3, %4;\n\t"
+      "mov.b32 n4, %5;\n\t"
+      "sub.cc.u32 n0, n0, n3;\n\t"
+      "subc.cc.u32 n1, n1, 0;\n\t"
+      "subc.u32 s, 0, 0;\n\t"
+      "sub.cc.u32 n0, n0, n2;\n\t"
+      "subc.cc.u32 n1, n1, 0;\n\t"
+      "subc.u32 s, s, 0;\n\t"
+      "add.cc.u32 n1, n1, n2;\n\t"
+      "addc.u32 s, s, 0;\n\t"
+      "sub.cc.u32 n1, n1, n4;\n\t"
+      "subc.u32 s, s, 0;\n\t"
+      "neg.s32 k0, s;\n\t"
+      "shr.s32 k1, s, 31;\n\t"
+      "add.cc.u32 n0, n0, k0;\n\t"
+      "addc.u32 n1, n1, k1;\n\t"
+      "mov.b64 %0, {n0, n1};\n\t"
+      "}"
+      : "=l"(r)
+      : "r"(n[0]), "r"(n[1]), "r"(n[2]), "r"(n[3]), "r"(n[4]));
+  return r;
+}
+
+// sum_j x_j m_j mod p as a word below 2^64.
+template <int T>
+__device__ __forceinline__ uint64_t gl_row(const uint64_t (&x)[T], const volatile uint64_t* m) {
+  uint32_t n[5] = {0, 0, 0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < T; ++j) gl_mac(n, x[j], m[j]);
+  return gl_reduce5(n);
 }
 
 }  // namespace sponge

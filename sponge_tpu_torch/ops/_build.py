@@ -42,8 +42,8 @@ NVCC_FLAGS = (
 
 # (t, L) pairs compiled into each kernel.  Every kernel covers every width
 # of its family's default tables over the seven fields at rates 1-8.
-# Kernels 1 and 2 (POSEIDON_PAIRS; kernel 2's bodies: ops/poseidon_dense.py
-# BODIES) and kernel 3 (ops/poseidon2.py BODIES)
+# Kernels 1 and 2 (POSEIDON_PAIRS; their bodies: ops/poseidon_opt.py and
+# ops/poseidon_dense.py BODIES) and kernel 3 (ops/poseidon2.py BODIES)
 # (poseidon/params.py, poseidon2/params.py): the 255/254-bit fields at rates
 # 2-8 (t = 3..9, L = 11; Poseidon2 rates 2, 3 and 7), Goldilocks at rates 4
 # and 8 (8, 3), (12, 3), the 31-bit fields at capacity 8, rate 8 (16, 2).
@@ -113,12 +113,13 @@ def registers(symbol: str, t: int, L: int) -> int:
 # Arguments between (in, out, B, t, L) and the stream, per symbol (the C
 # functions in csrc/*.cu).
 SIGNATURES = {
-    # alpha, full rounds, partial rounds, constants, n0inv, then the rate
-    # I/O (csrc/poseidon_opt.cu RateIO): two row views, the rows per view,
-    # each view's element strides (row, limb, lane), the state row of the
-    # first view, fresh, the stored rows [lo, hi)
-    "sponge_poseidon_opt": [c_int, c_int, c_int, c_void_p, c_uint, c_void_p, c_void_p, c_int,
-                            *[c_longlong] * 6, c_int, c_int, c_int, c_int],
+    # alpha, full rounds, partial rounds, constants, n0inv, the body
+    # (ops/poseidon_opt.py), the two-word body's constants and their length,
+    # then the rate I/O (csrc/poseidon_opt.cuh RateIO): two row views, the
+    # rows per view, each view's element strides (row, limb, lane), the
+    # state row of the first view, fresh, the stored rows [lo, hi)
+    "sponge_poseidon_opt": [c_int, c_int, c_int, c_void_p, c_uint, c_int, c_void_p, c_int, c_void_p, c_void_p,
+                            c_int, *[c_longlong] * 6, c_int, c_int, c_int, c_int],
     # the same, then the body (ops/poseidon_dense.py), the word bodies'
     # constants and their length
     "sponge_poseidon_dense": [c_int, c_int, c_int, c_void_p, c_uint, c_int, c_void_p, c_int],

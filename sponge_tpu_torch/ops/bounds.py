@@ -866,6 +866,75 @@ def check_dense_gl_bounds(cfg: PoseidonConfig) -> int:
     sim.run()
     return sim.tmax
 
+
+class _OptGLSim(_DenseGLSim):
+    """Exclusive bounds through kernel 1's two-word body
+    (``csrc/poseidon_opt_words.cu``, Goldilocks only): the entry (a state
+    element plus an absorbed row by ``gl_add``, both canonical, then the
+    product by 2^-72 mod p), the full rounds as ``_DenseGLSim``'s, each
+    sparse round's row0 dot (``gl_row``) and its x_i + col0_i x0 (x_i in the
+    five-word accumulator's low words, the product added by ``gl_mac``,
+    ``gl_reduce5``), D, and the exit's one conditional subtraction.  The
+    state is two bounds, element 0's and that of elements 1..t-1, which
+    every step treats alike, so a replay costs the same at any t.
+    ``tmax`` is the largest top word n4 of an accumulator."""
+
+    def _fail(self, msg):
+        cfg = self.cfg
+        raise ValueError(f"Poseidon two-word sparse kernel, {cfg.field.name} t={cfg.t}: {msg}")
+
+    def row(self, x0, rest):
+        """``gl_row`` of a state whose element 0 lies below ``x0`` and the
+        others below ``rest``, by constants below p."""
+        p, t = self.p, self.cfg.t
+        self._halves(x0)  # product inputs: words, no excess
+        self._halves(rest)
+        return self.reduce5((x0[0] - 1) * (p - 1) + (t - 1) * (rest[0] - 1) * (p - 1) + 1)
+
+    def mac(self, x, y):
+        """x + y c for a constant c below p: x in the accumulator's low
+        words, the product added by ``gl_mac``, one ``gl_reduce5``."""
+        if x[1] > 1:
+            self._fail("a sparse accumulator's x_i carries excess")
+        self._word(x[0], "a sparse accumulator's x_i")
+        self._halves(y)
+        return self.reduce5(x[0] - 1 + (y[0] - 1) * (self.p - 1) + 1)
+
+    def full_round(self, x):
+        x = self.pow(self.add_const(x), self.cfg.alpha)
+        return self.row(x, x)
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        half = cfg.full_rounds // 2
+        x = self.mul(self.add_const((p, 1)), (p, 1))  # the absorbed add, the product by 2^-72 mod p
+        for _ in range(half):
+            x = self.full_round(x)
+        x0 = self.pow(self.add_const(x), cfg.alpha)  # the first partial round
+        rest = self.add_const(x)
+        for _ in range(cfg.partial_rounds - 1):
+            x0, rest = self.add_const(x0), self.add_const(rest)
+            x0, rest = self.pow(self.row(x0, rest), cfg.alpha), self.mac(rest, x0)
+        x = self.row(x0, rest)  # D
+        for _ in range(cfg.full_rounds - half):
+            x = self.full_round(x)
+        if self.mul(x, (p, 1))[0] > 2 * p:  # the exit: the product by 2^72 mod p, one subtraction
+            self._fail("the exit's conditional subtraction takes an input of 2p or more")
+
+
+@functools.lru_cache(maxsize=None)
+def check_opt_gl_bounds(cfg: PoseidonConfig) -> int:
+    """Replay kernel 1's two-word body (Goldilocks) on exclusive bounds:
+    every product input a word below 2^64 with no excess, every partial
+    product, middle column and reduction fix-up in range, every ARK and
+    absorbed add's fix-up unable to wrap, every row and sparse accumulator
+    below 2^160 with a fix-up that cannot wrap, the exit's subtraction input
+    below 2p.  Raises ValueError if any could fail (or the field is not
+    Goldilocks); returns the largest top word n4 of an accumulator."""
+    sim = _OptGLSim(cfg)
+    sim.run()
+    return sim.tmax
+
 def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:
     fs, t = cfg.field, cfg.t
     sim = _Replay(f"Griffin kernel, {fs.name} t={t}", fs)

@@ -75,18 +75,14 @@ def word_constants(cfg: PoseidonConfig) -> np.ndarray:
     return np.zeros(0, dtype=np.int32)
 
 
-def _launch_args(cfg: PoseidonConfig, consts: torch.Tensor, optimized: bool = False,
-                 words: torch.Tensor | None = None):
-    """Kernel 1 (``optimized``): its value bound, then the Poseidon kernels'
-    common C arguments (alpha, R_F, R_P, the limb constants, n0inv).  Kernel
-    2: its body's replay, then those, the body code, the word bodies'
-    constants ``words`` (``word_constants(cfg)`` on ``consts``'s device) and
-    their length.  A body with no instantiation at (t, L) raises: no config
-    falls back to another body."""
+def _launch_args(cfg: PoseidonConfig, consts: torch.Tensor, words: torch.Tensor | None = None):
+    """Kernel 2's C arguments: its body's replay, then the Poseidon kernels'
+    common head (alpha, R_F, R_P, the limb constants, n0inv), the body code,
+    the word bodies' constants ``words`` (``word_constants(cfg)`` on
+    ``consts``'s device) and their length.  A body with no instantiation at
+    (t, L) raises: no config falls back to another body.  Kernel 1's are
+    ``ops/poseidon_opt.py`` ``_launch_args``."""
     head = (cfg.alpha, cfg.full_rounds, cfg.partial_rounds, consts.data_ptr(), cfg.field.n0inv)
-    if optimized:
-        check_kernel_bounds(cfg, optimized=True)
-        return head
     kind = body(cfg)
     if kind == "limb":
         check_kernel_bounds(cfg, optimized=False)

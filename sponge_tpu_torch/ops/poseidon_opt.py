@@ -15,19 +15,68 @@ the absorbed rate rows are added into the state as the kernel loads it, and
 only the rows the caller keeps are stored (``csrc/poseidon_opt.cu``
 ``RateIO``); ``absorb_permute_opt_plain`` is its plain version.
 
+The CUDA kernel has two bodies, chosen by the field (``body``): the
+two-word body at Goldilocks (one 64-bit word in plain form per element,
+``csrc/poseidon_opt_words.cu``; replayed by ``ops/bounds.py``
+``check_opt_gl_bounds``) and the limb body at every other field (24-bit
+Montgomery limbs, ``csrc/poseidon_opt.cu``; bounded by
+``check_kernel_bounds``).  The limb body reads ``kernel_constants``; the
+two-word body ``word_constants``, a buffer of its own
+(``PoseidonPermutation.opt_words``).  Both take the same (t, L, B) plane of
+canonical Montgomery limbs and the same rate I/O.
+
 Both wrappers take the plain version only for a tensor on the CPU; for a
 CUDA tensor they launch the kernel or raise.  Their launches are counted in
-``permute_opt.launches``.
+``permute_opt.launches``, and per body in ``permute_opt.body_launches``.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from ..gmimc.config import word_body
 from ..poseidon.config import PoseidonConfig, constant_layout, unpack_constants
+from ..poseidon.optimized import optimized_partial_layers
 from . import _build
 from . import montgomery as mont
-from .poseidon_dense import _launch_args, full_round
+from .bounds import check_kernel_bounds, check_opt_gl_bounds
+from .poseidon_dense import full_round
+
+# (t, L) each body is compiled for (csrc/poseidon_opt.cu's PAIR lines,
+# csrc/poseidon_opt_words.cu's GL lines); the union is
+# _build.INSTANTIATIONS["sponge_poseidon_opt"].
+BODIES = {
+    "limb": frozenset({(t, 11) for t in range(3, 10)} | {(16, 2), (3, 2)}),
+    "two-word": frozenset({(8, 3), (12, 3)}),
+}
+BODY_CODES = {"limb": 0, "two-word": 2}  # the C entry's ``body`` (kernel 2's codes)
+
+
+def body(cfg: PoseidonConfig) -> str:
+    """Kernel 1's body for ``cfg``: "two-word" at Goldilocks, else "limb"."""
+    return "two-word" if word_body(cfg.field) else "limb"
+
+
+@functools.lru_cache(maxsize=None)
+def word_constants(cfg: PoseidonConfig) -> np.ndarray:
+    """The two-word body's flat int32 constant buffer, in the order
+    csrc/poseidon_opt_words.cu reads it, built once per config; empty for
+    the limb body and for a config kernel 1 does not run (R_P < 2).
+    2^-72 mod p and 2^72 mod p, then ARK (R, t), the MDS (t, t) and the
+    sparse factorization, c^ (R_P - 1, t), row0 (R_P - 1, t), col0
+    (R_P - 1, t - 1) and D (t, t), as plain values (``constant_layout``'s
+    sections after p), each 64-bit value two words, low first."""
+    if body(cfg) != "two-word" or cfg.partial_rounds < 2:
+        return np.zeros(0, dtype=np.int32)
+    p, r = cfg.field.modulus, cfg.field.r
+    layers = optimized_partial_layers(cfg)
+    sections = (cfg.ark, cfg.mds, layers.constants, [sp.row0 for sp in layers.sparse],
+                [sp.col0 for sp in layers.sparse], layers.dense)
+    values = [pow(r, -1, p), r % p] + [v % p for rows in sections for row in rows for v in row]
+    return np.asarray(values, dtype=np.uint64).view(np.int32)
 
 
 def permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
@@ -57,24 +106,59 @@ def _check_partial_rounds(cfg: PoseidonConfig) -> None:
         raise ValueError("the sparse-factorized kernel needs >= 2 partial rounds")
 
 
-def _plain_launch_args(cfg: PoseidonConfig, consts: torch.Tensor):
+def _launch_args(cfg: PoseidonConfig, consts: torch.Tensor, words: torch.Tensor | None):
+    """Kernel 1's C arguments before its rate I/O: its body's replay, then
+    the Poseidon kernels' common head (alpha, R_F, R_P, the limb constants,
+    n0inv), the body code, the two-word body's constants ``words``
+    (``word_constants(cfg)`` on ``consts``'s device) and their length.  A
+    body with no instantiation at (t, L) raises: no config falls back to
+    another body."""
+    kind = body(cfg)
+    if kind == "limb":
+        check_kernel_bounds(cfg, optimized=True)
+    else:
+        check_opt_gl_bounds(cfg)
+    if (cfg.t, cfg.field.nlimbs) not in BODIES[kind]:
+        raise NotImplementedError(
+            f"no CUDA kernel instantiation of kernel 1's {kind} body for t={cfg.t}, L={cfg.field.nlimbs}; "
+            f"compiled: {sorted(BODIES[kind])}"
+        )
+    head = (cfg.alpha, cfg.full_rounds, cfg.partial_rounds, consts.data_ptr(), cfg.field.n0inv)
+    if kind == "limb":
+        return head + (BODY_CODES[kind], None, 0)
+    t, k = cfg.t, cfg.partial_rounds - 1  # word_constants' length, without hashing the config
+    if words is None or words.device != consts.device or words.numel() != 2 * (
+            2 + cfg.rounds * t + 2 * t * t + k * (3 * t - 1)):
+        raise ValueError(f"kernel 1's {kind} body reads word_constants(cfg) on {consts.device} "
+                         f"(PoseidonPermutation.opt_words); got {None if words is None else (words.device, words.numel())}")
+    return head + (BODY_CODES[kind], words.data_ptr(), words.numel())
+
+
+def _plain_launch_args(cfg: PoseidonConfig, consts: torch.Tensor, words: torch.Tensor | None):
     """The permutation's arguments, then the rate I/O of a plain
     permutation: no rows, the state read, every row stored."""
-    return _launch_args(cfg, consts, optimized=True) + (None, None, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, cfg.t)
+    return _launch_args(cfg, consts, words) + (None, None, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, cfg.t)
 
 
-def permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+def permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor,
+                words: torch.Tensor | None = None) -> torch.Tensor:
     """Sparse-factorized permutation of a (t, L, B) int32 canonical
     Montgomery plane.  ``consts`` is ``kernel_constants(cfg)`` on the state's
-    device."""
+    device; ``words`` is ``word_constants(cfg)`` there, which the two-word
+    body needs on a CUDA tensor (``PoseidonPermutation`` holds both as
+    buffers)."""
     _check_partial_rounds(cfg)
-    return _build.run(
+    before = permute_opt.launches
+    out = _build.run(
         permute_opt, "sponge_poseidon_opt", cfg, consts, state, constant_layout(cfg), permute_opt_plain,
-        _plain_launch_args,
+        functools.partial(_plain_launch_args, words=words),
     )
+    permute_opt.body_launches[body(cfg)] += permute_opt.launches - before
+    return out
 
 
 permute_opt.launches = 0
+permute_opt.body_launches = dict.fromkeys(BODIES, 0)
 
 
 def absorb_permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state, lo: int, rows: tuple,
@@ -93,13 +177,15 @@ def absorb_permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state, l
 
 
 def absorb_permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state, lo: int, rows: tuple,
-                       out_rows: tuple) -> torch.Tensor:
+                       out_rows: tuple, words: torch.Tensor | None = None) -> torch.Tensor:
     """One sponge step: the canonical (k, L, B) int32 views ``rows`` (one or
     two, of any strides; the second follows the first) added mod p into
     state rows ``lo ..``, the permutation, and rows ``out_rows`` = (a, b) of
     the result as a new (b - a, L, B) plane.  ``state`` is a (t, L, B)
     canonical plane, or None for a zero state, which is then read from
-    nowhere.  ``consts`` is ``kernel_constants(cfg)`` on the rows' device."""
+    nowhere.  ``consts`` is ``kernel_constants(cfg)`` on the rows' device,
+    ``words`` ``word_constants(cfg)`` there (the two-word body's, needed on
+    a CUDA tensor)."""
     _check_partial_rounds(cfg)
     if len(rows) not in (1, 2) or any(r.shape != rows[0].shape for r in rows) or rows[0].dim() != 3:
         raise ValueError("rows must be one or two (k, L, B) views of one shape")
@@ -127,7 +213,7 @@ def absorb_permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state, lo: int
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
     _build.check_instantiated("sponge_poseidon_opt", cfg.t, L)
-    args = _launch_args(cfg, consts, optimized=True)
+    args = _launch_args(cfg, consts, words)
     out = torch.empty((b - a, L, B), dtype=torch.int32, device=device)
     if B:
         views = [(r.data_ptr(), *r.stride()) for r in rows] if k else []
@@ -136,4 +222,5 @@ def absorb_permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state, lo: int
         _build.launch("sponge_poseidon_opt", state, out, *args, ptr0, ptr1, k, *strides0, *strides1, lo,
                       int(state is None), a, b, shape=(cfg.t, L, B))
         permute_opt.launches += 1
+        permute_opt.body_launches[body(cfg)] += 1
     return out

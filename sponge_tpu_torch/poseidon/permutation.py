@@ -7,8 +7,9 @@ limbs; a permutation maps it to a new plane of the same shape.
 
 ``PoseidonPermutation`` is an ``nn.Module`` whose constant buffers (round
 constants, MDS, sparse factorization: ``kernel_constants``; kernel 2's word
-bodies' own: ``word_constants``) are registered buffers, so ``.to("cuda")``
-moves them.  ``batched_permute`` keeps one module
+bodies' own: ``ops/poseidon_dense.py`` ``word_constants``; kernel 1's
+two-word body's own: ``ops/poseidon_opt.py`` ``word_constants``) are
+registered buffers, so ``.to("cuda")`` moves them.  ``batched_permute`` keeps one module
 per (config, device).  Backends:
 
 * ``"auto"``: the sparse-factorized kernel (``ops/poseidon_opt.py``) for a
@@ -36,6 +37,7 @@ from torch import nn
 from ..fields import FieldSpec
 from ..ops.poseidon_dense import permute_dense, permute_dense_plain, word_constants
 from ..ops import montgomery as mont
+from ..ops import poseidon_opt
 from ..ops.poseidon_opt import absorb_permute_opt, permute_opt
 from ..utils.profiling import ABSORB, ABSORB_FUSED, OVERWRITE, PERMUTE, annotate
 from .config import PoseidonConfig, kernel_constants
@@ -59,8 +61,9 @@ class SpongeConfig(Protocol):
 
 class PoseidonPermutation(nn.Module):
     """The Poseidon permutation of one config as a module (no parameters,
-    no gradient: int32 constant buffers, ``consts`` for every backend and
-    ``words`` for kernel 2's word bodies, empty at the other fields)."""
+    no gradient: int32 constant buffers, ``consts`` for every backend,
+    ``words`` for kernel 2's word bodies and ``opt_words`` for kernel 1's
+    two-word body, each empty where its body does not run)."""
 
     def __init__(self, cfg: PoseidonConfig, device):
         super().__init__()
@@ -68,6 +71,8 @@ class PoseidonPermutation(nn.Module):
         consts = torch.from_numpy(kernel_constants(cfg))
         self.register_buffer("consts", consts.to(device), persistent=False)
         self.register_buffer("words", torch.from_numpy(word_constants(cfg)).to(device), persistent=False)
+        self.register_buffer("opt_words", torch.from_numpy(poseidon_opt.word_constants(cfg)).to(device),
+                             persistent=False)
 
     @torch.no_grad()
     def forward(self, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
@@ -80,7 +85,7 @@ class PoseidonPermutation(nn.Module):
         if backend == "dense" or (backend == "auto" and self.cfg.partial_rounds < 2):
             return permute_dense(self.cfg, self.consts, state, self.words)
         if backend in ("auto", "opt"):
-            return permute_opt(self.cfg, self.consts, state)
+            return permute_opt(self.cfg, self.consts, state, self.opt_words)
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
 
 
@@ -150,9 +155,9 @@ def absorb_permute(
     if (isinstance(cfg, PoseidonConfig) and cfg.partial_rounds >= 2
             and (backend == "auto" or (backend == "opt" and rows.device.type == "cuda"))):
         with annotate(ABSORB_FUSED, lanes), annotate(PERMUTE, lanes):
-            consts = permutation_for(cfg, rows.device).consts
-            return absorb_permute_opt(cfg, consts, state, cfg.capacity + start, views,
-                                      (0, cfg.t) if out_rows is None else out_rows)
+            perm = permutation_for(cfg, rows.device)
+            return absorb_permute_opt(cfg, perm.consts, state, cfg.capacity + start, views,
+                                      (0, cfg.t) if out_rows is None else out_rows, perm.opt_words)
     if state is None:
         state = zero_state(cfg, lanes, rows.device)
     if k:

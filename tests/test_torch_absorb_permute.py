@@ -232,7 +232,8 @@ def test_kernel_step_equals_its_plain_version_on_the_card(index, cuda):
     squeezed rows, against ``absorb_permute_opt_plain`` on the same card;
     the launches are counted on ``permute_opt``."""
     cfg = pair_configs()[index]
-    consts = st.PoseidonPermutation(cfg, cuda).consts
+    perm = st.PoseidonPermutation(cfg, cuda)
+    consts, words = perm.consts, perm.opt_words
     cases = [(True, 0, 2, "squeeze"), (False, 0, 2, "all"), (True, 0, 1, "all"), (False, 1, 1, "squeeze")]
     for fresh, start, n_views, kept in cases:
         k = max(1, (cfg.rate - start) // n_views)
@@ -241,7 +242,7 @@ def test_kernel_step_equals_its_plain_version_on_the_card(index, cuda):
         assert n_views == 1 or views[0].stride()[-1] == 2
         out_rows = kept_rows(cfg, kept) or (0, cfg.t)
         before = permute_opt.launches
-        got = absorb_permute_opt(cfg, consts, state, cfg.capacity + start, views, out_rows)
+        got = absorb_permute_opt(cfg, consts, state, cfg.capacity + start, views, out_rows, words)
         assert permute_opt.launches == before + 1
         want = absorb_permute_opt_plain(cfg, consts, state, cfg.capacity + start, views, out_rows)
         torch.cuda.synchronize()

@@ -35,6 +35,7 @@ from sponge_tpu.ops.pallas_permute import pallas_permute_fn
 from sponge_tpu_torch import interop
 from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops import poseidon_dense as dense
+from sponge_tpu_torch.ops import poseidon_opt as opt
 from sponge_tpu_torch.ops.bounds import (
     DENSE_WORD_GROUP,
     _DenseGLSim,
@@ -365,16 +366,18 @@ def test_launch_args_by_body():
     """The wrapper's C arguments: the limb body the common head and body 0;
     a word body its code, its own constant buffer (the module's ``words``
     buffer, not kernel 1's) and its length, and refuses to launch without
-    it; kernel 1 the head alone.  A config whose body lacks its pair
-    raises NotImplementedError, though the limb body has the pair: no
-    fallback."""
+    it; kernel 1's limb body the head and body 0 as well
+    (``ops/poseidon_opt.py`` ``_launch_args``).  A config whose body lacks
+    its pair raises NotImplementedError, though the limb body has the pair:
+    no fallback."""
     bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
     perm = st.PoseidonPermutation(bls, "cpu")
     consts = perm.consts
     head = (bls.alpha, bls.full_rounds, bls.partial_rounds, consts.data_ptr(), bls.field.n0inv)
     assert dense._launch_args(bls, consts) == head + (0, None, 0)
-    assert dense._launch_args(bls, consts, optimized=True) == head
-    assert perm.words.numel() == 0 and [name for name, _ in perm.named_buffers()] == ["consts", "words"]
+    assert opt._launch_args(bls, consts, None) == head + (0, None, 0)
+    assert perm.words.numel() == 0 and perm.opt_words.numel() == 0
+    assert [name for name, _ in perm.named_buffers()] == ["consts", "words", "opt_words"]
     for field, rate, code in (("BABYBEAR_FR", 8, 1), ("GOLDILOCKS_FR", 8, 2)):
         cfg = st.get_default_poseidon_parameters(getattr(st, field), rate)
         perm = st.PoseidonPermutation(cfg, "cpu")

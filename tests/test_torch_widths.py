@@ -97,8 +97,8 @@ def test_every_default_poseidon_config_is_instantiated():
         perm = st.PoseidonPermutation(cfg, "cpu")
         for symbol in ("sponge_poseidon_opt", "sponge_poseidon_dense"):
             _build.check_instantiated(symbol, cfg.t, cfg.field.nlimbs)
-        for optimized in (False, True):
-            args = poseidon_dense._launch_args(cfg, perm.consts, optimized=optimized, words=perm.words)
+        for args in (poseidon_dense._launch_args(cfg, perm.consts, words=perm.words),
+                     poseidon_opt._launch_args(cfg, perm.consts, perm.opt_words)):
             assert args[:3] == (cfg.alpha, cfg.full_rounds, cfg.partial_rounds), label
 
 
@@ -157,6 +157,7 @@ def test_uncompiled_pair_raises_on_a_cuda_tensor_with_no_fallback(index, monkeyp
 
 
 @pytest.mark.parametrize("source,symbol", [("poseidon_opt.cu", "sponge_poseidon_opt"),
+                                           ("poseidon_opt_words.cu", "opt-two-word"),
                                            ("poseidon_dense.cu", "sponge_poseidon_dense"),
                                            ("poseidon2.cu", "limb"),
                                            ("rescue.cu", "sponge_rescue"),
@@ -168,7 +169,9 @@ def test_uncompiled_pair_raises_on_a_cuda_tensor_with_no_fallback(index, monkeyp
                                            ("poseidon_dense_words.cu", "dense-two-word")])
 def test_c_entry_points_dispatch_the_listed_pairs(source, symbol):
     """Each C entry point's ``PAIR(t, L)`` lines are the pairs ``_build``
-    lists (kernel 2: its limb body's, ``ops/poseidon_dense.py`` ``BODIES``,
+    lists (kernel 1: its limb body's, ``ops/poseidon_opt.py`` ``BODIES``,
+    and its two-word body's ``GL(t)`` lines at L = 3; kernel 2: its limb
+    body's, ``ops/poseidon_dense.py`` ``BODIES``,
     and its word bodies' ``WORD(t)`` lines at L = 2 and ``GL(t)`` lines at
     L = 3; kernel 3: its limb body's, ``BODIES``; kernel 8: its limb body's
     ``PAIR`` lines and its two-word body's ``WORD(t)`` lines at L = 3,
@@ -178,7 +181,7 @@ def test_c_entry_points_dispatch_the_listed_pairs(source, symbol):
     if symbol in ("gmimc-word", "dense-one-word"):
         L = 2 if symbol == "dense-one-word" else 3
         pairs = [(int(t), L) for t in re.findall(r"^\s*WORD\((\d+)\)$", text, re.M)]
-    elif symbol == "dense-two-word":
+    elif symbol in ("dense-two-word", "opt-two-word"):
         pairs = [(int(t), 3) for t in re.findall(r"^\s*GL\((\d+)\)$", text, re.M)]
     else:
         pairs = [(int(t), int(L)) for t, L in re.findall(r"^\s*PAIR\((\d+), (\d+)\)$", text, re.M)]
@@ -186,7 +189,9 @@ def test_c_entry_points_dispatch_the_listed_pairs(source, symbol):
     want = {"limb": BODIES["limb"], "gmimc-limb": gmimc_ops.BODIES["limb"],
             "gmimc-word": gmimc_ops.BODIES["word"], "sponge_poseidon_dense": poseidon_dense.BODIES["limb"],
             "dense-one-word": poseidon_dense.BODIES["one-word"],
-            "dense-two-word": poseidon_dense.BODIES["two-word"]}.get(symbol) or _build.INSTANTIATIONS[symbol]
+            "dense-two-word": poseidon_dense.BODIES["two-word"],
+            "sponge_poseidon_opt": poseidon_opt.BODIES["limb"],
+            "opt-two-word": poseidon_opt.BODIES["two-word"]}.get(symbol) or _build.INSTANTIATIONS[symbol]
     assert set(pairs) == want
     if symbol == "limb":
         caps = tuple(int(v) for v in re.findall(r"constexpr int kMax(?:Sbox)?Folds = (\d+);", text))
