@@ -829,7 +829,7 @@ def probe_phase(st, dev, rng, gpu, peak):
     check).  Returns the two probes' summary entries."""
     from sponge_tpu_torch.ops import _build, probe
     from sponge_tpu_torch.ops.poseidon_opt import permute_opt
-    from sponge_tpu_torch.poseidon.permutation import permutation_for
+    from sponge_tpu_torch.family import permutation_for
 
     probe.probe_chains.launches = probe.probe_ablation.launches = 0
 
@@ -1008,8 +1008,7 @@ def main(argv):
     from sponge_tpu_torch.ops.poseidon_dense import permute_dense, permute_dense_plain
     from sponge_tpu_torch.ops.poseidon_opt import permute_opt, permute_opt_plain
     from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
-    from sponge_tpu_torch.family import permutation_for as family_permutation_for
-    from sponge_tpu_torch.poseidon.permutation import permutation_for
+    from sponge_tpu_torch.family import permutation_for
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
@@ -1148,14 +1147,14 @@ def main(argv):
     # ---- 4. each kernel against its plain version ----
     kernels = {
         "poseidon_permute_opt": dict(
-            wrapper=permute_opt, plain=permute_opt_plain, perm=permutation_for, words="opt_words",
+            wrapper=permute_opt, plain=permute_opt_plain, words="opt_words",
             bound=opt_plan_text,
             configs=[bls, bn, tiny, pos_gl],
             source="sponge_tpu_torch/csrc/poseidon_opt.cu",
             replaces="sponge_tpu/ops/pallas_cios.py:1248",
         ),
         "poseidon_permute_dense": dict(
-            wrapper=permute_dense, plain=permute_dense_plain, perm=permutation_for, words="words",
+            wrapper=permute_dense, plain=permute_dense_plain, words="words",
             bound=dense_plan_text,
             configs=[bls, bn, tiny, pos_gl, pos_bb],
             source="sponge_tpu_torch/csrc/poseidon_dense.cu",
@@ -1166,7 +1165,6 @@ def main(argv):
         ),
         "poseidon2_permute": dict(
             wrapper=permute_p2, plain=permute_p2_plain,
-            perm=functools.partial(family_permutation_for, st.Poseidon2Permutation),
             bound=lambda cfg: p2_plan_text(cfg, check_p2_bounds(cfg)),
             configs=[p2_bls, p2_bn, p2_bb, p2_kb, p2_m31, p2_bb_dense, p2_25, p2_25_dense, p2_25_t3, p2_tiny,
                      p2_low],
@@ -1175,7 +1173,6 @@ def main(argv):
         ),
         "rescue_permute": dict(
             wrapper=rescue_permute, plain=rescue_permute_plain,
-            perm=functools.partial(family_permutation_for, st.RescuePermutation),
             bound=lambda cfg: value_bound_text(cfg, check_rescue_bounds(cfg)),
             configs=[r_bls, r_bb, r_25],
             source="sponge_tpu_torch/csrc/rescue.cu",
@@ -1183,7 +1180,6 @@ def main(argv):
         ),
         "griffin_permute": dict(
             wrapper=griffin_permute, plain=griffin_permute_plain,
-            perm=functools.partial(family_permutation_for, st.GriffinPermutation),
             bound=lambda cfg: plan_text(cfg, check_griffin_bounds(cfg)),
             configs=[g_bls, g_gl, g_25],
             source="sponge_tpu_torch/csrc/griffin.cu",
@@ -1191,7 +1187,6 @@ def main(argv):
         ),
         "anemoi_permute": dict(
             wrapper=anemoi_permute, plain=anemoi_permute_plain,
-            perm=functools.partial(family_permutation_for, st.AnemoiPermutation),
             bound=lambda cfg: plan_text(cfg, check_anemoi_bounds(cfg)),
             configs=[a_bls, a_bls1, a_gl, a_25],
             source="sponge_tpu_torch/csrc/anemoi.cu",
@@ -1199,7 +1194,6 @@ def main(argv):
         ),
         "gmimc_permute": dict(
             wrapper=gmimc_permute, plain=gmimc_permute_plain,
-            perm=functools.partial(family_permutation_for, st.GmimcPermutation),
             bound=gmimc_plan_text,
             configs=[m_bls, m_bn, m_gl, m_25],
             source="sponge_tpu_torch/csrc/gmimc.cu",
@@ -1207,7 +1201,6 @@ def main(argv):
         ),
         "monolith_permute": dict(
             wrapper=monolith_permute, plain=monolith_permute_plain,
-            perm=functools.partial(family_permutation_for, st.MonolithPermutation),
             bound=lambda cfg: monolith_plan_text(check_monolith_bounds(cfg)),
             configs=[mo_gl, mo_gl8, mo_m31, mo_kb, mo_bb, mo_kb4, mo_m314],
             source="sponge_tpu_torch/csrc/monolith.cu",
@@ -1221,7 +1214,7 @@ def main(argv):
             continue
         for cfg in k["configs"]:
             B = B_LADDER_PLAIN if id(cfg) in ladder_plain else B_CHECK
-            perm = k["perm"](cfg, dev)
+            perm = permutation_for(cfg, dev)
             state = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B), rng, dev))
             bound_text = k["bound"](cfg)
             before = k["wrapper"].launches
@@ -1245,7 +1238,7 @@ def main(argv):
     # path's output there
     def time_kernel(name, cfg, big, lanes, path_out=None):
         k = kernels[name]
-        perm = k["perm"](cfg, dev)
+        perm = permutation_for(cfg, dev)
         consts = perm.consts
         small = big[..., lanes]
         ms, _ = time_ms(lambda: call_kernel(k, cfg, perm, big))
@@ -1291,7 +1284,7 @@ def main(argv):
             if name in only:
                 k = kernels[name]
                 big = with_edges(cfg.field, random_plane(cfg.field, (cfg.t, cfg.field.nlimbs, B_MAIN), rng, dev))
-                big_out = call_kernel(k, cfg, k["perm"](cfg, dev), big)
+                big_out = call_kernel(k, cfg, permutation_for(cfg, dev), big)
                 time_kernel(name, cfg, big, lanes, big_out)
                 if cfg is m_gl:
                     gmimc_body_comparison(cfg, big, big_out, gpu, rates)
@@ -1314,7 +1307,7 @@ def main(argv):
     for k in kernels.values():
         k["wrapper"].launches = 0
     out = st.batched_permute(bls, state)  # kernel 1
-    parity = st.batched_permute(bls, state, backend="dense")  # kernel 2: the second parity tier
+    parity = permute_dense(bls, perm.consts, state, perm.words)  # kernel 2: the second parity tier
     sponge = st.PoseidonSponge(bls, batch_size=B_CHECK, device=dev)
     sponge.absorb(b"chip smoke transcript")
     sponge.absorb(st.U64(7))
@@ -1539,8 +1532,8 @@ def main(argv):
             kernels["poseidon2_permute"].update(timed)
     # the one-word body with dense M_E rows beside the structured chain (the choice the census explains)
     time_kernel("poseidon2_permute", p2_bb_dense, p2_states[p2_bb.field.name], every,
-                kernels["poseidon2_permute"]["wrapper"](p2_bb_dense, family_permutation_for(
-                    st.Poseidon2Permutation, p2_bb_dense, dev).consts, p2_states[p2_bb.field.name]))
+                kernels["poseidon2_permute"]["wrapper"](p2_bb_dense, permutation_for(
+                    p2_bb_dense, dev).consts, p2_states[p2_bb.field.name]))
     kernels["rescue_permute"].update(time_kernel("rescue_permute", r_bls, r_state, ends, r_out))
     window_comparison(r_bls, r_state, r_out, gpu)
     time_kernel("rescue_permute", r_bb, p2_states[p2_bb.field.name], slice(0, B_CHECK))
@@ -1552,7 +1545,7 @@ def main(argv):
     gmimc_body_comparison(m_gl, fam_states[id(m_gl)], fam_out[id(m_gl)], gpu, rates)
     # the Jive path's Anemoi width, t = 2 (one Flystel pair): the kernel alone beside its bound
     a2_state = random_plane(fs, (a_bls1.t, fs.nlimbs, B_MAIN), rng, dev)
-    a2_consts = kernels["anemoi_permute"]["perm"](a_bls1, dev).consts
+    a2_consts = permutation_for(a_bls1, dev).consts
     a2_ms, _ = time_ms(lambda: anemoi_permute(a_bls1, a2_consts, a2_state))
     a2_bound, a2_by = kernel_bound("anemoi_permute", a_bls1, B_MAIN, rates)
     say("time", f"anemoi_permute {fs.name} t={a_bls1.t} B={B_MAIN} (the Jive width): kernel {a2_ms:.3f} ms; bound "
@@ -1655,13 +1648,15 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     lazy and an eager PoseidonSponge at BLS12-381 rate 8 (t = 9) and
     Goldilocks rate 8 (t = 12) and a lazy Poseidon2 sponge at BLS12-381
     rate 7 (t = 8) on B_CHECK lanes, a compiled transcript at Goldilocks
-    rate 8, sampled lanes against the oracle, and ``batched_permute`` at
-    t = 9 through kernel 2 (the parity tier) against kernel 1.  Returns the
+    rate 8, sampled lanes against the oracle, and ``permute_dense`` at
+    t = 9 (kernel 2, the parity tier) against kernel 1.  Returns the
     path's launch counts; each timed kernel's entry gains its rows under
     "instantiations"."""
+    from sponge_tpu_torch.family import permutation_for
     from sponge_tpu_torch.fields import limbs_to_ints, mont_tensor_to_ints
     from sponge_tpu_torch.ops.montgomery import blocks_per_sm
     from sponge_tpu_torch.ops.poseidon_dense import body as dense_body
+    from sponge_tpu_torch.ops.poseidon_dense import permute_dense
     from sponge_tpu_torch.ops.poseidon_opt import body as opt_body
     from sponge_tpu_torch.poseidon import host
     from sponge_tpu_torch.transcript import Absorb, SqueezeNative, compile_transcript
@@ -1680,7 +1675,7 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
         outs = []
         for name in names:
             k = kernels[name]
-            perm = k["perm"](cfg, dev)
+            perm = permutation_for(cfg, dev)
             consts = perm.consts
             before = k["wrapper"].launches
             out_k = call_kernel(k, cfg, perm, state)
@@ -1730,7 +1725,7 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
         say("census", f"{name} ({t}, {L}) at {label}: {regs} registers, spills {spill_st}/{spill_ld} B, "
             f"{shared:,} B of shared memory, {blocks} blocks per SM")
         big = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_MAIN), rng, dev)))
-        perm = k["perm"](cfg, dev)
+        perm = permutation_for(cfg, dev)
         ms, out = time_ms(lambda: call_kernel(k, cfg, perm, big))
         check_lanes_vs_oracle(cfg, big, out, [0, 63, *NEAR_BOUND_LANES, B_MAIN - 1], f"{name} {label} B=2^20")
         bound_ms, bound_by = kernel_bound(name, cfg, B_MAIN, rates)
@@ -1776,7 +1771,8 @@ def widths_phase(st, dev, rng, gpu, kernels, rates, report):
     p2_sponge.absorb_element_plane(lane_vals[id(p2_bls7)])
     p2_squeezed = p2_sponge.squeeze_native_field_elements(p2_bls7.rate + 2)
     tr_out = compile_transcript(gl8, steps)(tr_elems)
-    parity = (st.batched_permute(bls8, parity_in), st.batched_permute(bls8, parity_in, backend="dense"))
+    perm8 = permutation_for(bls8, dev)
+    parity = (st.batched_permute(bls8, parity_in), permute_dense(bls8, perm8.consts, parity_in, perm8.words))
     torch.cuda.synchronize()
     launches = {name: k["wrapper"].launches for name, k in kernels.items()}
     for name in WIDTH_PATH_KERNELS:
@@ -1874,6 +1870,7 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
     Anemoi compiled transcript at BLS12-381 rate 7 (t = 8), sampled lanes
     against the oracle.  Returns the path's launch counts; each timed
     kernel's entry gains its rows under "instantiations"."""
+    from sponge_tpu_torch.family import permutation_for
     from sponge_tpu_torch.fields import limbs_to_ints, mont_tensor_to_ints
     from sponge_tpu_torch.hash import merkle_root
     from sponge_tpu_torch.ops.bounds import check_gmimc_bounds
@@ -1902,7 +1899,7 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
     for name, label, cfg in configs:
         k, fs, t, L = kernels[name], cfg.field, cfg.t, cfg.field.nlimbs
         state = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_WIDTH_HOST), rng, dev)))
-        consts = k["perm"](cfg, dev).consts
+        consts = permutation_for(cfg, dev).consts
         before = k["wrapper"].launches
         out_k = k["wrapper"](cfg, consts, state)
         torch.cuda.synchronize()
@@ -1950,7 +1947,7 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
         say("census", f"{name} ({t}, {L}) at {label}: {base} {want}, {regs} registers, spills {spill_st}/{spill_ld} B, "
             f"{shared:,} B of shared memory, {blocks} blocks per SM")
         big = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_MAIN), rng, dev)))
-        consts = k["perm"](cfg, dev).consts
+        consts = permutation_for(cfg, dev).consts
         ms, out = time_ms(lambda: k["wrapper"](cfg, consts, big))
         check_lanes_vs_oracle(cfg, big, out, [0, 63, *NEAR_BOUND_LANES, B_MAIN - 1], f"{name} {label} B=2^20")
         bound_ms, bound_by = kernel_bound(name, cfg, B_MAIN, rates)

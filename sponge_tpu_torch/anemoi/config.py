@@ -92,13 +92,6 @@ class AnemoiConfig:
         """g^{-1} mod p (the constant term of Q_gamma)."""
         return pow(self.g, -1, self.field.modulus)
 
-    def batched_permute(self, state, backend: str = "auto"):
-        """Permutation hook of the shared duplex sponge
-        (``poseidon.permutation.batched_permute`` delegates here)."""
-        from .permutation import batched_anemoi_permute
-
-        return batched_anemoi_permute(self, state, backend)
-
     def oracle_sponge(self):
         """Scalar python-int duplex sponge over this permutation."""
         from .oracle import OracleAnemoiSponge

@@ -8,14 +8,13 @@ over kernel 7 (``ops/anemoi.py``) and its plain version; backends "auto",
 
 from __future__ import annotations
 
-import torch
-
-from ..family import FamilyPermutation, permutation_for
+from ..family import FamilyPermutation
 from ..ops.anemoi import anemoi_permute, anemoi_permute_plain
+from ..poseidon.permutation import batched_permute
 from .config import AnemoiConfig, kernel_constants
 
 
-class AnemoiPermutation(FamilyPermutation):
+class AnemoiPermutation(FamilyPermutation, config=AnemoiConfig):
     """The Anemoi permutation of one config: kernel 7 and its plain
     version."""
 
@@ -24,6 +23,4 @@ class AnemoiPermutation(FamilyPermutation):
     constants = staticmethod(kernel_constants)
 
 
-def batched_anemoi_permute(cfg: AnemoiConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Backend-dispatched batched Anemoi permutation (``family`` backends)."""
-    return permutation_for(AnemoiPermutation, cfg, state.device)(state, backend)
+batched_anemoi_permute = batched_permute  # the JAX package's name

@@ -2,8 +2,9 @@
 
 Everything above the permutation (the duplex sponge, the absorb codec,
 transcripts, Merkle trees, checkpoints, sharding) is config-agnostic: a
-config type provides a ``batched_permute`` hook and an oracle, and the
-whole port runs over it.
+family registers its permutation module for its config type
+(``family.py``) and gives the config an oracle, and the whole port runs
+over it.
 
 Run: python -m sponge_tpu_torch.examples.family_tour [--device cpu] [--lanes N] [--only NAME]
 """

@@ -1,17 +1,23 @@
-"""The permutation module of every family beside Poseidon.
+"""The permutation module of every family, and the one dispatch to it.
 
-A family (``poseidon2/``, ``rescue/``, ``gmimc/``, ``griffin/``,
-``anemoi/``) subclasses ``FamilyPermutation`` and
+A family (``poseidon/``, ``poseidon2/``, ``rescue/``, ``gmimc/``,
+``griffin/``, ``anemoi/``, ``monolith/``) subclasses ``FamilyPermutation``
+with its config class (``class RescuePermutation(FamilyPermutation,
+config=RescueConfig)``), which enters the subclass in ``MODULES``, and
 names three functions: its kernel wrapper and its plain version, both
 ``(cfg, consts, state) -> state`` over ``(t, L, B)`` planes, and the numpy
-constant buffer of a config.  The module holds that buffer as a registered
-buffer; ``permutation_for`` keeps one module per (family, config, device).
-Backends:
+constant buffer of a config.  The module holds that buffer, and any in
+``extra``, as registered buffers; ``permutation_for`` keeps one module per
+(config, device).  Backends (``BACKENDS``), the same for every family:
 
 * ``"auto"``: the family's CUDA kernel for a CUDA tensor, its plain version
   for a CPU tensor (the wrapper decides by the tensor's device);
 * ``"kernel"``: the CUDA kernel; a CPU tensor raises;
 * ``"plain"``: the plain PyTorch permutation, on any device.
+
+A module whose ``fused`` is true also has ``step``, a sponge step (rows
+added, the permutation, the rows kept) in one launch of its kernel;
+``poseidon.permutation.absorb_permute`` takes it.
 """
 
 from __future__ import annotations
@@ -23,31 +29,50 @@ from torch import nn
 
 BACKENDS = ("auto", "kernel", "plain")
 
+MODULES: dict[type, type] = {}  # config class -> its family's module class
+
+
+def check_backend(backend: str, device: torch.device) -> None:
+    """Raise for a backend not in ``BACKENDS``, and for "kernel" off CUDA."""
+    if backend == "kernel" and device.type != "cuda":
+        raise ValueError(f"backend='kernel' runs a CUDA kernel; the state is on {device}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+
 
 class FamilyPermutation(nn.Module):
-    """One config's permutation as a module (one int32 constant buffer, no
-    parameters).  Subclasses set ``kernel``, ``plain`` and ``constants``."""
+    """One config's permutation as a module (int32 constant buffers, no
+    parameters).  Subclasses set ``kernel``, ``plain`` and ``constants``,
+    and may name further buffers in ``extra`` (name -> the function making
+    its numpy array from the config)."""
 
     kernel = plain = constants = None
+    extra: dict = {}
+    fused = False
+
+    def __init_subclass__(cls, config: type | None = None, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if config is not None:
+            MODULES[config] = cls
 
     def __init__(self, cfg, device):
         super().__init__()
         self.cfg = cfg
-        consts = torch.from_numpy(self.constants(cfg))
-        self.register_buffer("consts", consts.to(device), persistent=False)
+        for name, build in {"consts": self.constants, **self.extra}.items():
+            self.register_buffer(name, torch.from_numpy(build(cfg)).to(device), persistent=False)
 
     @torch.no_grad()
     def forward(self, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
         if backend == "plain":
             return self.plain(self.cfg, self.consts, state)
-        if backend == "kernel" and state.device.type != "cuda":
-            raise ValueError(f"backend='kernel' runs a CUDA kernel; the state is on {state.device}")
-        if backend in ("auto", "kernel"):
-            return self.kernel(self.cfg, self.consts, state)
-        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+        check_backend(backend, state.device)
+        return self.kernel(self.cfg, self.consts, state)
 
 
 @functools.lru_cache(maxsize=None)
-def permutation_for(family: type, cfg, device: torch.device) -> FamilyPermutation:
-    """The cached ``family`` module of ``cfg`` with its buffer on ``device``."""
-    return family(cfg, device)
+def permutation_for(cfg, device: torch.device) -> FamilyPermutation:
+    """The cached module of ``cfg``'s family with its buffers on ``device``;
+    a config no family registered (a JAX package's config) raises."""
+    if type(cfg) not in MODULES:
+        raise NotImplementedError(f"{type(cfg).__name__}: not a config of the PyTorch port")
+    return MODULES[type(cfg)](cfg, device)

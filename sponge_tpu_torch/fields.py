@@ -262,3 +262,21 @@ _FIELDS = {
 
 def get_field(name: str) -> FieldSpec:
     return _FIELDS[name]
+
+
+# The word representation a kernel's word body keeps a field's elements in.
+# Below this every value below 2p fits one 32-bit word (the one-word bodies
+# of kernels 2 and 3, Montgomery form at R' = 2^32).
+WORD_FIELD_LIMIT = 1 << 31
+
+
+def one_word(fs: FieldSpec) -> bool:
+    """Whether an element of ``fs`` is one 32-bit word in a word body."""
+    return fs.modulus < WORD_FIELD_LIMIT
+
+
+def word_body(fs: FieldSpec) -> bool:
+    """Whether an element of ``fs`` is one 64-bit word in plain form, two
+    32-bit words, in a word body (Goldilocks: its reduction mod p takes no
+    multiply; the two-word bodies of kernels 1, 2 and 8)."""
+    return fs.modulus == GOLDILOCKS_FR.modulus

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..fields import GOLDILOCKS_FR, FieldSpec
+from ..fields import FieldSpec, word_body
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 
@@ -61,13 +61,6 @@ class GmimcConfig:
         """State width (rate + capacity)."""
         return self.rate + self.capacity
 
-    def batched_permute(self, state, backend: str = "auto"):
-        """Permutation hook of the shared duplex sponge
-        (``poseidon.permutation.batched_permute`` delegates here)."""
-        from .permutation import batched_gmimc_permute
-
-        return batched_gmimc_permute(self, state, backend)
-
     def oracle_sponge(self):
         """Scalar python-int duplex sponge over this permutation."""
         from .oracle import OracleGmimcSponge
@@ -77,12 +70,6 @@ class GmimcConfig:
 
 LIMB_SECTIONS = 3  # the sections of the limb body (and of the plain version)
 WORD_HEAD = 4  # 2^-72 mod p and 2^72 mod p, two 32-bit words each
-
-
-def word_body(fs: FieldSpec) -> bool:
-    """Whether kernel 8 runs the field with its two-word body (Goldilocks:
-    its reduction mod p takes no multiply)."""
-    return fs.modulus == GOLDILOCKS_FR.modulus
 
 
 def constant_layout(cfg: GmimcConfig):

@@ -8,14 +8,13 @@ there.
 
 from __future__ import annotations
 
-import torch
-
-from ..family import FamilyPermutation, permutation_for
+from ..family import FamilyPermutation
 from ..ops.gmimc import gmimc_permute, gmimc_permute_plain
+from ..poseidon.permutation import batched_permute
 from .config import GmimcConfig, kernel_constants
 
 
-class GmimcPermutation(FamilyPermutation):
+class GmimcPermutation(FamilyPermutation, config=GmimcConfig):
     """The GMiMC-erf permutation of one config: kernel 8 and its plain
     version."""
 
@@ -24,7 +23,4 @@ class GmimcPermutation(FamilyPermutation):
     constants = staticmethod(kernel_constants)
 
 
-def batched_gmimc_permute(cfg: GmimcConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Backend-dispatched batched GMiMC-erf permutation (``family``
-    backends)."""
-    return permutation_for(GmimcPermutation, cfg, state.device)(state, backend)
+batched_gmimc_permute = batched_permute  # the JAX package's name

@@ -97,13 +97,6 @@ class GriffinConfig:
         p, g = self.field.modulus, i - 1
         return (g * self.qc_alpha) % p, (g * g * self.qc_beta) % p
 
-    def batched_permute(self, state, backend: str = "auto"):
-        """Permutation hook of the shared duplex sponge
-        (``poseidon.permutation.batched_permute`` delegates here)."""
-        from .permutation import batched_griffin_permute
-
-        return batched_griffin_permute(self, state, backend)
-
     def oracle_sponge(self):
         """Scalar python-int duplex sponge over this permutation."""
         from .oracle import OracleGriffinSponge

@@ -8,14 +8,13 @@ there.
 
 from __future__ import annotations
 
-import torch
-
-from ..family import FamilyPermutation, permutation_for
+from ..family import FamilyPermutation
 from ..ops.griffin import griffin_permute, griffin_permute_plain
+from ..poseidon.permutation import batched_permute
 from .config import GriffinConfig, kernel_constants
 
 
-class GriffinPermutation(FamilyPermutation):
+class GriffinPermutation(FamilyPermutation, config=GriffinConfig):
     """The Griffin-pi permutation of one config: kernel 6 and its plain
     version."""
 
@@ -24,7 +23,4 @@ class GriffinPermutation(FamilyPermutation):
     constants = staticmethod(kernel_constants)
 
 
-def batched_griffin_permute(cfg: GriffinConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Backend-dispatched batched Griffin-pi permutation (``family``
-    backends)."""
-    return permutation_for(GriffinPermutation, cfg, state.device)(state, backend)
+batched_griffin_permute = batched_permute  # the JAX package's name

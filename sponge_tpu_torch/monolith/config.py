@@ -191,13 +191,6 @@ class MonolithConfig:
             return self.concrete
         return None
 
-    def batched_permute(self, state, backend: str = "auto"):
-        """Permutation hook of the shared duplex sponge
-        (``poseidon.permutation.batched_permute`` delegates here)."""
-        from .permutation import batched_monolith_permute
-
-        return batched_monolith_permute(self, state, backend)
-
     def oracle_sponge(self):
         """Scalar python-int duplex sponge over this permutation."""
         from .oracle import OracleMonolithSponge

@@ -8,14 +8,13 @@ Counterpart of ``sponge_tpu/monolith/permutation.py:208-287``.
 
 from __future__ import annotations
 
-import torch
-
-from ..family import FamilyPermutation, permutation_for
+from ..family import FamilyPermutation
 from ..ops.monolith import monolith_permute, monolith_permute_plain
+from ..poseidon.permutation import batched_permute
 from .config import MonolithConfig, kernel_constants
 
 
-class MonolithPermutation(FamilyPermutation):
+class MonolithPermutation(FamilyPermutation, config=MonolithConfig):
     """The Monolith permutation of one config: kernel 4 and its plain
     version."""
 
@@ -24,7 +23,4 @@ class MonolithPermutation(FamilyPermutation):
     constants = staticmethod(kernel_constants)
 
 
-def batched_monolith_permute(cfg: MonolithConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Backend-dispatched batched Monolith permutation (``family``
-    backends)."""
-    return permutation_for(MonolithPermutation, cfg, state.device)(state, backend)
+batched_monolith_permute = batched_permute  # the JAX package's name

@@ -12,7 +12,9 @@ Each kernel symbol has its own C signature (``SIGNATURES``) and its own
 instantiated (t, L) pairs (``INSTANTIATIONS``); ``check_instantiated`` raises
 for any other shape.  Every signature starts ``(in, out, B, t, L, ...)`` and
 ends with the CUDA stream; ``launch`` fills both ends.  ``run`` is the body
-every kernel wrapper in ``ops/`` shares.
+every kernel wrapper in ``ops/`` shares but kernel 1's, whose one entry is
+its sponge step (``ops/poseidon_opt.py`` ``absorb_permute_opt``), which
+reuses ``check_state`` and ``check_constants``.
 """
 
 from __future__ import annotations

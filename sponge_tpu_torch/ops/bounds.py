@@ -37,9 +37,8 @@ import functools
 from dataclasses import dataclass
 
 from ..anemoi.config import window as anemoi_window
-from ..fields import GOLDILOCKS_FR, LIMB_BITS
+from ..fields import LIMB_BITS, one_word, word_body
 from ..griffin.config import window as griffin_window
-from ..poseidon2.config import one_word
 from ..poseidon.config import PoseidonConfig
 from ..rescue.config import windows as rescue_windows
 from .montgomery import fold_bound, fold_count, ladder_schedule, window_schedule
@@ -402,7 +401,7 @@ class _P2WordSim:
 @functools.lru_cache(maxsize=None)
 def check_p2_bounds(cfg) -> P2Plan:
     """Kernel 3's plan for ``cfg``: the one-word body for a field below
-    2^31 (``poseidon2.config.one_word``), with the structured M_E where the
+    2^31 (``fields.one_word``), with the structured M_E where the
     matrix is circ(2 M4, M4, ..., M4), proved by a replay of its bounds;
     else the limb body's ``p2_plan``.  Raises ValueError if the field's body
     does not admit the config (no fallback to the other)."""
@@ -625,7 +624,7 @@ class _GmimcWordSim:
     def __init__(self, cfg):
         self.cfg, self.p = cfg, cfg.field.modulus
         self.emax = 0
-        if self.p != GOLDILOCKS_FR.modulus:
+        if not word_body(cfg.field):
             self._fail("the two-word body needs p = 2^64 - 2^32 + 1")
 
     def _fail(self, msg):

@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import torch
 
-from ..gmimc.config import LIMB_SECTIONS, GmimcConfig, constant_layout, unpack_constants, word_body
+from ..fields import word_body
+from ..gmimc.config import LIMB_SECTIONS, GmimcConfig, constant_layout, unpack_constants
 from ..poseidon.config import layout_size
 from . import _build
 from . import montgomery as mont

@@ -27,9 +27,8 @@ import functools
 import numpy as np
 import torch
 
-from ..gmimc.config import word_body
+from ..fields import one_word, word_body
 from ..poseidon.config import PoseidonConfig, constant_layout, unpack_constants
-from ..poseidon2.config import one_word
 from . import _build
 from . import montgomery as mont
 from .bounds import check_dense_gl_bounds, check_dense_word_bounds, check_kernel_bounds

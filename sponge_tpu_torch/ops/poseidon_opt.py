@@ -8,12 +8,14 @@ element 0, col0 * x0 added into elements 1..t-1), then the accumulated dense
 matrix D once, as ``pallas_cios.py:1171-1228`` does.  The CUDA kernel is
 ``csrc/poseidon_opt.cu``; ``permute_opt_plain`` computes the same function
 with tensor ops.  ``batched_permute(backend="auto")`` launches this kernel for
-a CUDA tensor.
+a CUDA tensor at R_P >= 2.
 
-``absorb_permute_opt`` is one sponge step in one launch of the same kernel:
-the absorbed rate rows are added into the state as the kernel loads it, and
-only the rows the caller keeps are stored (``csrc/poseidon_opt.cu``
-``RateIO``); ``absorb_permute_opt_plain`` is its plain version.
+``absorb_permute_opt`` is one sponge step in one launch of the kernel, its
+one host entry: the absorbed rate rows are added into the state as the
+kernel loads it, and only the rows the caller keeps are stored
+(``csrc/poseidon_opt.cu`` ``RateIO``).  ``permute_opt`` is the step with no
+rows, the state read and every row kept.  ``absorb_permute_opt_plain`` is
+the step's plain version, built on ``permute_opt_plain``.
 
 The CUDA kernel has two bodies, chosen by the field (``body``): the
 two-word body at Goldilocks (one 64-bit word in plain form per element,
@@ -25,8 +27,8 @@ two-word body ``word_constants``, a buffer of its own
 (``PoseidonPermutation.opt_words``).  Both take the same (t, L, B) plane of
 canonical Montgomery limbs and the same rate I/O.
 
-Both wrappers take the plain version only for a tensor on the CPU; for a
-CUDA tensor they launch the kernel or raise.  Their launches are counted in
+The step takes the plain version only for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises.  Its launches are counted in
 ``permute_opt.launches``, and per body in ``permute_opt.body_launches``.
 """
 
@@ -37,7 +39,7 @@ import functools
 import numpy as np
 import torch
 
-from ..gmimc.config import word_body
+from ..fields import word_body
 from ..poseidon.config import PoseidonConfig, constant_layout, unpack_constants
 from ..poseidon.optimized import optimized_partial_layers
 from . import _build
@@ -101,11 +103,6 @@ def permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Te
     return x.int()
 
 
-def _check_partial_rounds(cfg: PoseidonConfig) -> None:
-    if cfg.partial_rounds < 2:
-        raise ValueError("the sparse-factorized kernel needs >= 2 partial rounds")
-
-
 def _launch_args(cfg: PoseidonConfig, consts: torch.Tensor, words: torch.Tensor | None):
     """Kernel 1's C arguments before its rate I/O: its body's replay, then
     the Poseidon kernels' common head (alpha, R_F, R_P, the limb constants,
@@ -134,27 +131,15 @@ def _launch_args(cfg: PoseidonConfig, consts: torch.Tensor, words: torch.Tensor 
     return head + (BODY_CODES[kind], words.data_ptr(), words.numel())
 
 
-def _plain_launch_args(cfg: PoseidonConfig, consts: torch.Tensor, words: torch.Tensor | None):
-    """The permutation's arguments, then the rate I/O of a plain
-    permutation: no rows, the state read, every row stored."""
-    return _launch_args(cfg, consts, words) + (None, None, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, cfg.t)
-
-
 def permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor,
                 words: torch.Tensor | None = None) -> torch.Tensor:
     """Sparse-factorized permutation of a (t, L, B) int32 canonical
-    Montgomery plane.  ``consts`` is ``kernel_constants(cfg)`` on the state's
-    device; ``words`` is ``word_constants(cfg)`` there, which the two-word
-    body needs on a CUDA tensor (``PoseidonPermutation`` holds both as
-    buffers)."""
-    _check_partial_rounds(cfg)
-    before = permute_opt.launches
-    out = _build.run(
-        permute_opt, "sponge_poseidon_opt", cfg, consts, state, constant_layout(cfg), permute_opt_plain,
-        functools.partial(_plain_launch_args, words=words),
-    )
-    permute_opt.body_launches[body(cfg)] += permute_opt.launches - before
-    return out
+    Montgomery plane: ``absorb_permute_opt`` with no rows, the state read
+    and every row kept.  ``consts`` is ``kernel_constants(cfg)`` on the
+    state's device; ``words`` is ``word_constants(cfg)`` there, which the
+    two-word body needs on a CUDA tensor (``PoseidonPermutation`` holds
+    both as buffers)."""
+    return absorb_permute_opt(cfg, consts, state, 0, (), (0, cfg.t), words)
 
 
 permute_opt.launches = 0
@@ -166,31 +151,38 @@ def absorb_permute_opt_plain(cfg: PoseidonConfig, consts: torch.Tensor, state, l
     """``absorb_permute_opt`` with tensor ops: the rows added by
     ``mont_add``, ``permute_opt_plain``, the rows kept."""
     fs = cfg.field
-    k, L, B = rows[0].shape
-    x = torch.zeros((cfg.t, L, B), dtype=torch.int32, device=rows[0].device) if state is None else state
-    if k:
-        hi = lo + k * len(rows)
-        x = torch.cat([x[:lo], mont.mont_add(fs, x[lo:hi], torch.cat(rows)).int(), x[hi:]])
-    out = permute_opt_plain(cfg, consts, x)
+    if state is None:
+        state = torch.zeros((cfg.t, fs.nlimbs, rows[0].shape[-1]), dtype=torch.int32, device=rows[0].device)
+    if rows and rows[0].shape[0]:
+        hi = lo + rows[0].shape[0] * len(rows)
+        state = torch.cat([state[:lo], mont.mont_add(fs, state[lo:hi], torch.cat(rows)).int(), state[hi:]])
+    out = permute_opt_plain(cfg, consts, state)
     a, b = out_rows
     return out if (a, b) == (0, cfg.t) else out[a:b].clone()
 
 
 def absorb_permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state, lo: int, rows: tuple,
                        out_rows: tuple, words: torch.Tensor | None = None) -> torch.Tensor:
-    """One sponge step: the canonical (k, L, B) int32 views ``rows`` (one or
-    two, of any strides; the second follows the first) added mod p into
-    state rows ``lo ..``, the permutation, and rows ``out_rows`` = (a, b) of
-    the result as a new (b - a, L, B) plane.  ``state`` is a (t, L, B)
-    canonical plane, or None for a zero state, which is then read from
-    nowhere.  ``consts`` is ``kernel_constants(cfg)`` on the rows' device,
-    ``words`` ``word_constants(cfg)`` there (the two-word body's, needed on
-    a CUDA tensor)."""
-    _check_partial_rounds(cfg)
-    if len(rows) not in (1, 2) or any(r.shape != rows[0].shape for r in rows) or rows[0].dim() != 3:
-        raise ValueError("rows must be one or two (k, L, B) views of one shape")
-    k, L, B = rows[0].shape
-    device = rows[0].device
+    """One sponge step: the canonical (k, L, B) int32 views ``rows`` (none,
+    one or two, of any strides; the second follows the first) added mod p
+    into state rows ``lo ..``, the permutation, and rows ``out_rows`` =
+    (a, b) of the result as a new (b - a, L, B) plane.  ``state`` is a
+    (t, L, B) canonical plane, or None for a zero state, which is then read
+    from nowhere (the rows give its lanes).  ``consts`` is
+    ``kernel_constants(cfg)`` on the data's device, ``words``
+    ``word_constants(cfg)`` there (the two-word body's, needed on a CUDA
+    tensor)."""
+    if cfg.partial_rounds < 2:
+        raise ValueError("the sparse-factorized kernel needs >= 2 partial rounds")
+    layout = constant_layout(cfg)
+    if state is not None:
+        _build.check_state(cfg, consts, state, layout)
+    elif not rows:
+        raise ValueError("a zero state needs rows to give its lanes")
+    if len(rows) > 2 or any(r.dim() != 3 or r.shape != rows[0].shape for r in rows):
+        raise ValueError("rows must be none, one or two (k, L, B) views of one shape")
+    k, L, B = rows[0].shape if rows else (0, *state.shape[1:])
+    device = rows[0].device if rows else state.device
     if L != cfg.field.nlimbs:
         raise ValueError(f"rows must have L = {cfg.field.nlimbs} limbs, got {L}")
     if any(r.dtype != torch.int32 for r in rows):
@@ -203,19 +195,27 @@ def absorb_permute_opt(cfg: PoseidonConfig, consts: torch.Tensor, state, lo: int
     if not 0 <= a < b <= cfg.t:
         raise ValueError(f"output rows [{a}, {b}) outside [0, {cfg.t})")
     if state is None:
-        _build.check_constants(consts, device, constant_layout(cfg))
-    else:
-        _build.check_state(cfg, consts, state, constant_layout(cfg))
-        if state.shape[-1] != B or state.device != device:
-            raise ValueError(f"state {tuple(state.shape)} on {state.device}, rows {tuple(rows[0].shape)} on {device}")
+        _build.check_constants(consts, device, layout)
+    elif state.shape[-1] != B or state.device != device:
+        raise ValueError(f"state {tuple(state.shape)} on {state.device}, rows {tuple(rows[0].shape)} on {device}")
     if device.type == "cpu":
         return absorb_permute_opt_plain(cfg, consts, state, lo, rows, out_rows)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    _build.check_instantiated("sponge_poseidon_opt", cfg.t, L)
+    return _launch(cfg, consts, words, state, lo, rows, out_rows, B)
+
+
+def _launch(cfg: PoseidonConfig, consts: torch.Tensor, words, state, lo: int, rows: tuple, out_rows: tuple,
+            B: int) -> torch.Tensor:
+    """A checked step's launch: its body's bounds and (t, L) instantiation
+    and its arguments (``_launch_args``), the output plane, one launch of
+    ``B`` lanes, counted in ``permute_opt.launches`` and its body's count."""
     args = _launch_args(cfg, consts, words)
-    out = torch.empty((b - a, L, B), dtype=torch.int32, device=device)
+    a, b = out_rows
+    L = cfg.field.nlimbs
+    out = torch.empty((b - a, L, B), dtype=torch.int32, device=consts.device)
     if B:
+        k = rows[0].shape[0] if rows else 0
         views = [(r.data_ptr(), *r.stride()) for r in rows] if k else []
         views += [(None, 0, 0, 0)] * (2 - len(views))
         (ptr0, *strides0), (ptr1, *strides1) = views

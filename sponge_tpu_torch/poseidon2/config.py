@@ -21,22 +21,15 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..fields import FieldSpec
+from ..fields import FieldSpec, one_word
 from ..poseidon.config import mont_limb_rows, unpack_layout
 
 # Diagonal entries mu - 1 below this scale the limbs by a plain integer;
 # larger ones take one constant Montgomery product per element.
 SMALL_DIAG_LIMIT = 1 << 4
 
-# Kernel 3 keeps one element in one 32-bit word (its one-word body) for a
-# field below this: every value below 2p then fits a word.
-WORD_FIELD_LIMIT = 1 << 31
+# Kernel 3 runs a field ``fields.one_word`` holds with its one-word body.
 WORD_HEAD = 5  # p, -p^-1 mod 2^32, 2^16 mod p, 2^48 mod p, floor(2^48 / p)
-
-
-def one_word(fs: FieldSpec) -> bool:
-    """Whether kernel 3 runs the field with its one-word body."""
-    return fs.modulus < WORD_FIELD_LIMIT
 
 
 @dataclass(frozen=True)
@@ -94,13 +87,6 @@ class Poseidon2Config:
     def small_diag(self) -> bool:
         """True when every ``mu_i - 1`` scales limbs as a plain integer."""
         return all(v < SMALL_DIAG_LIMIT for v in self.diag_m1)
-
-    def batched_permute(self, state, backend: str = "auto"):
-        """Permutation hook of the shared duplex sponge
-        (``poseidon.permutation.batched_permute`` delegates here)."""
-        from .permutation import batched_permute2
-
-        return batched_permute2(self, state, backend)
 
     def oracle_sponge(self):
         """Scalar python-int duplex sponge over this permutation."""

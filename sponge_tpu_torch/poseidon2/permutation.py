@@ -11,11 +11,11 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import torch
 
-from ..family import FamilyPermutation, permutation_for
+from ..family import FamilyPermutation
 from ..ops.poseidon2 import permute_p2, permute_p2_plain
 from ..poseidon.config import mont_limb_rows
+from ..poseidon.permutation import batched_permute
 from .config import Poseidon2Config, kernel_constants
 
 
@@ -43,7 +43,7 @@ def device_constants2(cfg: Poseidon2Config):
     }
 
 
-class Poseidon2Permutation(FamilyPermutation):
+class Poseidon2Permutation(FamilyPermutation, config=Poseidon2Config):
     """The Poseidon2 permutation of one config: kernel 3 and its plain version."""
 
     kernel = staticmethod(permute_p2)
@@ -51,6 +51,4 @@ class Poseidon2Permutation(FamilyPermutation):
     constants = staticmethod(kernel_constants)
 
 
-def batched_permute2(cfg: Poseidon2Config, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Backend-dispatched batched Poseidon2 permutation (``family`` backends)."""
-    return permutation_for(Poseidon2Permutation, cfg, state.device)(state, backend)
+batched_permute2 = batched_permute  # the JAX package's name

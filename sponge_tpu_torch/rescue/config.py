@@ -65,13 +65,6 @@ class RescueConfig:
         """The inverse S-box exponent alpha^{-1} mod p-1 (about log2 p bits)."""
         return pow(self.alpha, -1, self.field.modulus - 1)
 
-    def batched_permute(self, state, backend: str = "auto"):
-        """Permutation hook of the shared duplex sponge
-        (``poseidon.permutation.batched_permute`` delegates here)."""
-        from .permutation import batched_rescue_permute
-
-        return batched_rescue_permute(self, state, backend)
-
     def oracle_sponge(self):
         """Scalar python-int duplex sponge over this permutation."""
         from .oracle import OracleRescueSponge

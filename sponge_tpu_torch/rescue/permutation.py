@@ -9,11 +9,10 @@ from __future__ import annotations
 
 import functools
 
-import torch
-
-from ..family import FamilyPermutation, permutation_for
+from ..family import FamilyPermutation
 from ..ops.rescue import rescue_permute, rescue_permute_plain
 from ..poseidon.config import mont_limb_rows
+from ..poseidon.permutation import batched_permute
 from .config import RescueConfig, kernel_constants
 
 
@@ -25,7 +24,7 @@ def _device_constants(cfg: RescueConfig):
     return mont_limb_rows(fs, cfg.rc)[..., None], mont_limb_rows(fs, cfg.mds)[..., None]
 
 
-class RescuePermutation(FamilyPermutation):
+class RescuePermutation(FamilyPermutation, config=RescueConfig):
     """The Rescue-Prime permutation of one config: kernel 5 and its plain
     version."""
 
@@ -34,7 +33,4 @@ class RescuePermutation(FamilyPermutation):
     constants = staticmethod(kernel_constants)
 
 
-def batched_rescue_permute(cfg: RescueConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Backend-dispatched batched Rescue-Prime permutation (``family``
-    backends)."""
-    return permutation_for(RescuePermutation, cfg, state.device)(state, backend)
+batched_rescue_permute = batched_permute  # the JAX package's name

@@ -21,7 +21,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import sponge_tpu_torch as st
-from sponge_tpu_torch.fields import ints_to_limbs
+from sponge_tpu_torch.family import permutation_for
+from sponge_tpu_torch.fields import ints_to_limbs, mont_tensor_to_ints
 from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops.poseidon_opt import absorb_permute_opt, absorb_permute_opt_plain, permute_opt
 from sponge_tpu_torch.poseidon import permutation as perm_mod
@@ -169,16 +170,51 @@ def test_other_paths_take_add_rows_and_batched_permute(name, n_views, monkeypatc
     assert torch.equal(got, reference(cfg, state, 0, views, out_rows, backend))
 
 
-@pytest.mark.parametrize("backend", ("dense", "opt"))
-def test_kernel_backends_on_the_cpu_take_the_unfused_step_and_raise(backend, monkeypatch):
-    """"dense" and "opt" name CUDA kernels: on the CPU the step goes the
-    unfused way, whose permutation refuses the tensor as
-    ``batched_permute`` does."""
-    cfg = CONFIGS["bls381-r2"]()
+@pytest.mark.parametrize("name", ("bls381-r2", "partial-rounds-1"))
+def test_kernel_backends_on_the_cpu_take_the_unfused_step_and_raise(name, monkeypatch):
+    """"kernel" names a CUDA kernel: on the CPU neither kernel 1's step (a
+    config with R_P >= 2) nor the unfused step's permutation (R_P < 2, kernel
+    2) launches; both refuse the tensor as ``batched_permute`` does."""
+    cfg = CONFIGS[name]() if name in CONFIGS else r_p_one_config()
     monkeypatch.setattr(perm_mod, "absorb_permute_opt", lambda *args: pytest.fail("took kernel 1's step"))
     rows = row_views(cfg, 1, 1, LANES, 5)[0]
     with pytest.raises(ValueError, match="runs a CUDA kernel"):
-        absorb_permute(cfg, None, 0, rows, backend=backend)
+        absorb_permute(cfg, None, 0, rows, backend="kernel")
+
+
+FAMILIES = {
+    "poseidon": (st.PoseidonPermutation, lambda: st.get_default_poseidon_parameters(st.GOLDILOCKS_FR, 4)),
+    "poseidon2": (st.Poseidon2Permutation, lambda: st.get_default_poseidon2_parameters(st.GOLDILOCKS_FR, 4)),
+    "rescue": (st.RescuePermutation, lambda: st.get_default_rescue_parameters(st.GOLDILOCKS_FR, 4)),
+    "gmimc": (st.GmimcPermutation, lambda: st.get_default_gmimc_parameters(st.GOLDILOCKS_FR, 4)),
+    "griffin": (st.GriffinPermutation, lambda: st.get_default_griffin_parameters(st.GOLDILOCKS_FR, 4)),
+    "anemoi": (st.AnemoiPermutation, lambda: st.get_default_anemoi_parameters(st.GOLDILOCKS_FR, 4)),
+    "monolith": (st.MonolithPermutation, lambda: st.get_default_monolith_parameters(st.GOLDILOCKS_FR, 4)),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_one_dispatch_for_every_family(name):
+    """``family.permutation_for`` finds each family's module from its
+    config's type (Poseidon's alone with a one-launch step),
+    ``batched_permute`` equals the family's oracle, and ``absorb_permute``
+    under "auto" equals "plain"."""
+    module, make = FAMILIES[name]
+    cfg = make()
+    cpu = torch.device("cpu")
+    perm = permutation_for(cfg, cpu)
+    assert type(perm) is module and perm is permutation_for(cfg, cpu) and perm.fused == (name == "poseidon")
+    state = state_plane(cfg, 8, 12)
+    want = []
+    for lane in zip(*mont_tensor_to_ints(cfg.field, state)):
+        o = cfg.oracle_sponge()
+        o.state = list(lane)
+        o.permute()
+        want.append(o.state)
+    assert mont_tensor_to_ints(cfg.field, batched_permute(cfg, state)) == [list(r) for r in zip(*want)]
+    rows = row_views(cfg, cfg.rate, 1, 8, 13)[0]
+    got = absorb_permute(cfg, state, 0, rows, out_rows=(cfg.capacity, cfg.t))
+    assert torch.equal(got, absorb_permute(cfg, state, 0, rows, out_rows=(cfg.capacity, cfg.t), backend="plain"))
 
 
 def test_step_refuses_rows_past_the_rate_and_bad_planes():

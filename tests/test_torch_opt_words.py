@@ -241,7 +241,7 @@ def test_launch_args_by_body():
     kernel 2's) and its length, and it refuses a missing, short, long or
     misplaced buffer.  A 60-bit field at (12, 3), the two-word body's pair,
     takes the limb body, which lacks the pair: NotImplementedError, no
-    fallback.  Each body's arguments fill the C entry's signature."""
+    fallback."""
     cfg = st.get_default_poseidon_parameters(st.GOLDILOCKS_FR, 8)
     perm = st.PoseidonPermutation(cfg, "cpu")
     consts, words = perm.consts, perm.opt_words
@@ -251,9 +251,6 @@ def test_launch_args_by_body():
     for bad in (None, words[1:], torch.cat([words, words[:2]]), perm.words, words.to("meta")):
         with pytest.raises(ValueError, match="word_constants"):
             opt._launch_args(cfg, consts, bad)
-    bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
-    for c, k, w in ((cfg, consts, words), (bls, st.PoseidonPermutation(bls, "cpu").consts, None)):
-        assert len(opt._plain_launch_args(c, k, w)) == len(_build.SIGNATURES["sponge_poseidon_opt"])
     fs60 = st.FieldSpec(name="f60", modulus=(1 << 60) - 93, generator=2)
     other = dataclasses.replace(cfg, field=fs60, ark=tuple(tuple(v % fs60.modulus for v in r) for r in cfg.ark),
                                 mds=tuple(tuple(v % fs60.modulus for v in r) for r in cfg.mds))
@@ -285,20 +282,24 @@ def test_word_constants_are_the_limb_buffer_in_plain_form(rate):
 
 
 def test_launches_are_counted_by_body(monkeypatch):
-    """``permute_opt`` adds each launch to its body's count: a stand-in for
-    ``_build.run`` launches once on any call here."""
-
-    def launch_once(wrapper, *args):
-        wrapper.launches += 1
-
-    monkeypatch.setattr(_build, "run", launch_once)
+    """``_launch``, kernel 1's one launch, adds each launch to
+    ``permute_opt.launches`` and its body's count; a stand-in for
+    ``_build.launch`` takes the arguments of each body, which fill the C
+    entry's signature: a plain permutation, no rows, every row stored."""
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda symbol, state, out, *args, shape: calls.append((args, shape)))
     monkeypatch.setattr(opt.permute_opt, "launches", 0)
     monkeypatch.setattr(opt.permute_opt, "body_launches", dict.fromkeys(opt.BODIES, 0))
     gl = st.get_default_poseidon_parameters(st.GOLDILOCKS_FR, 8)
     bls = st.get_default_poseidon_parameters(st.BLS12_381_FR, 2)
     for cfg in (gl, gl, bls):
-        opt.permute_opt(cfg, None, None)
-    assert opt.permute_opt.body_launches == {"limb": 1, "two-word": 2}
+        perm = st.PoseidonPermutation(cfg, "cpu")
+        state = state_plane(cfg, 4, 1)
+        assert opt._launch(cfg, perm.consts, perm.opt_words, state, 0, (), (0, cfg.t), 4).shape == state.shape
+    assert opt.permute_opt.launches == 3 and opt.permute_opt.body_launches == {"limb": 1, "two-word": 2}
+    for (args, shape), cfg in zip(calls, (gl, gl, bls)):
+        assert len(args) == len(_build.SIGNATURES["sponge_poseidon_opt"]) and shape == (cfg.t, cfg.field.nlimbs, 4)
+        assert args[-13:] == (None, None, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, cfg.t)
 
 
 def test_smoke_census_names_each_body():

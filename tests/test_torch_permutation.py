@@ -173,11 +173,11 @@ def test_interop_built_permutation_matches():
 def test_kernel_backends_refuse_cpu_tensors():
     cfg = interop.config_from_jax(tiny_poseidon_config())
     state = st.zero_state(cfg, 8, "cpu")
-    for backend in ("opt", "dense"):
-        with pytest.raises(ValueError, match="CUDA kernel"):
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        st.batched_permute(cfg, state, "kernel")
+    for backend in ("opt", "dense", "cios"):
+        with pytest.raises(ValueError, match="unknown backend"):
             st.batched_permute(cfg, state, backend)
-    with pytest.raises(ValueError, match="unknown backend"):
-        st.batched_permute(cfg, state, "cios")
     perm = st.PoseidonPermutation(cfg, "cpu")
     for wrapper in (permute_dense, permute_opt):
         with pytest.raises(ValueError, match="no kernel for device"):

@@ -605,8 +605,9 @@ def test_dispatch_on_cpu():
     assert mont_tensor_to_ints(cfg.field, out) == oracle_permute(cfg, vals)
     with pytest.raises(ValueError, match="CUDA kernel"):
         st.batched_permute(cfg, state, "kernel")
-    with pytest.raises(ValueError, match="unknown backend"):
-        st.batched_permute(cfg, state, "opt")
+    for backend in ("opt", "dense"):
+        with pytest.raises(ValueError, match="unknown backend"):
+            st.batched_permute(cfg, state, backend)
     perm = st.Poseidon2Permutation(cfg, "cpu")
     with pytest.raises(ValueError, match="no kernel for device"):
         permute_p2(cfg, perm.consts.to("meta"), state.to("meta"))
