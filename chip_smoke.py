@@ -28,7 +28,15 @@ size with the launch counters zeroed just before each and read just after
 (Poseidon: the batched BLS12-381 Fr rate-2 permutation at B = 2^20, the lazy
 sponge, a 2^20-leaf Merkle root; Poseidon2 and Rescue: the BLS12-381 and
 BabyBear permutations and the KoalaBear Poseidon2 one at B = 2^20, a
-2^20-leaf Poseidon2 Merkle root, a lazy Rescue sponge; GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks
+2^20-leaf Poseidon2 Merkle root, a lazy Rescue sponge; kernel 3's overwrite
+sponge at the MMCS cell's sizes: one commitment's row set, its launches
+counted (the 2^23 x 64 BabyBear leaf set in one launch, its truncated
+tree a launch a level), the digests and every level against the plain
+backend on the card, the digests against the unfused loop, one level from
+lane-stride-2 views against the ``cat``, both against the oracle on random
+and near-bound lanes, the plain permutation at BabyBear and KoalaBear
+t = 16 timed beside the kernel table (``--only poseidon2_overwrite`` runs
+this phase alone); GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks
 permutations at B = 2^20 (kernel 8's limb body at BLS12-381, its two-word
 body at Goldilocks, each with near-bound lanes of p-1 and p-2 in every
 element), a lazy GMiMC sponge, a 2^14-leaf Griffin Merkle
@@ -664,8 +672,9 @@ def census_instance(name, cfg, body=None):
     if name == "poseidon2_permute":
         plan, layout = check_p2_bounds(cfg), p2_layout(cfg)
         limb_words = layout_size(layout[:LIMB_SECTIONS])
-        if plan.body == "word":
-            return "poseidon2_word_kernel", (t, int(plan.structured)), 4 * (layout_size(layout) - limb_words)
+        if plan.body == "word":  # alpha 3, 5 and 7 have instantiations of their own (csrc/poseidon2.cu)
+            want = (t, int(plan.structured), cfg.alpha if cfg.alpha in (3, 5, 7) else 0)
+            return "poseidon2_word_kernel", want, 4 * (layout_size(layout) - limb_words)
         return "poseidon2_kernel", (t, L), 4 * limb_words
     if name == "griffin_permute":
         table = window_table_bytes(1, L, griffin_window(cfg))
@@ -1294,6 +1303,9 @@ def main(argv):
         if only & set(FAMILY_KERNELS):
             elapsed("the family widths")
             family_widths_phase(st, dev, rng, gpu, kernels, rates, _build.ptxas_report())
+        if OVERWRITE_PHASE in only:
+            elapsed("the overwrite sponge")
+            overwrite_phase(st, dev, rng, gpu)
         elapsed("the end")
         return 0
 
@@ -1389,6 +1401,10 @@ def main(argv):
         check(r_bytes[b] == o.squeeze_bytes(50), f"Rescue sponge lane {b}: squeeze_bytes")
         check(r_bits[b] == o.squeeze_bits(260), f"Rescue sponge lane {b}: squeeze_bits")
     say("sponge", f"lazy Rescue-Prime sponge B={B_CHECK}: native/bytes/bits squeezes == oracle on 8 lanes")
+
+    elapsed("the overwrite sponge")
+    # ---- 6b. kernel 3's overwrite sponge at the MMCS cell's sizes, launches counted ----
+    launches["poseidon2_permute"] += overwrite_phase(st, dev, rng, gpu)["poseidon2_permute"]
 
     elapsed("the GMiMC/Griffin/Anemoi path")
     # ---- 7. the GMiMC, Griffin and Anemoi path (kernels 8, 6 and 7), launches counted ----
@@ -2014,6 +2030,115 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
         f"{a8.rate + 1}, absorb 3, squeeze 2) at B={B_CHECK}: 6 lanes == oracle")
     say("widths", f"the family widths phase took {time.perf_counter() - start:.1f} s")
     return {name: launches[name] for name in FAMILY_KERNELS}
+
+
+OVERWRITE_PHASE = "poseidon2_overwrite"  # its name for --only
+OVERWRITE_LEAVES_LOG2, OVERWRITE_ROW = 23, 64  # the bb-mmcs-commit-2p23 cell's row set
+P2_ROW3_MS = {"babybear_fr": 0.491, "koalabear_fr": 0.439}  # PERF.md's kernel table, row 3, at B = 2^20
+
+
+def overwrite_phase(st, dev, rng, gpu):
+    """Kernel 3's overwrite sponge (``ops/poseidon2.py``
+    ``overwrite_permute_p2``) at the MMCS cell's sizes, launches counted:
+    one commitment's row set (the 2^23 x 64 leaf set through
+    ``padding_free_hash``, its truncated tree), with ``permute_p2.launches``
+    zeroed just before and read just after (1 leaf launch, 23 tree
+    launches); the digests against the plain backend (``permute_p2_plain``
+    a chunk, run on the card a quarter of the lanes at a time), the unfused
+    loop (``overwrite_rows`` and a plain-permutation launch a chunk) and the
+    oracle, on random lanes and the near-bound lanes (lane 64 every element
+    p - 1, lane 65 every element 0); every tree level against the plain
+    backend's tree, and the first level, read from the digests' lane-stride-2
+    views, against the ``cat`` of the children and the oracle; each timed
+    beside its unfused loop, and the plain permutation at BabyBear and
+    KoalaBear t = 16 at B = 2^20 beside the kernel table's times.  Returns
+    the commitment's launches."""
+    from sponge_tpu_torch.hash import merkle_tree_truncated, padding_free_hash, truncated_compress_pairs
+    from sponge_tpu_torch.ops.poseidon2 import permute_p2
+    from sponge_tpu_torch.poseidon.permutation import overwrite_rows, zero_state
+    from sponge_tpu_torch.family import permutation_for
+
+    cfg = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    fs, t, d, n = cfg.field, cfg.t, cfg.t // 2, 1 << OVERWRITE_LEAVES_LOG2
+    consts = permutation_for(cfg, dev).consts
+    leaves = random_plane(fs, (OVERWRITE_ROW, fs.nlimbs, n), rng, dev)
+    for b, v in zip(NEAR_BOUND_LANES, (fs.modulus - 1, 0)):
+        leaves[:, :, b] = torch.from_numpy(fs.ints_to_mont_plane([v])[:, 0]).to(dev)[None]
+
+    def loop():
+        state = zero_state(cfg, n, dev)
+        for lo in range(0, OVERWRITE_ROW, cfg.rate):
+            state = permute_p2(cfg, consts, overwrite_rows(cfg, state, leaves[lo : lo + cfg.rate]))
+        return state[:d].clone()
+
+    permute_p2.launches = 0
+    digests = padding_free_hash(cfg, leaves, d)
+    levels = merkle_tree_truncated(cfg, digests)
+    torch.cuda.synchronize()
+    launches = permute_p2.launches
+    check(launches == 1 + OVERWRITE_LEAVES_LOG2, f"a commitment's row set took {launches} launches")
+    say("launches", "overwrite sponge path (one commitment's row set: 1 leaf launch, "
+        f"{OVERWRITE_LEAVES_LOG2} tree launches): " + json.dumps({"poseidon2_permute": launches}))
+
+    quarter = n // 4
+    for lo in range(0, n, quarter):
+        plain = padding_free_hash(cfg, leaves[..., lo : lo + quarter], d, "plain")
+        check(torch.equal(digests[..., lo : lo + quarter], plain),
+              f"overwrite sponge != the plain backend on lanes [{lo}, {lo + quarter}) of the leaf set")
+    del plain
+    check(torch.equal(digests, loop()), "overwrite sponge != the unfused loop on the 2^23 x 64 leaf set")
+    sample = list(range(16)) + list(NEAR_BOUND_LANES) + sorted(rng.choice(np.arange(66, n), 30, replace=False).tolist())
+    for b in sample:
+        o = cfg.oracle_sponge()
+        o.state = [0] * t
+        row = lane_ints(fs, leaves, b)
+        for lo in range(0, OVERWRITE_ROW, cfg.rate):
+            o.state = row[lo : lo + cfg.rate] + o.state[cfg.rate :]
+            o.permute()
+        check(lane_ints(fs, digests, b) == o.state[:d], f"overwrite sponge lane {b} differs from the oracle")
+    say("overwrite", f"padding_free_hash {fs.name} t={t}: 2^{OVERWRITE_LEAVES_LOG2} rows of {OVERWRITE_ROW} in one "
+        f"launch == the plain backend (torch.equal on the card, every lane) == the unfused loop (8 overwrites "
+        f"and launches); {len(sample)} lanes == oracle, the near-bound lanes (every element p-1, every element 0) "
+        f"among them")
+
+    pairs = digests.reshape(d, fs.nlimbs, n // 2, 2)
+    left, right = pairs[..., 0], pairs[..., 1]
+    before = permute_p2.launches
+    level = truncated_compress_pairs(cfg, left, right)
+    check(permute_p2.launches == before + 1, "a tree level did not take one launch")
+    check(torch.equal(level, levels[1]), "a tree level from lane-stride-2 views != the tree's first level")
+    check(torch.equal(level, permute_p2(cfg, consts, torch.cat([left, right]))[:d]),
+          "a tree level from lane-stride-2 views != the cat of its children")
+    plain_levels = merkle_tree_truncated(cfg, digests, "plain")
+    check(len(plain_levels) == len(levels) and all(torch.equal(a, b) for a, b in zip(levels, plain_levels)),
+          "the truncated tree != the plain backend's tree")
+    del plain_levels
+    nodes = sorted({b // 2 for b in sample})  # the sampled lanes' parents
+    for j in nodes:
+        node = lane_ints(fs, level, j)
+        o = cfg.oracle_sponge()
+        o.state = lane_ints(fs, digests, 2 * j) + lane_ints(fs, digests, 2 * j + 1)
+        o.permute()
+        check(node == o.state[:d], f"tree node {j} differs from the oracle")
+    say("overwrite", f"truncated_compress_pairs over 2^{OVERWRITE_LEAVES_LOG2 - 1} nodes read as lane-stride-2 "
+        f"views == the cat of the children; all {OVERWRITE_LEAVES_LOG2} tree levels == the plain backend's tree "
+        f"(torch.equal on the card); {len(nodes)} nodes == oracle")
+
+    leaf_ms, _ = time_ms(lambda: padding_free_hash(cfg, leaves, d))
+    loop_ms, _ = time_ms(loop)
+    level_ms, _ = time_ms(lambda: truncated_compress_pairs(cfg, left, right))
+    cat_ms, _ = time_ms(lambda: permute_p2(cfg, consts, torch.cat([left, right]))[:d].clone())
+    say("time", f"overwrite sponge over 2^{OVERWRITE_LEAVES_LOG2} x {OVERWRITE_ROW}: {leaf_ms:.3f} ms "
+        f"({n * OVERWRITE_ROW // cfg.rate / leaf_ms * 1e3:,.0f} perms/s), the unfused loop {loop_ms:.3f} ms; "
+        f"a 2^{OVERWRITE_LEAVES_LOG2 - 1}-node level {level_ms:.3f} ms, with the cat {cat_ms:.3f} ms [{gpu}]")
+    for other in (cfg, st.get_default_poseidon2_parameters(st.KOALABEAR_FR, 8)):
+        state = random_plane(other.field, (other.t, other.field.nlimbs, B_MAIN), rng, dev)
+        perm_consts = permutation_for(other, dev).consts
+        ms, _ = time_ms(lambda: permute_p2(other, perm_consts, state))
+        ref = P2_ROW3_MS[other.field.name]
+        say("time", f"permute_p2 {other.field.name} t={other.t} B={B_MAIN}: {ms:.3f} ms, the kernel table's "
+            f"{ref:.3f} ms ({ms / ref - 1:+.1%}) [{gpu}]")
+    return {"poseidon2_permute": launches}
 
 
 def check_merkle(cfg, leaves, root, family):

@@ -26,6 +26,12 @@
 // constant buffer's word section.  The replay ops/bounds.py _P2WordSim
 // proves every word below 2^32, every 64-bit product sum below 2^64, every
 // row sum inside reduce_wide's range and every subtraction input below 2p.
+// Its launch is Plonky3's overwrite sponge (SpongeIO): the rows of up to
+// two strided views taken a chunk at a time, each written over the state's
+// first rows before a permutation, the state held in registers from a zero
+// start to the rows stored.  A row set's padding-free leaf hash is one
+// launch of 8-row chunks, a truncated tree node one chunk of t rows from
+// the two children where they lie, the plain permutation one chunk of t.
 //
 // The limb body (poseidon2_kernel), for every other field (the 255-bit ones,
 // the 35-bit and 44-bit test fields): 24-bit limbs, Montgomery R = 2^(24 L).
@@ -236,30 +242,74 @@ __device__ __forceinline__ void word_external(uint32_t (&x)[T], const int32_t* m
   }
 }
 
-template <int T, bool STRUCTURED>
-__global__ void __launch_bounds__(kThreads)
-    poseidon2_word_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
-                          int full_rounds, int partial_rounds, uint32_t alpha,
-                          const int32_t* __restrict__ consts, int words) {
-  extern __shared__ int32_t c[];
-  stage_constants(c, consts, words);
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const WordField f{static_cast<uint32_t>(c[0]), static_cast<uint32_t>(c[1]), static_cast<uint32_t>(c[4])};
-  const uint32_t to_word = static_cast<uint32_t>(c[2]), from_word = static_cast<uint32_t>(c[3]);
+// A launch's chained overwrite sponge (ops/poseidon2.py
+// overwrite_permute_p2): the rows of up to two canonical (k[v], 2, B) int32
+// views (null: absent), view 0's then view 1's, each read through its own
+// element strides (row, limb, lane), so the even and odd lanes of a tree
+// level are two views with lane stride 2.  From a zero state, each chunk of
+// ``width`` rows (the last may be shorter) is written over state rows
+// [0, len(chunk)) and the state permuted; then rows [0, out_rows) are
+// stored as an (out_rows, 2, B) plane.  One view of t rows, width t and
+// out_rows t is the plain permutation.
+struct SpongeIO {
+  const int32_t* rows[2];
+  long long stride[2][3];
+  int k[2], width, out_rows;
+};
+
+// Row ``g`` of the views at lane ``b`` as one word below p (its two limbs
+// joined).
+__device__ __forceinline__ uint32_t view_row(const SpongeIO& io, int g, long long b) {
+  // each field selected by itself: no address is taken of the parameter
+  const bool second = g >= io.k[0];
+  const int32_t* at = (second ? io.rows[1] : io.rows[0]) +
+                      (g - (second ? io.k[0] : 0)) * (second ? io.stride[1][0] : io.stride[0][0]) +
+                      b * (second ? io.stride[1][2] : io.stride[0][2]);
+  const long long limb = second ? io.stride[1][1] : io.stride[0][1];
+  return static_cast<uint32_t>(at[0]) | (static_cast<uint32_t>(at[limb]) << kLimbBits);
+}
+
+__host__ __device__ constexpr int top_bit(int a) { return a > 1 ? 1 + top_bit(a >> 1) : 0; }
+
+// word_sbox's chain for an exponent known when compiling: unrolled, with no
+// loop over the exponent's bits.
+template <int ALPHA, int N>
+__device__ __forceinline__ void word_sbox_fixed(uint32_t (&x)[N], const WordField& f) {
+  uint32_t base[N];
+#pragma unroll
+  for (int e = 0; e < N; ++e) base[e] = x[e];
+#pragma unroll
+  for (int bit = top_bit(ALPHA) - 1; bit >= 0; --bit) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) x[e] = word_sub(word_mul(x[e], x[e], f), f);
+    if ((ALPHA >> bit) & 1) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) x[e] = word_sub(word_mul(x[e], base[e], f), f);
+    }
+  }
+}
+
+// The S-box on N words: ALPHA, an exponent known when compiling, or 0 for
+// ``alpha``.
+template <int ALPHA, int N>
+__device__ __forceinline__ void word_sbox_of(uint32_t (&x)[N], uint32_t alpha, const WordField& f) {
+  if constexpr (ALPHA != 0) {
+    word_sbox_fixed<ALPHA, N>(x, f);
+  } else {
+    word_sbox<N>(x, alpha, f);
+  }
+}
+
+// One permutation of the one-word body on words below 2p, from its first
+// M_E to its last (rows below 2p).
+template <int T, bool STRUCTURED, int ALPHA>
+__device__ __forceinline__ void word_permutation(uint32_t (&x)[T], const int32_t* c, int full_rounds,
+                                                 int partial_rounds, uint32_t alpha, const WordField& f) {
   const int32_t* ext = c + 5;
   const int32_t* intc = ext + full_rounds * T;
   const int32_t* diag = intc + partial_rounds;
   const int32_t* mat = diag + T;
   const int half = full_rounds / 2;
-
-  uint32_t x[T];
-#pragma unroll
-  for (int e = 0; e < T; ++e) {
-    const uint32_t lo = static_cast<uint32_t>(in[(2 * e) * B + b]);
-    const uint32_t hi = static_cast<uint32_t>(in[(2 * e + 1) * B + b]);
-    x[e] = word_mul(lo | (hi << kLimbBits), to_word, f);  // x R -> x R'
-  }
   word_external<T, STRUCTURED>(x, mat, f);
 #pragma unroll 1
   for (int r = 0; r < full_rounds + partial_rounds; ++r) {
@@ -268,11 +318,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < T; ++e)
         x[e] = word_sub(word_sub(x[e], f) + static_cast<uint32_t>(FromShared::load(ext + re * T + e)), f);
-      word_sbox<T>(x, alpha, f);
+      word_sbox_of<ALPHA, T>(x, alpha, f);
       word_external<T, STRUCTURED>(x, mat, f);
     } else {
       x[0] = word_sub(word_sub(x[0], f) + static_cast<uint32_t>(FromShared::load(intc + r - half)), f);
-      word_sbox<1>(reinterpret_cast<uint32_t(&)[1]>(x[0]), alpha, f);
+      word_sbox_of<ALPHA, 1>(reinterpret_cast<uint32_t(&)[1]>(x[0]), alpha, f);
       uint64_t s = 0;
 #pragma unroll
       for (int e = 0; e < T; ++e) s += x[e];
@@ -282,11 +332,47 @@ __global__ void __launch_bounds__(kThreads)
         x[e] = sigma + word_sub(word_mul(x[e], static_cast<uint32_t>(FromShared::load(diag + e)), f), f);
     }
   }
+}
+
+template <int T, bool STRUCTURED, int ALPHA>
+__global__ void __launch_bounds__(kThreads)
+    poseidon2_word_kernel(const SpongeIO io, int32_t* __restrict__ out, long long B, int full_rounds,
+                          int partial_rounds, uint32_t alpha, const int32_t* __restrict__ consts,
+                          int words) {
+  extern __shared__ int32_t c[];
+  stage_constants(c, consts, words);
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const WordField f{static_cast<uint32_t>(c[0]), static_cast<uint32_t>(c[1]), static_cast<uint32_t>(c[4])};
+  const uint32_t to_word = static_cast<uint32_t>(c[2]), from_word = static_cast<uint32_t>(c[3]);
+  const int rows = io.k[0] + io.k[1];
+
+  // The chunk's rows enter through the product by 2^16 mod p (x R -> x R'),
+  // over a zero state; after a permutation the carried rows, below 2p after
+  // the last M_E, take one conditional subtraction (ops/bounds.py
+  // _P2WordSim.run).
+  uint32_t x[T];
+  int n = min(io.width, rows);
+#pragma unroll
+  for (int e = 0; e < T; ++e) x[e] = e < n ? word_mul(view_row(io, e, b), to_word, f) : 0u;
+  // The next chunk is taken at the loop's end: taken at its top, with the
+  // rolled S-box, the permutation ran 20% slower (PERF.md).
+#pragma unroll 1
+  for (int lo = io.width;; lo += io.width) {
+    word_permutation<T, STRUCTURED, ALPHA>(x, c, full_rounds, partial_rounds, alpha, f);
+    if (lo >= rows) break;
+    n = min(io.width, rows - lo);
+#pragma unroll
+    for (int e = 0; e < T; ++e)
+      x[e] = e < n ? word_mul(view_row(io, lo + e, b), to_word, f) : word_sub(x[e], f);
+  }
 #pragma unroll
   for (int e = 0; e < T; ++e) {
-    const uint32_t v = word_sub(word_mul(x[e], from_word, f), f);  // x R' -> x R, canonical
-    out[(2 * e) * B + b] = static_cast<int32_t>(v & kLimbMask);
-    out[(2 * e + 1) * B + b] = static_cast<int32_t>(v >> kLimbBits);
+    if (e < io.out_rows) {
+      const uint32_t v = word_sub(word_mul(x[e], from_word, f), f);  // x R' -> x R, canonical
+      out[(2 * e) * B + b] = static_cast<int32_t>(v & kLimbMask);
+      out[(2 * e + 1) * B + b] = static_cast<int32_t>(v >> kLimbBits);
+    }
   }
 }
 
@@ -302,34 +388,67 @@ int launch_p2(const int32_t* in, int32_t* out, long long B, int full_rounds, int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int T, bool STRUCTURED>
-int launch_p2_word(const int32_t* in, int32_t* out, long long B, int full_rounds,
-                   int partial_rounds, unsigned alpha, const int32_t* consts, int words,
-                   cudaStream_t stream) {
+template <int T, bool STRUCTURED, int ALPHA>
+int launch_p2_word(const SpongeIO& io, int32_t* out, long long B, int full_rounds, int partial_rounds,
+                   unsigned alpha, const int32_t* consts, int words, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   const size_t bytes = static_cast<size_t>(words) * sizeof(int32_t);
-  if (const int err = allow_dynamic_shared(poseidon2_word_kernel<T, STRUCTURED>, bytes)) return err;
-  poseidon2_word_kernel<T, STRUCTURED><<<blocks, kThreads, bytes, stream>>>(
-      in, out, B, full_rounds, partial_rounds, alpha, consts, words);
+  if (const int err = allow_dynamic_shared(poseidon2_word_kernel<T, STRUCTURED, ALPHA>, bytes)) return err;
+  poseidon2_word_kernel<T, STRUCTURED, ALPHA><<<blocks, kThreads, bytes, stream>>>(
+      io, out, B, full_rounds, partial_rounds, alpha, consts, words);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The exponents of the one-word fields' default configs (KoalaBear 3,
+// Mersenne31 5, BabyBear 7) take an unrolled S-box: the rolled one, inside
+// the chunk loop, made ptxas add a uniform zero to most of its products and
+// ran the leaf sponge 10% slower (PERF.md).  Any other alpha runs the
+// rolled chain.
+template <int T, bool STRUCTURED>
+int launch_p2_word(const SpongeIO& io, int32_t* out, long long B, int full_rounds, int partial_rounds,
+                   unsigned alpha, const int32_t* consts, int words, cudaStream_t stream) {
+#define ALPHA(A_)                                                                                   \
+  if (alpha == A_)                                                                                  \
+    return launch_p2_word<T, STRUCTURED, A_>(io, out, B, full_rounds, partial_rounds, alpha, consts, \
+                                             words, stream);
+  ALPHA(3)
+  ALPHA(5)
+  ALPHA(7)
+#undef ALPHA
+  return launch_p2_word<T, STRUCTURED, 0>(io, out, B, full_rounds, partial_rounds, alpha, consts, words,
+                                          stream);
 }
 
 }  // namespace sponge
 
 // Plain C entry point (ctypes): returns the CUDA error of a refused shared
 // memory size or cudaGetLastError() after the launch, or -1 when the body
-// has no instantiation at (t, L).  ``body`` is 0 for the limb body (``consts``
-// the whole buffer, ``words`` its limb sections, ``plan`` the device fold
-// table of ops/bounds.py p2_plan), 1 for the one-word body with dense rows
-// and 2 for it with the structured M_E (``consts`` the word section,
-// ``words`` its length).  Instantiations must match ops/poseidon2.py BODIES
-// and INSTANTIATIONS in sponge_tpu_torch/ops/_build.py.
+// has no instantiation at (t, L) or refuses the sponge arguments.  ``body``
+// is 0 for the limb body (``consts`` the whole buffer, ``words`` its limb
+// sections, ``plan`` the device fold table of ops/bounds.py p2_plan), 1 for
+// the one-word body with dense rows and 2 for it with the structured M_E
+// (``consts`` the word section, ``words`` its length).  The rest is the
+// chained overwrite sponge (SpongeIO): ``in`` is view 0, then view 1, the
+// views' rows, their element strides, the chunk width and the rows stored.
+// The limb body runs the plain permutation alone: view 0 a contiguous
+// (t, L, B) plane, width t, t rows stored.  Instantiations must match
+// ops/poseidon2.py BODIES and INSTANTIATIONS in
+// sponge_tpu_torch/ops/_build.py.
 extern "C" int sponge_poseidon2(const int32_t* in, int32_t* out, long long B, int t, int L,
                                 int body, int full_rounds, int partial_rounds, unsigned alpha,
                                 int small_diag, const int32_t* consts, int words,
-                                const int32_t* plan, unsigned n0inv, void* stream) {
+                                const int32_t* plan, unsigned n0inv, const int32_t* rows1, int k0,
+                                int k1, long long row0_stride, long long limb0_stride,
+                                long long lane0_stride, long long row1_stride, long long limb1_stride,
+                                long long lane1_stride, int width, int out_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k0 < 0 || k1 < 0 || k0 + k1 < 1 || (k1 > 0 && rows1 == nullptr) || in == nullptr || width < 1 ||
+      width > t || out_rows < 1 || out_rows > t)
+    return -1;
   if (body == 0) {
+    if (k0 != t || k1 != 0 || width != t || out_rows != t || lane0_stride != 1 || limb0_stride != B ||
+        row0_stride != L * B)
+      return -1;
 #define PAIR(T_, L_)                                                                              \
   if (t == T_ && L == L_)                                                                         \
     return sponge::launch_p2<T_, L_>(in, out, B, full_rounds, partial_rounds, alpha, small_diag,    \
@@ -345,23 +464,21 @@ extern "C" int sponge_poseidon2(const int32_t* in, int32_t* out, long long B, in
     return -1;
   }
   if (L != 2) return -1;
+  const sponge::SpongeIO io{{in, rows1},
+                            {{row0_stride, limb0_stride, lane0_stride}, {row1_stride, limb1_stride, lane1_stride}},
+                            {k0, k1}, width, out_rows};
+#define WORD(T_, S_)                                                                              \
+  if (t == T_)                                                                                    \
+    return sponge::launch_p2_word<T_, S_>(io, out, B, full_rounds, partial_rounds, alpha, consts,  \
+                                          words, s);
   if (body == 2) {
-    if (t == 16)
-      return sponge::launch_p2_word<16, true>(in, out, B, full_rounds, partial_rounds, alpha, consts,
-                                              words, s);
-    if (t == 8)
-      return sponge::launch_p2_word<8, true>(in, out, B, full_rounds, partial_rounds, alpha, consts,
-                                             words, s);
+    WORD(16, true)
+    WORD(8, true)
     return -1;
   }
-  if (t == 16)
-    return sponge::launch_p2_word<16, false>(in, out, B, full_rounds, partial_rounds, alpha, consts,
-                                             words, s);
-  if (t == 8)
-    return sponge::launch_p2_word<8, false>(in, out, B, full_rounds, partial_rounds, alpha, consts,
-                                            words, s);
-  if (t == 3)
-    return sponge::launch_p2_word<3, false>(in, out, B, full_rounds, partial_rounds, alpha, consts,
-                                            words, s);
+  WORD(16, false)
+  WORD(8, false)
+  WORD(3, false)
+#undef WORD
   return -1;
 }

@@ -17,7 +17,11 @@ constant buffer of a config.  The module holds that buffer, and any in
 
 A module whose ``fused`` is true also has ``step``, a sponge step (rows
 added, the permutation, the rows kept) in one launch of its kernel;
-``poseidon.permutation.absorb_permute`` takes it.
+``poseidon.permutation.absorb_permute`` takes it.  One whose
+``overwrites`` is true has ``overwrite``, Plonky3's overwrite sponge (a
+zero state, chunks of rows written over its first rows, each followed by
+the permutation, the first rows kept) in one launch;
+``poseidon.permutation.overwrite_permute`` takes it.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ class FamilyPermutation(nn.Module):
 
     kernel = plain = constants = None
     extra: dict = {}
-    fused = False
+    fused = overwrites = False
 
     def __init_subclass__(cls, config: type | None = None, **kwargs):
         super().__init_subclass__(**kwargs)

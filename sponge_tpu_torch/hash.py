@@ -20,7 +20,14 @@ import numpy as np
 import torch
 
 from .ops import montgomery as mont
-from .poseidon.permutation import SpongeConfig, absorb_permute, batched_permute, overwrite_rows, zero_state
+from .poseidon.permutation import (
+    SpongeConfig,
+    absorb_permute,
+    batched_permute,
+    overwrite_permute,
+    overwrite_rows,
+    zero_state,
+)
 from .utils.profiling import ELEMENTS, LEVEL, OPEN, PADDING_FREE, TREE, TRUNCATE, annotate
 
 
@@ -291,14 +298,19 @@ def padding_free_hash(
 ) -> torch.Tensor:
     """(k, L, B) Montgomery element plane -> (num_outputs, L, B), Plonky3's
     ``PaddingFreeSponge``: a zero state; for each chunk of up to ``rate``
-    elements, rows [0, len(chunk)) overwritten (``overwrite_rows``) and the
-    state permuted, so a k that is a multiple of the rate takes no further
-    permutation; then rows [0, num_outputs) of the state, num_outputs <=
-    rate."""
+    elements, rows [0, len(chunk)) overwritten and the state permuted, so a
+    k that is a multiple of the rate takes no further permutation; then
+    rows [0, num_outputs) of the state, num_outputs <= rate.  One launch
+    for all chunks where the config's module has the overwrite sponge
+    (``overwrite_permute``), else ``overwrite_rows`` and a permutation a
+    chunk."""
     k, _, B = elems.shape
     if not 0 < num_outputs <= cfg.rate:
         raise ValueError(f"num_outputs must be in [1, rate={cfg.rate}]; got {num_outputs}")
     with annotate(PADDING_FREE, B):
+        fused = overwrite_permute(cfg, (elems,), cfg.rate, num_outputs, backend)
+        if fused is not None:
+            return fused
         state = zero_state(cfg, B, elems.device)
         for lo in range(0, k, cfg.rate):
             state = batched_permute(cfg, overwrite_rows(cfg, state, elems[lo : lo + cfg.rate]), backend)
@@ -309,11 +321,18 @@ def truncated_compress_pairs(
     cfg: SpongeConfig, left: torch.Tensor, right: torch.Tensor, backend: str = "auto"
 ) -> torch.Tensor:
     """(d, L, B) x (d, L, B) -> (d, L, B), t = 2d, Plonky3's
-    ``TruncatedPermutation``: the first d rows of the permuted left ‖ right."""
+    ``TruncatedPermutation``: the first d rows of the permuted left ‖ right.
+    Where the config's module has the overwrite sponge, one chunk of t rows
+    read from ``left`` and ``right`` where they lie (a level's even and odd
+    lanes, with no copy); else their ``cat``, the permutation and a copy
+    of the rows kept."""
     d = left.shape[0]
     if cfg.t != 2 * d:
         raise ValueError(f"a truncated permutation needs t = 2 * digest width; got t={cfg.t}, d={d}")
     with annotate(TRUNCATE, left.shape[-1]):
+        fused = overwrite_permute(cfg, (left, right), cfg.t, d, backend)
+        if fused is not None:
+            return fused
         return batched_permute(cfg, torch.cat([left, right]), backend)[:d].clone()
 
 

@@ -12,9 +12,10 @@ Each kernel symbol has its own C signature (``SIGNATURES``) and its own
 instantiated (t, L) pairs (``INSTANTIATIONS``); ``check_instantiated`` raises
 for any other shape.  Every signature starts ``(in, out, B, t, L, ...)`` and
 ends with the CUDA stream; ``launch`` fills both ends.  ``run`` is the body
-every kernel wrapper in ``ops/`` shares but kernel 1's, whose one entry is
-its sponge step (``ops/poseidon_opt.py`` ``absorb_permute_opt``), which
-reuses ``check_state`` and ``check_constants``.
+every kernel wrapper in ``ops/`` shares but kernels 1 and 3's, whose entries
+are their sponge launches (``ops/poseidon_opt.py`` ``absorb_permute_opt``,
+``ops/poseidon2.py`` ``overwrite_permute_p2``), which reuse
+``check_state`` and ``check_constants``.
 """
 
 from __future__ import annotations
@@ -127,8 +128,12 @@ SIGNATURES = {
     "sponge_poseidon_dense": [c_int, c_int, c_int, c_void_p, c_uint, c_int, c_void_p, c_int],
     # body (ops/poseidon2.py), full rounds, partial rounds, alpha, small
     # diagonal, the body's constants and their length, fold table (device
-    # int32, limb body), n0inv
-    "sponge_poseidon2": [c_int, c_int, c_int, c_uint, c_int, c_void_p, c_int, c_void_p, c_uint],
+    # int32, limb body), n0inv, then the chained overwrite sponge
+    # (csrc/poseidon2.cu SpongeIO; ``in`` is view 0): view 1, each view's
+    # rows, each view's element strides (row, limb, lane), the chunk width,
+    # the rows stored
+    "sponge_poseidon2": [c_int, c_int, c_int, c_uint, c_int, c_void_p, c_int, c_void_p, c_uint, c_void_p,
+                         c_int, c_int, *[c_longlong] * 6, c_int, c_int],
     # rounds, alpha window and schedule length, inverse-alpha window and
     # schedule length, constants, n0inv
     "sponge_rescue": [c_int, c_int, c_int, c_int, c_int, c_void_p, c_uint],

@@ -380,13 +380,13 @@ class _P2WordSim:
                 acc = self.sub(self.mul(acc, x))
         return acc
 
-    def run(self):
+    def permutation(self, xs):
+        """The bounds of t words entering the first M_E -> those leaving
+        the last one."""
         cfg, p = self.cfg, self.p
         t, half = cfg.t, cfg.full_rounds // 2
-        if any(c < 0 for row in cfg.mat_e for c in row):
-            self._fail("M_E entries must be non-negative")
         external = lambda xs: [self.reduce(row, xs) for row in cfg.mat_e]  # noqa: E731
-        xs = external([self.mul(p, p)] * t)  # the entry's product by 2^16 mod p
+        xs = external(xs)
         for r in range(cfg.rounds):
             if r < half or r >= half + cfg.partial_rounds:
                 xs = external([self.sbox(self.sub(self.add(self.sub(x), p))) for x in xs])
@@ -394,8 +394,23 @@ class _P2WordSim:
             xs[0] = self.sbox(self.sub(self.add(self.sub(xs[0]), p)))
             sigma = self.sub(self.reduce([1] * t, xs))
             xs = [self.add(sigma, self.sub(self.mul(x, p))) for x in xs]
+        return xs
+
+    def run(self, boundary_sub=True):
+        """The overwrite sponge's launch: a chunk's rows enter through the
+        product by 2^16 mod p; at a chunk boundary each row is a new
+        chunk's or carried from the last M_E (below 2p), which the kernel
+        takes through one conditional subtraction (``boundary_sub``); the
+        exit's product by 2^48 mod p.  The second permutation covers every
+        later one: it starts from the same bounds."""
+        cfg, p = self.cfg, self.p
+        if any(c < 0 for row in cfg.mat_e for c in row):
+            self._fail("M_E entries must be non-negative")
+        entry = self.mul(p, p)
+        xs = self.permutation([entry] * cfg.t)
+        xs = self.permutation([max(entry, self.sub(x) if boundary_sub else x) for x in xs])
         for x in xs:
-            self.sub(self.mul(x, p))  # the exit's product by 2^48 mod p: canonical
+            self.sub(self.mul(x, p))  # canonical
 
 
 @functools.lru_cache(maxsize=None)

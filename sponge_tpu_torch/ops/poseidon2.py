@@ -13,8 +13,17 @@ buffer's word section).
 canonical after every layer: each linear layer's unreduced limb sums go
 through ``montgomery.reduce_small``.
 
-``permute_p2`` takes the plain version only for a tensor on the CPU; for a
-CUDA tensor it launches the kernel or raises.
+``overwrite_permute_p2`` is Plonky3's overwrite sponge in one launch of the
+one-word body (``csrc/poseidon2.cu`` ``SpongeIO``): from a zero state, the
+rows of one or two views (any strides) written a chunk at a time over the
+state's first rows, each chunk followed by the permutation, the state kept
+in registers between them, then the first rows stored.  ``permute_p2`` runs
+through the same launch (one view of t rows; the limb body reads the plane
+itself).  ``overwrite_permute_p2_plain`` is the sponge's plain version: the
+overwrite, ``permute_p2_plain`` and the slice, chunk by chunk.
+
+Both take the plain version only for a tensor on the CPU; for a CUDA
+tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -107,13 +116,86 @@ def _launch_args(cfg: Poseidon2Config, consts: torch.Tensor):
     )
 
 
+def overwrite_permute_p2_plain(cfg: Poseidon2Config, consts: torch.Tensor, views: tuple, width: int,
+                               out_rows: int) -> torch.Tensor:
+    """``overwrite_permute_p2`` with tensor ops: each chunk written over a
+    new state's first rows, ``permute_p2_plain``, the rows kept."""
+    rows = torch.cat(views)
+    state = torch.zeros((cfg.t, cfg.field.nlimbs, rows.shape[-1]), dtype=torch.int32, device=rows.device)
+    for lo in range(0, rows.shape[0], width):
+        chunk = rows[lo : lo + width]
+        state = permute_p2_plain(cfg, consts, torch.cat([chunk, state[chunk.shape[0] :]]))
+    return state[:out_rows].clone()
+
+
+def overwrite_permute_p2(cfg: Poseidon2Config, consts: torch.Tensor, views: tuple, width: int,
+                         out_rows: int) -> torch.Tensor:
+    """Plonky3's overwrite sponge on kernel 3's one-word body: from a zero
+    state, the rows of the canonical (k, L, B) int32 ``views`` (one or two,
+    of any strides; the second's rows follow the first's) taken ``width``
+    at a time (the last chunk may be shorter), each chunk written over
+    state rows [0, len(chunk)) and the state permuted; then rows
+    [0, ``out_rows``) as a new (out_rows, L, B) plane.  No rows give the
+    zero state's rows, with no permutation.  ``consts`` is
+    ``kernel_constants(cfg)`` on the views' device.  Raises for a config of
+    the limb body, views of different lanes, devices or dtypes, the wrong
+    L, a width or ``out_rows`` outside [1, t]."""
+    t, L = cfg.t, cfg.field.nlimbs
+    if not 1 <= len(views) <= 2 or any(v.dim() != 3 for v in views):
+        raise ValueError("views must be one or two (k, L, B) planes")
+    if any(v.shape[1] != L for v in views):
+        raise ValueError(f"views must have L = {L} limbs, got {[v.shape[1] for v in views]}")
+    if any(v.dtype != torch.int32 for v in views):
+        raise TypeError("views must be int32")
+    B, device = views[0].shape[-1], views[0].device
+    if any(v.shape[-1] != B for v in views):
+        raise ValueError(f"views of different lanes: {[v.shape[-1] for v in views]}")
+    if any(v.device != device for v in views):
+        raise ValueError(f"views on different devices: {[str(v.device) for v in views]}")
+    if not 1 <= width <= t or not 1 <= out_rows <= t:
+        raise ValueError(f"width {width} and out_rows {out_rows} must lie in [1, t = {t}]")
+    if check_p2_bounds(cfg).body != "word":
+        raise ValueError(f"the overwrite sponge runs on kernel 3's one-word body; {cfg.field.name} takes the limb body")
+    _build.check_constants(consts, device, constant_layout(cfg))
+    if not sum(v.shape[0] for v in views):
+        return torch.zeros((out_rows, L, B), dtype=torch.int32, device=device)
+    if device.type == "cpu":
+        return overwrite_permute_p2_plain(cfg, consts, views, width, out_rows)
+    if device.type != "cuda":
+        raise ValueError(f"no kernel for device {device}")
+    return _launch(cfg, consts, views, width, out_rows)
+
+
 def permute_p2(cfg: Poseidon2Config, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
-    """Poseidon2 permutation of a (t, L, B) int32 canonical Montgomery plane.
-    ``consts`` is ``poseidon2.config.kernel_constants(cfg)`` on the state's
-    device."""
-    return _build.run(
-        permute_p2, "sponge_poseidon2", cfg, consts, state, constant_layout(cfg), permute_p2_plain, _launch_args
-    )
+    """Poseidon2 permutation of a (t, L, B) int32 canonical Montgomery plane:
+    the overwrite sponge's launch with one chunk of all t rows, every row
+    kept.  ``consts`` is ``poseidon2.config.kernel_constants(cfg)`` on the
+    state's device."""
+    _build.check_state(cfg, consts, state, constant_layout(cfg))
+    if state.device.type == "cpu":
+        return permute_p2_plain(cfg, consts, state)
+    if state.device.type != "cuda":
+        raise ValueError(f"no kernel for device {state.device}")
+    return _launch(cfg, consts, (state,), cfg.t, cfg.t)
+
+
+def _launch(cfg: Poseidon2Config, consts: torch.Tensor, views: tuple, width: int, out_rows: int) -> torch.Tensor:
+    """One launch of kernel 3 over checked arguments: its (t, L)
+    instantiation, its body's arguments (``_launch_args``), then the views'
+    pointers, rows and element strides, the width and the rows kept.  The
+    limb body runs the plain permutation alone, on one contiguous view of t
+    rows.  Counted in ``permute_p2.launches``."""
+    t, L, B = cfg.t, cfg.field.nlimbs, views[0].shape[-1]
+    _build.check_instantiated("sponge_poseidon2", t, L)
+    args = _launch_args(cfg, consts)
+    out = torch.empty((out_rows, L, B), dtype=torch.int32, device=consts.device)
+    if B:
+        io = [(v.data_ptr(), v.shape[0], *v.stride()) for v in views] + [(None, 0, 0, 0, 0)] * (2 - len(views))
+        (_, k0, *strides0), (ptr1, k1, *strides1) = io
+        _build.launch("sponge_poseidon2", views[0], out, *args, ptr1, k0, k1, *strides0, *strides1, width, out_rows,
+                      shape=(t, L, B))
+        permute_p2.launches += 1
+    return out
 
 
 permute_p2.launches = 0

@@ -20,7 +20,8 @@ version is the dense plain permutation.  Backends are ``family``'s.
 rows added into a state (or a fresh zero sponge), the permutation, the rows
 the caller keeps; one launch where the module has a step, elsewhere
 ``add_rows``, the permutation and a slice.  ``overwrite_rows`` is the
-overwrite mode's write of a chunk into a state.
+overwrite mode's write of a chunk into a state; ``overwrite_permute`` the
+whole overwrite sponge in one launch, where the module has it.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from ..ops.poseidon_dense import permute_dense, permute_dense_plain, word_consta
 from ..ops import montgomery as mont
 from ..ops import poseidon_opt
 from ..ops.poseidon_opt import absorb_permute_opt, permute_opt
-from ..utils.profiling import ABSORB, ABSORB_FUSED, OVERWRITE, PERMUTE, annotate
+from ..utils.profiling import ABSORB, ABSORB_FUSED, OVERWRITE, OVERWRITE_FUSED, PERMUTE, annotate
 from .config import PoseidonConfig, kernel_constants
 
 
@@ -103,6 +104,28 @@ def overwrite_rows(cfg: SpongeConfig, state: torch.Tensor, chunk: torch.Tensor):
         raise ValueError(f"{k} rows pass the rate {cfg.rate}")
     with annotate(OVERWRITE, chunk.shape[-1]):
         return torch.cat([chunk, state[k:]])
+
+
+def overwrite_permute(cfg: SpongeConfig, views: tuple, width: int, out_rows: int, backend: str = "auto"):
+    """Plonky3's overwrite sponge in one launch, where the config's module
+    has it (``overwrites``: kernel 3's one-word body) and the backend is not
+    "plain": from a zero state, the canonical (k, L, B) ``views`` (one or
+    two, of any strides) written ``width`` rows at a time over the state's
+    first rows, each chunk followed by the permutation, then rows
+    [0, ``out_rows``) as a new plane; on the CPU under "auto" its plain
+    version ("kernel" refuses a CPU tensor).  A ``sponge.overwrite_fused``
+    span around a ``sponge.permute`` span, both counting the permutations,
+    lanes times chunks.  None for every other config or backend: the
+    caller then runs ``overwrite_rows`` (or its own ``cat``) and the
+    permutation itself."""
+    device = views[0].device
+    perm = permutation_for(cfg, device)
+    if not perm.overwrites or backend == "plain":
+        return None
+    check_backend(backend, device)
+    chunks = views[0].shape[-1] * -(-sum(v.shape[0] for v in views) // width)
+    with annotate(OVERWRITE_FUSED, chunks), annotate(PERMUTE, chunks):
+        return perm.overwrite(views, width, out_rows)
 
 
 def absorb_permute(

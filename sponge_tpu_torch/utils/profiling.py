@@ -23,9 +23,14 @@ The port opens these spans, each with the count named beside it:
 * ``sponge.absorb_fused``: ``poseidon.permutation.absorb_permute`` where
   kernel 1 adds the rows as it loads the state, the lanes;
 * ``sponge.permute``: ``poseidon.permutation.batched_permute``, and inside
-  ``sponge.absorb_fused``, the lanes, which are the permutations;
+  ``sponge.absorb_fused`` and ``sponge.overwrite_fused``, the permutations
+  (the lanes, times the chunks inside ``sponge.overwrite_fused``);
 * ``hash.padding_free``: ``hash.padding_free_hash``, the lanes;
 * ``sponge.overwrite``: ``poseidon.permutation.overwrite_rows``, the lanes;
+* ``sponge.overwrite_fused``: ``poseidon.permutation.overwrite_permute``
+  where kernel 3 writes the chunks over the state as it loads them, the
+  chunks (lanes times chunks a lane); the ``sponge.permute`` span inside
+  counts the same, its permutations;
 * ``merkle.truncate``: ``hash.truncated_compress_pairs``, the nodes.
 
     with profiling.trace("run"):
@@ -56,6 +61,7 @@ ABSORB_FUSED = "sponge.absorb_fused"
 PERMUTE = "sponge.permute"
 PADDING_FREE = "hash.padding_free"
 OVERWRITE = "sponge.overwrite"
+OVERWRITE_FUSED = "sponge.overwrite_fused"
 TRUNCATE = "merkle.truncate"
 
 

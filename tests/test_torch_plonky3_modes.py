@@ -127,6 +127,100 @@ def test_control_config_differs_from_the_reference():
     assert all(g != truncated_compress(REF, level[2 * i], level[2 * i + 1]) for i, g in enumerate(nodes))
 
 
+def near_bound_rows(k, lanes):
+    """Every element p - 1 in the even lanes, 0 in the odd ones."""
+    return [[P - 1 if b % 2 == 0 else 0 for b in range(lanes)] for _ in range(k)]
+
+
+@pytest.mark.parametrize("kind", ["random", "near-bound"])
+@pytest.mark.parametrize("k", [64, 13, 5])
+def test_overwrite_sponge_equals_the_loop_and_the_reference(k, kind):
+    """The modes on kernel 3's overwrite sponge (``Poseidon2Permutation``
+    ``overwrite``, its plain version here: one call a row set, one a level)
+    equal the unfused loop ("plain" backend) and the reference: the leaf
+    digests, and every node of the tree over them."""
+    lanes = 8
+    rows = random_rows(200 + k, k, lanes) if kind == "random" else near_bound_rows(k, lanes)
+    plane = ints_to_mont_tensor(FS, rows, "cpu")
+    assert st.Poseidon2Permutation(CFG, "cpu").overwrites
+    fused = sthash.padding_free_hash(CFG, plane, D)
+    assert torch.equal(fused, sthash.padding_free_hash(CFG, plane, D, "plain"))
+    level = [padding_free_hash(REF, c, 8, D) for c in columns(rows)]
+    assert columns(mont_tensor_to_ints(FS, fused)) == level
+    levels = sthash.merkle_tree_truncated(CFG, fused)
+    for got, loop in zip(levels, sthash.merkle_tree_truncated(CFG, fused, "plain")):
+        assert torch.equal(got, loop)
+    for got in levels[1:]:
+        level = [truncated_compress(REF, level[2 * i], level[2 * i + 1]) for i in range(len(level) // 2)]
+        assert columns(mont_tensor_to_ints(FS, got)) == level
+
+
+def test_overwrite_sponge_reads_strided_views():
+    """A node's children read where they lie, as the even and odd lanes of
+    the level below (lane stride 2), equal their contiguous copies; a
+    plain permutation is one chunk of t rows, every row kept."""
+    from sponge_tpu_torch.ops.poseidon2 import overwrite_permute_p2
+
+    consts = st.Poseidon2Permutation(CFG, "cpu").consts
+    level = ints_to_mont_tensor(FS, random_rows(12, D, 16), "cpu")
+    left, right = level[..., 0::2], level[..., 1::2]
+    assert left.stride()[-1] == 2 and not left.is_contiguous()
+    got = overwrite_permute_p2(CFG, consts, (left, right), 16, D)
+    assert torch.equal(got, sthash.truncated_compress_pairs(CFG, left.contiguous(), right.contiguous(), "plain"))
+    state = ints_to_mont_tensor(FS, random_rows(13, 16, 5), "cpu")
+    assert torch.equal(overwrite_permute_p2(CFG, consts, (state,), 16, 16), st.batched_permute(CFG, state, "plain"))
+    assert columns(mont_tensor_to_ints(FS, got)) == [
+        truncated_compress(REF, a, b) for a, b in zip(columns(mont_tensor_to_ints(FS, left)),
+                                                      columns(mont_tensor_to_ints(FS, right)))]
+
+
+def _unpermuted(real):
+    return lambda self, views, width, out_rows: torch.cat(views)[:out_rows].clone()
+
+
+def _half_left_out(real):
+    def overwrite(self, views, width, out_rows):
+        half = views[0].shape[-1] // 2
+        done = real(self, tuple(v[..., :half] for v in views), width, out_rows)
+        return torch.cat([done, torch.cat(views)[:out_rows, :, half:]], -1)
+
+    return overwrite
+
+
+def _no_carry(real):
+    def overwrite(self, views, width, out_rows):  # each chunk from a zero state: the last alone counts
+        rows = torch.cat(views)
+        return real(self, (rows[(rows.shape[0] - 1) // width * width :],), width, out_rows)
+
+    return overwrite
+
+
+@pytest.mark.parametrize("fault", [_unpermuted, _half_left_out, _no_carry])
+def test_a_broken_overwrite_sponge_makes_the_mmcs_cell_not_correct(monkeypatch, fault):
+    """A fault planted in the module's overwrite sponge
+    (``Poseidon2Permutation.overwrite``, the launch the MMCS cell's leaf
+    hash and tree take) reaches the cell's timed path, and its comparison
+    with the plain reference reads not correct: the sponge's rows left
+    unpermuted, half the lanes left out, the state not carried from chunk
+    to chunk."""
+    from spongebench.tests.helpers import tiny_run
+
+    from sponge_tpu_torch.poseidon2.permutation import Poseidon2Permutation
+
+    calls = []
+    broken = fault(Poseidon2Permutation.overwrite)
+
+    def planted(self, *args):
+        calls.append(args[1:])
+        return broken(self, *args)
+
+    monkeypatch.setattr(Poseidon2Permutation, "overwrite", planted)
+    out = tiny_run("bb-mmcs-commit-2p23", leaves_log2=3)
+    assert (8, D) in calls and (16, D) in calls  # the leaf hash's launch and the tree's
+    assert out["correct"] is False
+    assert out["checks"]["leaf_mismatches"]["value"] > 0
+
+
 def test_the_modes_refuse_what_they_cannot_compute():
     leaves = torch.zeros((4, FS.nlimbs, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="t = 2"):

@@ -33,11 +33,11 @@ from sponge_tpu.poseidon2.permutation import poseidon2_permute_jit
 import sponge_tpu_torch as st
 from sponge_tpu_torch import interop
 from sponge_tpu_torch.fields import ints_to_mont_tensor, mont_tensor_to_ints
-from sponge_tpu_torch.hash import hash_elements, merkle_root
+from sponge_tpu_torch.hash import hash_elements, merkle_root, padding_free_hash, truncated_compress_pairs
 from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops.bounds import P2_FOLD_CAPS, check_p2_bounds, m4_structured, p2_plan
 from sponge_tpu_torch.ops.montgomery import ladder_schedule
-from sponge_tpu_torch.ops.poseidon2 import _launch_args, permute_p2, permute_p2_plain
+from sponge_tpu_torch.ops.poseidon2 import _launch_args, overwrite_permute_p2, permute_p2, permute_p2_plain
 from sponge_tpu_torch.poseidon.config import layout_size
 from sponge_tpu_torch.poseidon2.config import LIMB_SECTIONS, constant_layout, kernel_constants
 from sponge_tpu_torch.poseidon2.oracle import OraclePoseidon2Sponge
@@ -449,7 +449,9 @@ WORD_CONFIGS = {
 
 class _WordKernel3:
     """csrc/poseidon2.cu's one-word body for one lane: uint32 words and
-    uint64 products, each checked against the bound the replay claims."""
+    uint64 products, each checked against the bounds the replay claims
+    (``P2Plan.wmax`` for every product input, ``vmax`` for every row sum)
+    and the kernel's own limits."""
 
     def __init__(self, cfg):
         self.cfg, self.t = cfg, cfg.t
@@ -460,10 +462,12 @@ class _WordKernel3:
         self.ext, self.int = c[5 : 5 + rf * t], c[5 + rf * t : 5 + rf * t + rp]
         self.diag = c[5 + rf * t + rp : 5 + rf * t + rp + t]
         self.mat = c[5 + rf * t + rp + t :]
-        self.structured = check_p2_bounds(cfg).structured
+        self.plan = check_p2_bounds(cfg)
+        self.structured = self.plan.structured
 
     def mul(self, a, b):
         """``word_mul``: (a b + q p) / 2^32 with a b + q p below 2^64."""
+        assert a < self.plan.wmax and b < self.plan.wmax
         t = a * b
         q = ((t & _M32) * self.n0) & _M32
         u = t + q * self.p
@@ -476,7 +480,7 @@ class _WordKernel3:
         return min(v, (v - self.p) & _M32)
 
     def reduce_wide(self, s):
-        assert s < 1 << 40
+        assert s < self.plan.vmax <= 1 << 40
         q = ((((s >> 8) & _M32) * self.barrett) & _M64) >> 40
         r = (s - q * self.p) & _M32
         assert r < 2 * self.p and (r - s) % self.p == 0
@@ -506,10 +510,11 @@ class _WordKernel3:
                 xs = [self.sub(self.mul(x, b)) for x, b in zip(xs, base)]
         return xs
 
-    def permute(self, limbs):
+    def rounds(self, x):
+        """The permutation from its first M_E to its last."""
         cfg, t = self.cfg, self.t
         half = cfg.full_rounds // 2
-        x = self.external([self.mul(lo | (hi << 24), self.to_word) for lo, hi in limbs])
+        x = self.external(x)
         for r in range(cfg.full_rounds + cfg.partial_rounds):
             if r < half or r >= half + cfg.partial_rounds:
                 re = r if r < half else r - cfg.partial_rounds
@@ -520,8 +525,25 @@ class _WordKernel3:
             sigma = self.sub(self.reduce_wide(sum(x)))
             x = [sigma + self.sub(self.mul(v, d)) for v, d in zip(x, self.diag)]
             assert all(v < 1 << 32 for v in x)
-        out = [self.sub(self.mul(v, self.from_word)) for v in x]
+        return x
+
+    def sponge(self, rows, width, out_rows):
+        """The launch (``SpongeIO``): ``rows`` of [lo, hi] limbs, ``width``
+        at a time, each chunk's rows entering through the product by
+        2^16 mod p over state rows [0, len(chunk)), the carried rows through
+        one conditional subtraction, then the permutation; rows
+        [0, out_rows) leave through the product by 2^48 mod p."""
+        x = [0] * self.t
+        for lo in range(0, len(rows), width):
+            chunk = rows[lo : lo + width]
+            x = [self.mul(a | (b << 24), self.to_word) for a, b in chunk] + [self.sub(v) for v in x[len(chunk) :]]
+            x = self.rounds(x)
+        out = [self.sub(self.mul(v, self.from_word)) for v in x[:out_rows]]
         return [[v & _M24, v >> 24] for v in out]
+
+    def permute(self, limbs):
+        """The plain permutation: one chunk of all t rows, all kept."""
+        return self.sponge(limbs, self.t, self.t)
 
 
 @pytest.mark.parametrize("name", list(WORD_CONFIGS))
@@ -538,6 +560,132 @@ def test_word_kernel_emulation_matches_oracle(name):
         limbs = [[int(v) for v in fs.ints_to_mont_plane([row[b]])[:, 0]] for row in vals]
         out = kern.permute(limbs)
         assert [fs.from_mont(fs.limbs_to_int(v)) for v in out] == [row[b] for row in want], b
+
+
+CHAINED = {  # (rows, width, rows kept, views): the launches the port makes
+    "leaf-64": (64, 8, 8, 1),
+    "leaf-13": (13, 8, 8, 1),  # a short last chunk
+    "leaf-5": (5, 8, 8, 1),  # fewer rows than the rate
+    "node": (16, 16, 8, 2),  # a truncated tree node: two lane-stride-2 views of 8 rows
+    "permutation": (16, 16, 16, 1),
+}
+
+
+def chained_rows(p, k, kind, seed):
+    """[k][B] values: four random lanes, or the near-bound lanes (every
+    element p - 1, and every element 0)."""
+    if kind == "near-bound":
+        return [[p - 1, 0] for _ in range(k)]
+    rng = np.random.default_rng(seed)
+    return [[int(v) for v in rng.integers(0, p, 4)] for _ in range(k)]
+
+
+def unfused_loop(cfg, plane, width, out_rows, views):
+    """The port's loop over the same rows on the "plain" backend: the
+    padding-free hash (``overwrite_rows``, a permutation a chunk), the
+    truncated compression of the two halves' ``cat``, or the permutation."""
+    if views == 2:
+        return truncated_compress_pairs(cfg, plane[: cfg.t // 2], plane[cfg.t // 2 :], "plain")
+    if width == cfg.t:
+        return st.batched_permute(cfg, plane, "plain")[:out_rows]
+    return padding_free_hash(cfg, plane, out_rows, "plain")
+
+
+def oracle_sponge(cfg, col, width, out_rows):
+    """One lane through the port's scalar oracle: a zero state, each chunk
+    written over its first rows and permuted, the first rows kept."""
+    o = OraclePoseidon2Sponge(cfg)
+    o.state = [0] * cfg.t
+    for lo in range(0, len(col), width):
+        chunk = col[lo : lo + width]
+        o.state = chunk + o.state[len(chunk) :]
+        o.permute()
+    return o.state[:out_rows]
+
+
+@pytest.mark.parametrize("kind", ["random", "near-bound"])
+@pytest.mark.parametrize("case", list(CHAINED))
+def test_word_kernel_overwrite_sponge(case, kind):
+    """The one-word body's chained launch, emulated word by word with every
+    product and row sum inside the replay's bounds, equals the oracle and
+    the port's unfused loop on the same rows; the host entry
+    (``overwrite_permute_p2``, its plain version here) reads the node's two
+    children as lane-stride-2 views of a level and equals them too."""
+    k, width, out_rows, views = CHAINED[case]
+    cfg = WORD_CONFIGS["babybear_fr-t16"]()
+    fs, kern = cfg.field, _WordKernel3(cfg)
+    vals = chained_rows(fs.modulus, k, kind, 31 + k)
+    B = len(vals[0])
+    plane = ints_to_mont_tensor(fs, vals, "cpu")
+    want = [oracle_sponge(cfg, [row[b] for row in vals], width, out_rows) for b in range(B)]
+    for b in range(B):
+        got = kern.sponge([[int(v) for v in plane[i, :, b]] for i in range(k)], width, out_rows)
+        assert [fs.from_mont(fs.limbs_to_int(v)) for v in got] == want[b], b
+    loop = unfused_loop(cfg, plane, width, out_rows, views)
+    assert [list(c) for c in zip(*mont_tensor_to_ints(fs, loop))] == want
+    consts = st.Poseidon2Permutation(cfg, "cpu").consts
+    if views == 2:  # the level below: node j's children are lanes 2j and 2j + 1
+        level = torch.stack([plane[: k // 2], plane[k // 2 :]], -1).reshape(k // 2, fs.nlimbs, 2 * B)
+        args = (level[..., 0::2], level[..., 1::2])
+        assert args[0].stride()[-1] == 2
+    else:
+        args = (plane,)
+    assert torch.equal(overwrite_permute_p2(cfg, consts, args, width, out_rows), loop)
+
+
+def test_word_replay_needs_the_boundary_subtraction():
+    """At a chunk boundary the carried rows leave the last M_E below 2p.
+    Through the kernel's conditional subtraction they enter the next M_E
+    below p, under the new rows' entry product, so the replay's row sums
+    are the single permutation's; without it they enter at 2p and the row
+    sums grow, past reduce_wide's 2^40 for an M_E whose single permutation
+    fits."""
+    from sponge_tpu_torch.ops.bounds import _P2WordSim
+
+    bb = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    sims = {}
+    for boundary in (True, False):
+        sims[boundary] = _P2WordSim(bb)
+        sims[boundary].run(boundary)
+    assert sims[True].vmax == check_p2_bounds(bb).vmax < sims[False].vmax
+    single = _P2WordSim(bb)
+    single.permutation([single.mul(bb.field.modulus, bb.field.modulus)] * bb.t)
+    assert single.vmax == sims[True].vmax
+    heavy = dataclasses.replace(bb, mat_e=tuple(tuple(19 for _ in row) for row in bb.mat_e))
+    _P2WordSim(heavy).run()
+    with pytest.raises(ValueError, match="row sum"):
+        _P2WordSim(heavy).run(boundary_sub=False)
+
+
+def test_overwrite_entry_refuses_what_it_cannot_launch():
+    """Views of different lanes, devices or dtypes, the wrong L, one or
+    three views missing or too many, a width or kept rows outside [1, t],
+    and a config of the limb body."""
+    cfg = WORD_CONFIGS["babybear_fr-t16"]()
+    consts = st.Poseidon2Permutation(cfg, "cpu").consts
+    rows = torch.zeros((8, 2, 4), dtype=torch.int32)
+    for views, width, out, err, match in (
+        ((rows, rows[..., :3]), 16, 8, ValueError, "lanes"),
+        ((rows, rows.to("meta")), 16, 8, ValueError, "devices"),
+        ((rows, rows.long()), 16, 8, TypeError, "int32"),
+        ((torch.zeros((8, 3, 4), dtype=torch.int32),), 8, 8, ValueError, "L = 2"),
+        ((rows,), 8, 17, ValueError, "out_rows"),
+        ((rows,), 0, 8, ValueError, "width"),
+        ((rows,), 17, 8, ValueError, "width"),
+        ((), 8, 8, ValueError, "one or two"),
+        ((rows, rows, rows), 8, 8, ValueError, "one or two"),
+        ((rows[0],), 8, 8, ValueError, "one or two"),
+    ):
+        with pytest.raises(err, match=match):
+            overwrite_permute_p2(cfg, consts, views, width, out)
+    with pytest.raises(ValueError, match="constants"):
+        overwrite_permute_p2(cfg, consts[:-1], (rows,), 8, 8)
+    limb = interop.config_from_jax(tiny_poseidon2_config())
+    limb_rows = torch.zeros((2, limb.field.nlimbs, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="limb body"):
+        overwrite_permute_p2(limb, st.Poseidon2Permutation(limb, "cpu").consts, (limb_rows,), 2, 2)
+    assert not st.Poseidon2Permutation(limb, "cpu").overwrites
+    assert st.Poseidon2Permutation(cfg, "cpu").overwrites
 
 
 def test_body_choice():
@@ -591,6 +739,38 @@ def test_launch_args_per_body():
     wide = st.generate_poseidon2_parameters(TINY35, 15, 5, 4, 4)  # a limb field at t = 16
     with pytest.raises(NotImplementedError, match="limb body"):
         _launch_args(wide, st.Poseidon2Permutation(wide, "cpu").consts)
+
+
+def test_launches_pass_view_0_as_in(monkeypatch):
+    """``_launch``, kernel 3's one launch, passes view 0 as the C entry's
+    ``in`` and the rest of ``SpongeIO`` after the body's arguments, filling
+    the signature: a leaf set (one view, 8-row chunks), a tree node (two
+    lane-stride-2 views), the plain permutation on the one-word and on the
+    limb body; each launch counted in ``permute_p2.launches``."""
+    from sponge_tpu_torch.ops import poseidon2 as p2
+
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda symbol, state, out, *args, shape: calls.append((state, args, shape)))
+    monkeypatch.setattr(p2.permute_p2, "launches", 0)
+    bb = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    limb = interop.config_from_jax(tiny_poseidon2_config())
+    leaves = torch.zeros((64, 2, 4), dtype=torch.int32)
+    level = torch.zeros((8, 2, 8), dtype=torch.int32)
+    state = torch.zeros((limb.t, limb.field.nlimbs, 4), dtype=torch.int32)
+    cases = (
+        (bb, (leaves,), 8, 8, (None, 64, 0, 8, 4, 1, 0, 0, 0)),
+        (bb, (level[..., 0::2], level[..., 1::2]), 16, 8, (level[..., 1::2].data_ptr(), 8, 8, 16, 8, 2, 16, 8, 2)),
+        (bb, (leaves[:16],), 16, 16, (None, 16, 0, 8, 4, 1, 0, 0, 0)),
+        (limb, (state,), limb.t, limb.t, (None, limb.t, 0, 4 * limb.field.nlimbs, 4, 1, 0, 0, 0)),
+    )
+    for cfg, views, width, out_rows, _ in cases:
+        out = p2._launch(cfg, st.Poseidon2Permutation(cfg, "cpu").consts, views, width, out_rows)
+        assert out.shape == (out_rows, cfg.field.nlimbs, 4)
+    assert p2.permute_p2.launches == len(cases)
+    for (cfg, views, width, out_rows, io), (state_arg, args, shape) in zip(cases, calls):
+        assert state_arg is views[0] and shape == (cfg.t, cfg.field.nlimbs, 4)
+        assert len(args) == len(_build.SIGNATURES["sponge_poseidon2"])
+        assert args[-11:] == (*io, width, out_rows)
 
 
 # ---- dispatch ----

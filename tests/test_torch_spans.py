@@ -212,42 +212,90 @@ def test_cells_absorb_inside_the_permutation_launch(cell):
     assert sum(s["count"] for s in permutes) == cell_permutations(rate, k, d, 1 << log2n)
 
 
-def expected_mmcs(k, rate, n, openings):
+def expected_mmcs(k, rate, n, openings, fused=True):
     """Spans of one commitment of the benchmark's MMCS job: the
-    padding-free leaf hash (an overwrite and a permutation a chunk), the
-    truncated tree (each level one truncated compression around one
-    permutation), the openings."""
+    padding-free leaf hash, the truncated tree (each level one truncated
+    compression), the openings.  Fused, the leaf hash is one overwrite
+    sponge around one permutation span, each counting lanes times chunks,
+    and each compression one of t rows; else an overwrite and a permutation
+    a chunk, and a permutation a compression."""
     out = [(prof.PADDING_FREE, None, n)]
-    for _ in range(ceil_div(k, rate)):
-        out += [(prof.OVERWRITE, 0, n), (prof.PERMUTE, 0, n)]
+    chunks = ceil_div(k, rate)
+    if fused:
+        out += [(prof.OVERWRITE_FUSED, 0, n * chunks), (prof.PERMUTE, 1, n * chunks)]
+    else:
+        for _ in range(chunks):
+            out += [(prof.OVERWRITE, 0, n), (prof.PERMUTE, 0, n)]
     tree = len(out)
     out.append((prof.TREE, None, n))
     while n > 1:
         n //= 2
-        out += [(prof.LEVEL, tree, n), (prof.TRUNCATE, len(out), n), (prof.PERMUTE, len(out) + 1, n)]
+        level = len(out)
+        out += [(prof.LEVEL, tree, n), (prof.TRUNCATE, level, n)]
+        if fused:
+            out += [(prof.OVERWRITE_FUSED, level + 1, n), (prof.PERMUTE, level + 2, n)]
+        else:
+            out.append((prof.PERMUTE, level + 1, n))
     if openings:
         out.append((prof.OPEN, None, openings))
     return out
 
 
-@pytest.mark.parametrize("k", [64, 61, 8, 3])
-def test_spans_of_an_mmcs_commitment(k):
-    """The BabyBear Poseidon2 t = 16 commitment as the MMCS job makes it:
-    ``hash.padding_free``, ``sponge.overwrite`` and ``merkle.truncate``
-    counted in lanes and nodes, ``merkle.tree`` and ``merkle.level`` nested
-    as in every other tree, and the permutations' lanes the job's count
-    (no permutation after a whole last chunk)."""
-    cfg = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
-    n, openings = 8, 3
+def mmcs_spans(cfg, k, n, openings, backend):
     prof.reset()
     with profile(activities=[ProfilerActivity.CPU]):
-        digests = sthash.padding_free_hash(cfg, torch.zeros((k, cfg.field.nlimbs, n), dtype=torch.int32), 8)
-        levels = sthash.merkle_tree_truncated(cfg, digests)
+        digests = sthash.padding_free_hash(cfg, torch.zeros((k, cfg.field.nlimbs, n), dtype=torch.int32), 8, backend)
+        levels = sthash.merkle_tree_truncated(cfg, digests, backend)
         sthash.merkle_open_batch(levels, list(range(openings)))
-    got = prof.spans()
+    return prof.spans()
+
+
+@pytest.mark.parametrize("k", [64, 61, 8, 3])
+def test_spans_of_an_mmcs_commitment(k):
+    """The BabyBear Poseidon2 t = 16 commitment as the MMCS job makes it,
+    on kernel 3's overwrite sponge (its plain version here):
+    ``hash.padding_free`` counted in lanes, one ``sponge.overwrite_fused``
+    in it counted in chunks (lanes times chunks a lane), ``merkle.truncate``
+    in nodes with one ``sponge.overwrite_fused`` of one chunk a node,
+    ``merkle.tree`` and ``merkle.level`` nested as in every other tree, no
+    ``sponge.overwrite``, and the permutations' count the job's (no
+    permutation after a whole last chunk)."""
+    cfg = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    n, openings = 8, 3
+    got = mmcs_spans(cfg, k, n, openings, "auto")
     assert shape(got) == expected_mmcs(k, cfg.rate, n, openings)
     assert sum(s["count"] for s in got if s["name"] == prof.PERMUTE) == n * ceil_div(k, 8) + n - 1
-    assert not [s for s in got if s["name"] in (prof.ABSORB, prof.ABSORB_FUSED, prof.ELEMENTS)]
+    assert not [s for s in got if s["name"] in (prof.ABSORB, prof.ABSORB_FUSED, prof.ELEMENTS, prof.OVERWRITE)]
+
+
+@pytest.mark.parametrize("k", [64, 61, 13, 8, 3])
+def test_spans_of_an_unfused_mmcs_commitment(k):
+    """The same commitment on the "plain" backend, which keeps the loop:
+    a ``sponge.overwrite`` and a ``sponge.permute`` span a chunk, each
+    counting the lanes, a ``sponge.permute`` a compression, and no
+    ``sponge.overwrite_fused``."""
+    cfg = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    n, openings = 8, 3
+    got = mmcs_spans(cfg, k, n, openings, "plain")
+    assert shape(got) == expected_mmcs(k, cfg.rate, n, openings, fused=False)
+    assert sum(s["count"] for s in got if s["name"] == prof.PERMUTE) == n * ceil_div(k, 8) + n - 1
+
+
+@pytest.mark.parametrize("k,lanes,width", [(64, 5, 8), (13, 3, 8), (5, 4, 8), (16, 6, 16), (0, 2, 8)])
+def test_overwrite_fused_counts_lanes_times_chunks(k, lanes, width):
+    """``sponge.overwrite_fused`` and the ``sponge.permute`` inside it count
+    lanes times ceil(k / width), a short last chunk included; no rows, no
+    permutation (count 0)."""
+    from sponge_tpu_torch.poseidon.permutation import overwrite_permute
+
+    cfg = st.get_default_poseidon2_parameters(st.BABYBEAR_FR, 8)
+    rows = torch.zeros((k, cfg.field.nlimbs, lanes), dtype=torch.int32)
+    prof.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = overwrite_permute(cfg, (rows,), width, 8)
+    assert out.shape == (8, cfg.field.nlimbs, lanes)
+    want = lanes * ceil_div(k, width)
+    assert shape(prof.spans()) == [(prof.OVERWRITE_FUSED, None, want), (prof.PERMUTE, 0, want)]
 
 
 def test_annotate_is_one_shared_noop_with_the_profiler_off():
@@ -435,6 +483,28 @@ def test_absorb_fused_share_counts_lanes(monkeypatch):
              span(prof.ABSORB_FUSED, None, 1 << 16, 40.0, None)]
     for spans, want in ((HAND_MADE, 0.0), (fused, 100.0), (HAND_MADE + fused, 100 * 5 / 12),
                         ([], None), (HAND_MADE[3:5], None)):
+        monkeypatch.setattr(prof, "spans", lambda spans=spans: [dict(s) for s in spans])
+        assert read(None) == (None if want is None else pytest.approx(want))
+    monkeypatch.delattr(prof, "spans")
+    assert read(None) is None
+
+
+def test_overwrite_fused_share_counts_chunks(monkeypatch):
+    """``overwrite_fused_share.mmcs``: the fused overwrites' chunks over
+    those and the ``sponge.overwrite`` spans' lanes (the parent's loop, one
+    span a chunk), with or without device times: 0 on the loop, 100 on the
+    fused sponge, the ratio on a mix; None with no overwrite."""
+    from spongebench.harness import resolve
+
+    cell = resolve("bb-mmcs-commit-2p23")
+    read = {name: reader for name, _, reader in cell.per_layer}["overwrite_fused_share.mmcs"]
+    loop = [span(prof.PADDING_FREE, None, 1 << 10, 90.0, 400.0)]
+    loop += [span(prof.OVERWRITE, 0, 1 << 10, 10.0, 20.0), span(prof.PERMUTE, 0, 1 << 10, 30.0, 300.0)] * 8
+    fused = [span(prof.PADDING_FREE, None, 1 << 10, 90.0, 400.0),
+             span(prof.OVERWRITE_FUSED, 0, 8 << 10, 40.0, 380.0), span(prof.PERMUTE, 1, 8 << 10, 30.0, 370.0),
+             span(prof.TRUNCATE, None, 1 << 9, 20.0, None), span(prof.OVERWRITE_FUSED, 3, 1 << 9, 10.0, None)]
+    for spans, want in ((loop, 0.0), (fused, 100.0), (loop + fused, 100 * (8.5 / 16.5)), ([], None),
+                        (HAND_MADE, None)):
         monkeypatch.setattr(prof, "spans", lambda spans=spans: [dict(s) for s in spans])
         assert read(None) == (None if want is None else pytest.approx(want))
     monkeypatch.delattr(prof, "spans")
