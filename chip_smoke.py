@@ -36,8 +36,15 @@ backend on the card, the digests against the unfused loop, one level from
 lane-stride-2 views against the ``cat``, both against the oracle on random
 and near-bound lanes, the plain permutation at BabyBear and KoalaBear
 t = 16 timed beside the kernel table (``--only poseidon2_overwrite`` runs
-this phase alone); GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks
-permutations at B = 2^20 (kernel 8's limb body at BLS12-381, its two-word
+this phase alone); kernel 5's MDS-first order (Rescue Prime Optimized,
+Miden's RPO256) at the Miden cell's sizes: the permutation at B = 2^20
+against plain and the oracle, edge and near-bound lanes among them, one
+commitment's row set (2^21 rows of 71 through ``rpo_hash_elements``, 9
+launches, its merge tree a launch a level) against the plain backend on
+every lane and the oracle's sponge, and kernel 5's Rescue-Prime rows timed
+beside the kernel table (``--only rescue_rpo`` runs this phase alone);
+GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks permutations at
+B = 2^20 (kernel 8's limb body at BLS12-381, its two-word
 body at Goldilocks, each with near-bound lanes of p-1 and p-2 in every
 element), a lazy GMiMC sponge, a 2^14-leaf Griffin Merkle
 root; Monolith: the Goldilocks t = 12 and Mersenne31 t = 16 permutations at
@@ -565,16 +572,17 @@ def window_phase(cfgs, report):
                 f"({check_p2_bounds(cfg).body} body); ptxas {regs} registers, spills {spill_st} B stored, "
                 f"{spill_ld} B loaded; {shared:,} B of staged constants, {blocks_per_sm(regs, shared)} blocks per SM")
             continue
-        if isinstance(cfg, st.RescueConfig):  # one chain at a wide state
+        want = (t, L)
+        if isinstance(cfg, st.RescueConfig):  # one chain at a wide state; the round order a template flag
             symbol, kernel, chains = "sponge_rescue", "rescue_kernel", 1 if wide_state(t, L) else t
-            exps, shipped = (cfg.alpha, cfg.inv_alpha), windows(cfg)
+            exps, shipped, want = (cfg.alpha, cfg.inv_alpha), windows(cfg), (t, L, int(cfg.mds_first))
         elif isinstance(cfg, st.GriffinConfig):
             symbol, kernel, chains = "sponge_griffin", "griffin_kernel", 1
             exps, shipped = (cfg.inv_alpha,), (griffin_window(cfg),)
         else:  # one chain where the Flystel runs one pair at a time
             symbol, kernel, chains = "sponge_anemoi", "anemoi_kernel", 1 if pairwise(cfg) else t // 2
             exps, shipped = (cfg.inv_alpha,), (window(cfg),)
-        regs, spill_st, spill_ld = compiled(kernel, (t, L))
+        regs, spill_st, spill_ld = compiled(kernel, want)
         got = tuple(window_for(e, L, chains, regs) for e in exps)
         check(got == shipped, f"{kernel} ({t}, {L}): {regs} registers give windows {got}, the shipped ones are "
               f"{shipped} (at {_build.registers(symbol, t, L)} registers in _build.REGISTERS)")
@@ -683,7 +691,8 @@ def census_instance(name, cfg, body=None):
         from sponge_tpu_torch.ops.montgomery import wide_state
         from sponge_tpu_torch.rescue.config import windows
 
-        return "rescue_kernel", (t, L), window_table_bytes(1 if wide_state(t, L) else t, L, max(windows(cfg)))
+        return ("rescue_kernel", (t, L, int(cfg.mds_first)),
+                window_table_bytes(1 if wide_state(t, L) else t, L, max(windows(cfg))))
     if name == "anemoi_permute":
         from sponge_tpu_torch.anemoi.config import pairwise, window
 
@@ -752,7 +761,8 @@ def window_comparison(cfg, state, path_out, gpu):
     for w in (3, 4):
         sched = window_schedule(cfg.inv_alpha, w)
         consts = torch.from_numpy(np.concatenate([head, np.asarray(sched, dtype=np.int32)])).to(state.device)
-        args = (cfg.rounds, w_alpha, len(alpha_sched), w, len(sched), consts.data_ptr(), cfg.field.n0inv)
+        args = (cfg.rounds, w_alpha, len(alpha_sched), w, len(sched), consts.data_ptr(), cfg.field.n0inv,
+                int(cfg.mds_first))
         runs[w] = (consts, args)
     best = {}
     for w in (3, 4, 4, 3):
@@ -1094,8 +1104,8 @@ def main(argv):
     mo_bb = st.get_default_monolith_parameters(st.BABYBEAR_FR)
     mo_kb4 = st.generate_monolith_parameters(st.KOALABEAR_FR, 2, 2, 6, 2)
     mo_m314 = st.generate_monolith_parameters(st.MERSENNE31_FR, 2, 2, 6, 2)
-    window_phase([r_bls, r_bb, r_25, g_bls, g_gl, g_25, a_bls, a_bls1, a_gl, a_25, p2_bls, p2_bb, p2_bb_dense,
-                  p2_25, p2_25_dense, p2_25_t3, p2_tiny, p2_low]
+    window_phase([r_bls, r_bb, r_25, st.get_rpo_parameters(gl), g_bls, g_gl, g_25, a_bls, a_bls1, a_gl, a_25, p2_bls,
+                  p2_bb, p2_bb_dense, p2_25, p2_25_dense, p2_25_t3, p2_tiny, p2_low]
                  + [cfg for name, _, cfg in family_configs(st) if name != "gmimc_permute"], _build.ptxas_report())
     census_phase(_build.ptxas_report(), [("poseidon_permute_opt", bls), ("poseidon_permute_opt", pos_gl),
                                          ("poseidon_permute_dense", bls),
@@ -1306,6 +1316,9 @@ def main(argv):
         if OVERWRITE_PHASE in only:
             elapsed("the overwrite sponge")
             overwrite_phase(st, dev, rng, gpu)
+        if RPO_PHASE in only:
+            elapsed("the RPO path")
+            rpo_phase(st, dev, rng, gpu)
         elapsed("the end")
         return 0
 
@@ -1405,6 +1418,10 @@ def main(argv):
     elapsed("the overwrite sponge")
     # ---- 6b. kernel 3's overwrite sponge at the MMCS cell's sizes, launches counted ----
     launches["poseidon2_permute"] += overwrite_phase(st, dev, rng, gpu)["poseidon2_permute"]
+
+    elapsed("the RPO path")
+    # ---- 6c. kernel 5's MDS-first order at the Miden cell's sizes, launches counted ----
+    launches["rescue_permute"] += rpo_phase(st, dev, rng, gpu)["rescue_permute"]
 
     elapsed("the GMiMC/Griffin/Anemoi path")
     # ---- 7. the GMiMC, Griffin and Anemoi path (kernels 8, 6 and 7), launches counted ----
@@ -2139,6 +2156,96 @@ def overwrite_phase(st, dev, rng, gpu):
         say("time", f"permute_p2 {other.field.name} t={other.t} B={B_MAIN}: {ms:.3f} ms, the kernel table's "
             f"{ref:.3f} ms ({ms / ref - 1:+.1%}) [{gpu}]")
     return {"poseidon2_permute": launches}
+
+
+RPO_PHASE = "rescue_rpo"  # its name for --only
+RPO_LEAVES_LOG2, RPO_ROW = 21, 71  # the gl-miden-commit-2p21 cell's row set
+RESCUE_ROW5_MS = {"bls12_381_fr": 418.012, "goldilocks_fr": 31.805}  # PERF.md's kernel table, row 5, at B = 2^20
+
+
+def rpo_phase(st, dev, rng, gpu):
+    """Kernel 5's MDS-first order (Rescue Prime Optimized, ``get_rpo_parameters``,
+    Goldilocks (12, 3)) at the Miden cell's sizes, launches counted: the
+    permutation at B = 2^20 with 0, 1, p-1, p-2 in every element position
+    and the near-bound lanes (every element p-1, every element p-2)
+    against its plain version (``torch.equal`` on the card) and the
+    oracle; one commitment's row set (2^21 rows of 71 through
+    ``rpo_hash_elements``, its merge tree ``merkle_tree_wide``) with
+    ``rescue_permute.launches`` zeroed just before and read just after (9
+    leaf launches, 21 tree launches), the digests and every level against
+    the plain backend (every lane), sampled digests against the oracle's
+    sponge; the row set and the permutation timed; then kernel 5's
+    Rescue-Prime rows (BLS12-381 t = 3, Goldilocks t = 12 at rate 8) at
+    B = 2^20 beside the kernel table's times.  Returns the commitment's
+    launches."""
+    from sponge_tpu_torch.family import permutation_for
+    from sponge_tpu_torch.hash import merkle_tree_wide, rpo_hash_elements
+    from sponge_tpu_torch.ops.bounds import check_rescue_bounds
+    from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
+
+    cfg = st.get_rpo_parameters(st.GOLDILOCKS_FR)
+    fs, t, cap, d, n = cfg.field, cfg.t, cfg.capacity, 4, 1 << RPO_LEAVES_LOG2
+    consts = permutation_for(cfg, dev).consts
+    state = with_maxima(fs, with_edges(fs, random_plane(fs, (t, fs.nlimbs, B_MAIN), rng, dev)))
+    out = rescue_permute(cfg, consts, state)
+    check(torch.equal(out, rescue_permute_plain(cfg, consts, state)), "RPO kernel != plain at B=2^20")
+    sample = list(range(66)) + sorted(rng.choice(np.arange(66, B_MAIN), 30, replace=False).tolist())
+    check_lanes_vs_oracle(cfg, state, out, sample, "RPO kernel")
+    say("rpo", f"rescue_permute RPO {fs.name} t={t} (MDS first, {cfg.rounds} rounds): torch.equal(kernel, plain) "
+        f"at B={B_MAIN} incl. 64 edge lanes and the near-bound lanes; {len(sample)} lanes == oracle; "
+        f"{value_bound_text(cfg, check_rescue_bounds(cfg))}")
+
+    leaves = random_plane(fs, (RPO_ROW, fs.nlimbs, n), rng, dev)
+    for b, v in zip(NEAR_BOUND_LANES, (fs.modulus - 1, fs.modulus - 2)):
+        leaves[:, :, b] = torch.from_numpy(fs.ints_to_mont_plane([v])[:, 0]).to(dev)[None]
+    rescue_permute.launches = 0
+    digests = rpo_hash_elements(cfg, leaves, d)
+    levels = merkle_tree_wide(cfg, digests)
+    torch.cuda.synchronize()
+    launches = rescue_permute.launches
+    chunks = -(-RPO_ROW // cfg.rate)
+    check(launches == chunks + RPO_LEAVES_LOG2, f"a commitment's row set took {launches} launches")
+    say("launches", f"RPO commitment path (one row set: {chunks} leaf launches, {RPO_LEAVES_LOG2} tree "
+        f"launches): " + json.dumps({"rescue_permute": launches}))
+    half = n // 2
+    for lo in range(0, n, half):
+        plain = rpo_hash_elements(cfg, leaves[..., lo : lo + half], d, "plain")
+        check(torch.equal(digests[..., lo : lo + half], plain),
+              f"RPO leaf hash != the plain backend on lanes [{lo}, {lo + half})")
+    del plain
+    plain_levels = merkle_tree_wide(cfg, digests, "plain")
+    check(len(plain_levels) == len(levels) and all(torch.equal(a, b) for a, b in zip(levels, plain_levels)),
+          "the RPO merge tree != the plain backend's tree")
+    del plain_levels
+    rows = list(range(8)) + list(NEAR_BOUND_LANES) + sorted(rng.choice(np.arange(66, n), 20, replace=False).tolist())
+    for b in rows:
+        row = lane_ints(fs, leaves, b)
+        o = cfg.oracle_sponge()
+        o.state = [RPO_ROW % cfg.rate] + [0] * (t - 1)
+        for lo in range(0, RPO_ROW, cfg.rate):
+            chunk = row[lo : lo + cfg.rate]
+            o.state = o.state[:cap] + chunk + [0] * (cfg.rate - len(chunk))
+            o.permute()
+        check(lane_ints(fs, digests, b) == o.state[cap : cap + d], f"RPO leaf hash lane {b} differs from the oracle")
+    say("rpo", f"rpo_hash_elements over 2^{RPO_LEAVES_LOG2} rows of {RPO_ROW} and its merge tree == the plain "
+        f"backend (torch.equal on the card, every lane and every level); {len(rows)} digests == the oracle's "
+        f"sponge, the near-bound rows (every element p-1, every element p-2) among them")
+
+    perm_ms, _ = time_ms(lambda: rescue_permute(cfg, consts, state))
+    leaf_ms, _ = time_ms(lambda: rpo_hash_elements(cfg, leaves, d))
+    tree_ms, _ = time_ms(lambda: merkle_tree_wide(cfg, digests))
+    say("time", f"rescue_permute RPO {fs.name} t={t} B={B_MAIN}: {perm_ms:.3f} ms "
+        f"({perm_ms / B_MAIN * 1e6:.2f} ns a permutation); the row set's leaf hash {leaf_ms:.3f} ms, its tree "
+        f"{tree_ms:.3f} ms [{gpu}]")
+    for other in (st.get_default_rescue_parameters(st.BLS12_381_FR, 2),
+                  st.get_default_rescue_parameters(st.GOLDILOCKS_FR, 8)):
+        big = random_plane(other.field, (other.t, other.field.nlimbs, B_MAIN), rng, dev)
+        perm_consts = permutation_for(other, dev).consts
+        ms, _ = time_ms(lambda: rescue_permute(other, perm_consts, big))
+        ref = RESCUE_ROW5_MS[other.field.name]
+        say("time", f"rescue_permute {other.field.name} t={other.t} B={B_MAIN}: {ms:.3f} ms, the kernel table's "
+            f"{ref:.3f} ms ({ms / ref - 1:+.1%}) [{gpu}]")
+    return {"rescue_permute": launches}
 
 
 def check_merkle(cfg, leaves, root, family):

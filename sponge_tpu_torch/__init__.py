@@ -127,6 +127,7 @@ from .rescue.oracle import OracleRescueSponge
 from .rescue.params import (
     generate_rescue_parameters,
     get_default_rescue_parameters,
+    get_rpo_parameters,
     rescue_round_count,
     smallest_alpha,
 )
@@ -177,6 +178,7 @@ __all__ = [
     "get_default_poseidon2_parameters",
     "get_default_poseidon_parameters",
     "get_default_rescue_parameters",
+    "get_rpo_parameters",
     "get_field",
     "gmimc_default_rounds",
     "GmimcConfig",

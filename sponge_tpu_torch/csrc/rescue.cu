@@ -4,7 +4,13 @@
 // _rescue_kernel).  2N half-rounds, alternating the exponent:
 //     x <- x^alpha (or x^(1/alpha)) on every element;  x <- MDS x;  x += rc[h]
 // then the exit: one Montgomery product by 1 (values below 2p) and a
-// conditional subtraction, so the output is canonical.
+// conditional subtraction, so the output is canonical.  Rescue Prime
+// Optimized (the template flag MdsFirst; rescue/config.py mds_first) runs
+// each half-round's steps the other way round:
+//     x <- MDS x;  x += rc[h];  x <- x^alpha (or x^(1/alpha))
+// and ends on a chain's product, already below 2p, so its exit is the
+// conditional subtraction alone.  The flag is a template argument, so the
+// Rescue-Prime instantiations compile as before.
 //
 // Both exponents run through one sliding-window chain (mont.cuh
 // pow_window) with squarings by mont_sqr: the schedules
@@ -53,7 +59,42 @@ namespace sponge {
 template <int T, int L>
 constexpr int kRescueMinBlocks = kWideState<T, L> ? 1 : 4;
 
+// The S-boxes of half-round h: x^alpha on even h, x^(1/alpha) on odd, all
+// t elements in lockstep, or one at a time at a wide state.
 template <int T, int L>
+__device__ __forceinline__ void rescue_sbox(uint32_t (&x)[T][L], int h, const int32_t* alpha_sched,
+                                            int n_alpha, int w_alpha, const int32_t* inv_sched, int n_inv,
+                                            int w_inv, uint32_t* table, const Modulus<L>& m) {
+  const bool inverse = h & 1;
+  const int32_t* sched = inverse ? inv_sched : alpha_sched;
+  const int n_sched = inverse ? n_inv : n_alpha, w = inverse ? w_inv : w_alpha;
+  if constexpr (kWideState<T, L>) {
+#pragma unroll 1
+    for (int e = 0; e < T; ++e) {
+      uint32_t y[1][L];
+#pragma unroll
+      for (int k = 0; k < L; ++k) y[0][k] = x[0][k];
+      pow_window<1, L>(y, sched, n_sched, w, table, m);
+      shift_in<T, L>(x, y[0]);
+    }
+  } else {
+    pow_window<T, L>(x, sched, n_sched, w, table, m);
+  }
+}
+
+// The affine layer of half-round h: x <- MDS x + rc[h].
+template <int T, int L>
+__device__ __forceinline__ void rescue_affine(uint32_t (&x)[T][L], const int32_t* mds, const int32_t* rc_h,
+                                              const Modulus<L>& m) {
+  if constexpr (kWideState<T, L>)
+    mat_apply_rows<T, L>(x, mds, m);
+  else
+    mat_apply<T, L>(x, mds, m);
+#pragma unroll
+  for (int e = 0; e < T; ++e) add_const(x[e], rc_h + e * L);
+}
+
+template <int T, int L, bool MdsFirst>
 __global__ void __launch_bounds__(kThreads, kRescueMinBlocks<T, L>)
     rescue_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out, long long B,
                   int rounds, int w_alpha, int n_alpha, int w_inv, int n_inv,
@@ -74,40 +115,26 @@ __global__ void __launch_bounds__(kThreads, kRescueMinBlocks<T, L>)
   load_state<T, L>(x, in, B, b);
 #pragma unroll 1
   for (int h = 0; h < 2 * rounds; ++h) {
-    const bool inverse = h & 1;
-    const int32_t* sched = inverse ? inv_sched : alpha_sched;
-    const int n_sched = inverse ? n_inv : n_alpha, w = inverse ? w_inv : w_alpha;
-    if constexpr (kWideState<T, L>) {
-#pragma unroll 1
-      for (int e = 0; e < T; ++e) {
-        uint32_t y[1][L];
-#pragma unroll
-        for (int k = 0; k < L; ++k) y[0][k] = x[0][k];
-        pow_window<1, L>(y, sched, n_sched, w, table, m);
-        shift_in<T, L>(x, y[0]);
-      }
-      mat_apply_rows<T, L>(x, mds, m);
-    } else {
-      pow_window<T, L>(x, sched, n_sched, w, table, m);
-      mat_apply<T, L>(x, mds, m);
-    }
-#pragma unroll
-    for (int e = 0; e < T; ++e) add_const(x[e], rc + (h * T + e) * L);
+    if constexpr (MdsFirst) rescue_affine<T, L>(x, mds, rc + h * T * L, m);
+    rescue_sbox<T, L>(x, h, alpha_sched, n_alpha, w_alpha, inv_sched, n_inv, w_inv, table, m);
+    if constexpr (!MdsFirst) rescue_affine<T, L>(x, mds, rc + h * T * L, m);
   }
+  if constexpr (!MdsFirst) {
 #pragma unroll
-  for (int e = 0; e < T; ++e) mont_mul_const(x[e], x[e], one, m);
+    for (int e = 0; e < T; ++e) mont_mul_const(x[e], x[e], one, m);
+  }
   store_state<T, L>(out, x, B, b, m);
 }
 
-template <int T, int L>
+template <int T, int L, bool MdsFirst>
 int launch_rescue(const int32_t* in, int32_t* out, long long B, int rounds, int w_alpha,
                   int n_alpha, int w_inv, int n_inv, const int32_t* consts, unsigned n0inv,
                   cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
   const size_t shared = window_table_bytes(kWideState<T, L> ? 1 : T, L, w_alpha > w_inv ? w_alpha : w_inv);
-  if (const int err = allow_dynamic_shared(rescue_kernel<T, L>, shared)) return err;
-  rescue_kernel<T, L><<<blocks, kThreads, shared, stream>>>(in, out, B, rounds, w_alpha, n_alpha,
-                                                            w_inv, n_inv, consts, n0inv);
+  if (const int err = allow_dynamic_shared(rescue_kernel<T, L, MdsFirst>, shared)) return err;
+  rescue_kernel<T, L, MdsFirst><<<blocks, kThreads, shared, stream>>>(in, out, B, rounds, w_alpha, n_alpha,
+                                                                      w_inv, n_inv, consts, n0inv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -115,16 +142,22 @@ int launch_rescue(const int32_t* in, int32_t* out, long long B, int rounds, int 
 
 // Plain C entry point (ctypes): returns the CUDA error of a refused shared
 // memory size or cudaGetLastError() after the launch, or -1 when (t, L) has
-// no instantiation.  Instantiations must match INSTANTIATIONS in
-// sponge_tpu_torch/ops/_build.py.
+// no instantiation of the round order ``mds_first`` asks for.  Rescue-Prime's
+// PAIR lines must match INSTANTIATIONS in sponge_tpu_torch/ops/_build.py,
+// Rescue Prime Optimized's MDS_FIRST lines MDS_FIRST_PAIRS in
+// sponge_tpu_torch/ops/rescue.py.
 extern "C" int sponge_rescue(const int32_t* in, int32_t* out, long long B, int t, int L,
                              int rounds, int w_alpha, int n_alpha, int w_inv, int n_inv,
-                             const int32_t* consts, unsigned n0inv, void* stream) {
+                             const int32_t* consts, unsigned n0inv, int mds_first, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PAIR(T_, L_)                                                                              \
-  if (t == T_ && L == L_)                                                                         \
-    return sponge::launch_rescue<T_, L_>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv, consts, \
-                                         n0inv, s);
+  if (t == T_ && L == L_ && !mds_first)                                                           \
+    return sponge::launch_rescue<T_, L_, false>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv, \
+                                                consts, n0inv, s);
+#define MDS_FIRST(T_, L_)                                                                         \
+  if (t == T_ && L == L_ && mds_first)                                                            \
+    return sponge::launch_rescue<T_, L_, true>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv, \
+                                               consts, n0inv, s);
   PAIR(2, 11)
   PAIR(3, 11)
   PAIR(4, 11)
@@ -150,6 +183,8 @@ extern "C" int sponge_rescue(const int32_t* in, int32_t* out, long long B, int t
   PAIR(15, 2)
   PAIR(16, 2)
   PAIR(3, 2)
+  MDS_FIRST(12, 3)
 #undef PAIR
+#undef MDS_FIRST
   return -1;
 }

@@ -4,14 +4,16 @@ Counterpart of ``sponge_tpu/hash.py:23-506``: batched 2-to-1 compression
 (one permutation per node), fixed-length hashing of element blocks, the
 Merkle root and tree with batched opening and verification, the same over
 wide digests (d-element nodes, for small fields), Jive-mode trees
-(``sponge_tpu/hash.py:509-619``), and Plonky3's padding-free sponge and
-truncated-permutation trees.  Every config of the port drives them.
+(``sponge_tpu/hash.py:509-619``), Plonky3's padding-free sponge and
+truncated-permutation trees, and Miden's length-tagged overwrite sponge
+(``rpo_hash_elements``).  Every config of the port drives them.
 The kernels take any batch width, so levels are neither chunked nor padded
 (the JAX package pads to reuse XLA compilations).  A tree, each of its
-levels, a batch of openings, a ``hash_elements`` and a
-``padding_free_hash`` call and each truncated compression are spans
+levels, a batch of openings, a ``hash_elements``, a ``padding_free_hash``
+and an ``rpo_hash_elements`` call and each truncated compression are spans
 (``utils.profiling``: ``merkle.tree``, ``merkle.level``, ``merkle.open``,
-``hash.elements``, ``hash.padding_free``, ``merkle.truncate``).
+``hash.elements``, ``hash.padding_free``, ``hash.rpo``,
+``merkle.truncate``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from .poseidon.permutation import (
     overwrite_rows,
     zero_state,
 )
-from .utils.profiling import ELEMENTS, LEVEL, OPEN, PADDING_FREE, TREE, TRUNCATE, annotate
+from .utils.profiling import ELEMENTS, LEVEL, OPEN, PADDING_FREE, RPO, TREE, TRUNCATE, annotate
 
 
 def hash_elements(
@@ -356,3 +358,50 @@ def merkle_verify_batch_truncated(
     """``merkle_verify_batch_wide`` with the truncated permutation: root
     (d, L), leaves (d, L, K), paths (depth, d, L, K) -> (K,) bool."""
     return merkle_verify_batch_wide(cfg, root, leaves, paths, indices, backend, truncated_compress_pairs)
+
+
+# ---- Miden's mode: the length-tagged overwrite sponge ----
+#
+# Miden (miden-crypto ``Rpo256::hash_elements``) puts the capacity in front
+# and tags the input's length in it: capacity element 0 starts as k mod rate.
+# Each chunk of ``rate`` elements overwrites the rate, a last partial chunk
+# padded with zeros, and the state is permuted; the digest is the rate's
+# first rows.  ``Rpo256::merge`` writes two digests over the rate of a zero
+# state with no tag and permutes once: ``compress_digest_pairs`` (adding
+# into a zero rate is writing over it), so ``merkle_tree_wide`` is Miden's
+# tree.
+
+
+def rpo_initial_state(cfg: SpongeConfig, k: int, batch: int, device) -> torch.Tensor:
+    """Miden's sponge state before k elements: zero, with capacity row 0 =
+    k mod rate (Montgomery form), each limb a fill of the fresh plane (no
+    copy from the host)."""
+    fs = cfg.field
+    state = zero_state(cfg, batch, device)
+    for limb, v in enumerate(fs.int_to_limbs(fs.to_mont(k % cfg.rate)).tolist()):
+        state[0, limb] = v
+    return state
+
+
+def rpo_hash_elements(
+    cfg: SpongeConfig, elems: torch.Tensor, num_outputs: int, backend: str = "auto"
+) -> torch.Tensor:
+    """(k, L, B) Montgomery element plane -> (num_outputs, L, B), Miden's
+    ``hash_elements`` over any config whose capacity comes first: from
+    ``rpo_initial_state``, for each chunk of ``rate`` elements, the last
+    zero-padded, rows [capacity, t) overwritten (``overwrite_rows``) and
+    the state permuted, so a k that is a multiple of the rate takes no
+    further permutation; then rows [capacity, capacity + num_outputs),
+    num_outputs <= rate."""
+    k, L, B = elems.shape
+    cap, rate = cfg.capacity, cfg.rate
+    if not 0 < num_outputs <= rate:
+        raise ValueError(f"num_outputs must be in [1, rate={rate}]; got {num_outputs}")
+    with annotate(RPO, B):
+        state = rpo_initial_state(cfg, k, B, elems.device)
+        for lo in range(0, k, rate):
+            chunk = elems[lo : lo + rate]
+            if chunk.shape[0] < rate:
+                chunk = torch.cat([chunk, chunk.new_zeros((rate - chunk.shape[0], L, B))])
+            state = batched_permute(cfg, overwrite_rows(cfg, state, chunk, cap), backend)
+        return state[cap : cap + num_outputs].clone()

@@ -563,7 +563,11 @@ class _Replay:
 
     def exit(self, x):
         """One Montgomery product by 1, then one conditional subtraction."""
-        if self.mul(x, self.const)[0] > 2 * self.p:
+        self.subtract_once(self.mul(x, self.const))
+
+    def subtract_once(self, x):
+        """The store's one conditional subtraction: canonical only below 2p."""
+        if x[0] > 2 * self.p:
             self._fail("output bound >= 2p")
 
 
@@ -571,18 +575,27 @@ class _Replay:
 def check_rescue_bounds(cfg) -> int:
     """Replay kernel 5's schedule on exclusive value bounds: both window
     chains (``rescue.config.windows``) product by product, tables included,
-    the MDS row dots (one REDC each), the constant adds and the exit product
-    by the Montgomery form of 1.  Raises ValueError if a product input could
-    reach R, the output 2p, or a column 2^63; returns the largest value
-    bound."""
+    the MDS row dots (one REDC each) and the constant adds, in the config's
+    round order, then the exit: after Rescue-Prime's constant add the
+    product by the Montgomery form of 1, after Rescue Prime Optimized's
+    last chain (``mds_first``) nothing but the store's conditional
+    subtraction.  Raises ValueError if a product input could reach R, the
+    output 2p, or a column 2^63; returns the largest value bound."""
     fs, t = cfg.field, cfg.t
     sim = _Replay(f"Rescue kernel, {fs.name} t={t}", fs, terms=t)
     w_alpha, w_inv = rescue_windows(cfg)
+    mds_first = getattr(cfg, "mds_first", False)  # a duck-typed config without it: Rescue-Prime's order
     x = sim.const
     for h in range(2 * cfg.rounds):
-        y = sim.pow_window(x, *((cfg.inv_alpha, w_inv) if h % 2 else (cfg.alpha, w_alpha)))
-        x = sim.add(sim.row([y] * t), sim.const)
-    sim.exit(x)
+        chain = (cfg.inv_alpha, w_inv) if h % 2 else (cfg.alpha, w_alpha)
+        if mds_first:
+            x = sim.pow_window(sim.add(sim.row([x] * t), sim.const), *chain)
+        else:
+            x = sim.add(sim.row([sim.pow_window(x, *chain)] * t), sim.const)
+    if mds_first:
+        sim.subtract_once(x)
+    else:
+        sim.exit(x)
     return sim.vmax
 
 

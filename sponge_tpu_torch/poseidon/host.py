@@ -54,6 +54,8 @@ _R = 1 << _R_BITS
 
 def _supported(cfg) -> bool:
     p = cfg.field.modulus
+    if isinstance(cfg, RescueConfig) and cfg.mds_first:
+        return False  # the native Rescue schedule is Rescue-Prime's order alone
     if isinstance(cfg, MonolithConfig):
         # Bars run on a single canonical u64 word in the native runtime.
         return p % 2 == 1 and p.bit_length() <= 64

@@ -94,16 +94,19 @@ def add_rows(cfg: SpongeConfig, state: torch.Tensor, start: int, chunk: torch.Te
         return torch.cat([state[:lo], rows, state[hi:]])
 
 
-def overwrite_rows(cfg: SpongeConfig, state: torch.Tensor, chunk: torch.Tensor):
-    """``state[:k] = chunk`` as a NEW tensor, as ``add_rows`` writes: the
-    overwrite mode of Plonky3's sponges, whose rate sits in front of the
-    capacity.  One ``sponge.overwrite`` span (``utils.profiling``), its
-    count the lanes."""
+def overwrite_rows(cfg: SpongeConfig, state: torch.Tensor, chunk: torch.Tensor, lo: int = 0):
+    """``state[lo : lo + k] = chunk`` as a NEW tensor, as ``add_rows``
+    writes: the overwrite mode of Plonky3's sponges, whose rate sits in
+    front of the capacity (``lo`` 0), or of Miden's, whose rate follows it
+    (``lo`` the capacity).  One ``sponge.overwrite`` span
+    (``utils.profiling``), its count the lanes."""
     k = chunk.shape[0]
     if k > cfg.rate:
         raise ValueError(f"{k} rows pass the rate {cfg.rate}")
+    if not 0 <= lo <= cfg.t - k:
+        raise ValueError(f"{k} rows from row {lo} pass the width {cfg.t}")
     with annotate(OVERWRITE, chunk.shape[-1]):
-        return torch.cat([chunk, state[k:]])
+        return torch.cat([state[:lo], chunk, state[lo + k :]])
 
 
 def overwrite_permute(cfg: SpongeConfig, views: tuple, width: int, out_rows: int, backend: str = "auto"):

@@ -6,6 +6,13 @@ S-box x^(1/alpha) in every round.  Round r (of N):
     state <- MDS . sbox_alpha(state)     + rc[2r]
     state <- MDS . sbox_1/alpha(state)   + rc[2r+1]
 
+Rescue Prime Optimized (ePrint 2022/1577, ``mds_first``) puts the affine
+layer before the S-box in each half-round, so the permutation ends on the
+inverse S-box:
+
+    state <- sbox_alpha(MDS . state + rc[2r])
+    state <- sbox_1/alpha(MDS . state + rc[2r+1])
+
 The flat constant buffer of the CUDA kernel (``kernel_constants``) is laid
 out by ``constant_layout``; ``csrc/rescue.cu`` reads the same order.
 """
@@ -27,7 +34,9 @@ from ..poseidon.config import mont_limb_rows, unpack_layout
 @dataclass(frozen=True)
 class RescueConfig:
     """Parameters of the Rescue-Prime permutation and the duplex sponge
-    geometry.  ``rc[2*r + half][element]``: two injection rows per round."""
+    geometry.  ``rc[2*r + half][element]``: two injection rows per round.
+    ``mds_first``: the round order of Rescue Prime Optimized (the MDS and
+    the constants, then the S-box), part of the permutation."""
 
     field: FieldSpec
     rounds: int
@@ -36,6 +45,7 @@ class RescueConfig:
     rc: tuple  # (2 * rounds, t) ints
     rate: int
     capacity: int = 1
+    mds_first: bool = False
 
     def __post_init__(self):
         t = self.rate + self.capacity

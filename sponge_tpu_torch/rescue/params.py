@@ -6,14 +6,21 @@ counts follow the Rescue-Prime specification's Groebner-basis cost model
 Round constants come from the Poseidon Grain LFSR by rejection sampling and
 the MDS from the Cauchy construction: a self-consistent deterministic
 instance, with the scalar oracle as ground truth.
+
+``get_rpo_parameters`` is Rescue Prime Optimized as Miden deploys it
+(miden-crypto ``Rpo256``, ePrint 2022/1577): Goldilocks, width 12, rate 8,
+capacity 4, alpha 7, 7 rounds, the published circulant MDS and the affine
+layer first.  Its round constants are the Grain draws of the other
+instances, not Miden's ARK1/ARK2 tables.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 
-from ..fields import FieldSpec
+from ..fields import GOLDILOCKS_FR, FieldSpec
 from ..poseidon.params import _DEFAULT_CAPACITY, PoseidonGrainLFSR
 from .config import RescueConfig
 
@@ -81,3 +88,24 @@ def get_default_rescue_parameters(fs: FieldSpec, rate: int) -> RescueConfig:
     """Default Rescue-Prime parameters: the spec's smallest alpha and round
     count at 128-bit security, the per-field sponge capacity."""
     return generate_rescue_parameters(fs, rate, _DEFAULT_CAPACITY.get(fs.name, 1))
+
+
+# The first row of the MDS matrix of miden-crypto's Rpo256:
+# row i is this row rotated right by i, MDS[i][j] = RPO_MDS_ROW[(j - i) % 12].
+RPO_MDS_ROW = (7, 23, 8, 26, 13, 10, 9, 7, 6, 22, 21, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def get_rpo_parameters(fs: FieldSpec) -> RescueConfig:
+    """Rescue Prime Optimized at Miden's shape: Goldilocks, rate 8,
+    capacity 4 (rows [0, 4), the rate rows [4, 12)), alpha 7, 7 rounds, the
+    circulant MDS of ``RPO_MDS_ROW``, the MDS before the S-box
+    (``mds_first``).  The 14 x 12 round constants are
+    ``generate_rescue_parameters``' Grain draws at these sizes (R_F = 14,
+    R_P = 0).  Only Goldilocks has the published matrix."""
+    if fs.modulus != GOLDILOCKS_FR.modulus:
+        raise ValueError(f"Rescue Prime Optimized's MDS is published for Goldilocks; got {fs.name}")
+    t = len(RPO_MDS_ROW)
+    mds = tuple(tuple(RPO_MDS_ROW[(j - i) % t] for j in range(t)) for i in range(t))
+    cfg = generate_rescue_parameters(fs, 8, 4, alpha=7, rounds=7)
+    return dataclasses.replace(cfg, mds=mds, mds_first=True)

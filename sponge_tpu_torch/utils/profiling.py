@@ -31,7 +31,8 @@ The port opens these spans, each with the count named beside it:
   where kernel 3 writes the chunks over the state as it loads them, the
   chunks (lanes times chunks a lane); the ``sponge.permute`` span inside
   counts the same, its permutations;
-* ``merkle.truncate``: ``hash.truncated_compress_pairs``, the nodes.
+* ``merkle.truncate``: ``hash.truncated_compress_pairs``, the nodes;
+* ``hash.rpo``: ``hash.rpo_hash_elements``, the lanes.
 
     with profiling.trace("run"):
         hash.merkle_tree(cfg, leaves)
@@ -63,6 +64,7 @@ PADDING_FREE = "hash.padding_free"
 OVERWRITE = "sponge.overwrite"
 OVERWRITE_FUSED = "sponge.overwrite_fused"
 TRUNCATE = "merkle.truncate"
+RPO = "hash.rpo"
 
 
 class _Recorder:

@@ -476,6 +476,12 @@ def test_dispatch_on_cpu():
         _build.check_instantiated("sponge_rescue", t, L)
 
 
+def test_configs_from_the_jax_package_take_rescue_primes_order():
+    """The JAX package has Rescue-Prime's order alone: its configs arrive
+    with the S-box first (``mds_first`` false)."""
+    assert interop.config_from_jax(tiny25(rounds=2)).mds_first is False
+
+
 # ---- entry points over the plain tier ----
 
 

@@ -298,6 +298,41 @@ def test_overwrite_fused_counts_lanes_times_chunks(k, lanes, width):
     assert shape(prof.spans()) == [(prof.OVERWRITE_FUSED, None, want), (prof.PERMUTE, 0, want)]
 
 
+def expected_rpo(cfg, k, n, openings):
+    """Spans of one commitment of the benchmark's Miden job: Miden's leaf
+    sponge (``hash.rpo`` in lanes, one ``sponge.overwrite`` and one
+    ``sponge.permute`` a chunk, each in lanes), the merge tree (each level
+    one 2-to-1 sponge step: ``hash.elements``, ``sponge.absorb``,
+    ``sponge.permute``), the openings."""
+    out = [(prof.RPO, None, n)]
+    for _ in range(ceil_div(k, cfg.rate)):
+        out += [(prof.OVERWRITE, 0, n), (prof.PERMUTE, 0, n)]
+    expected_tree(cfg, "wide", 4, n, out)
+    if openings:
+        out.append((prof.OPEN, None, openings))
+    return out
+
+
+@pytest.mark.parametrize("k", [71, 16, 9])
+def test_spans_of_an_rpo_commitment(k):
+    """The Goldilocks RPO t = 12 commitment as the Miden job makes it:
+    ``hash.rpo`` counted in lanes with its overwrites and permutations
+    inside it, the tree's levels as every other family's wide tree, and the
+    permutations' count the job's (9 a row of 71, no permutation after a
+    whole last chunk, one a node)."""
+    cfg = st.get_rpo_parameters(st.GOLDILOCKS_FR)
+    n, openings = 4, 3
+    prof.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        digests = sthash.rpo_hash_elements(cfg, torch.zeros((k, cfg.field.nlimbs, n), dtype=torch.int32), 4)
+        levels = sthash.merkle_tree_wide(cfg, digests)
+        sthash.merkle_open_batch(levels, list(range(openings)))
+    got = prof.spans()
+    assert shape(got) == expected_rpo(cfg, k, n, openings)
+    assert sum(s["count"] for s in got if s["name"] == prof.PERMUTE) == cell_permutations(cfg.rate, k, 4, n)
+    assert [s["name"] for s in got if s["parent"] is None] == [prof.RPO, prof.TREE, prof.OPEN]
+
+
 def test_annotate_is_one_shared_noop_with_the_profiler_off():
     assert not torch.autograd.profiler._is_profiler_enabled
     assert prof.annotate(prof.PERMUTE, 4) is prof.annotate("other")
@@ -506,6 +541,25 @@ def test_overwrite_fused_share_counts_chunks(monkeypatch):
     for spans, want in ((loop, 0.0), (fused, 100.0), (loop + fused, 100 * (8.5 / 16.5)), ([], None),
                         (HAND_MADE, None)):
         monkeypatch.setattr(prof, "spans", lambda spans=spans: [dict(s) for s in spans])
+        assert read(None) == (None if want is None else pytest.approx(want))
+    monkeypatch.delattr(prof, "spans")
+    assert read(None) is None
+
+
+def test_leaf_hash_share_miden_reads_the_rpo_spans(monkeypatch):
+    """``leaf_hash_share.miden``: Σ ``hash.rpo`` device time over Σ the
+    outermost spans'; None without the spans, without a ``hash.rpo`` span,
+    or without device times."""
+    from spongebench.harness import resolve
+
+    cell = resolve("gl-miden-commit-2p21")
+    read = {name: reader for name, _, reader in cell.per_layer}["leaf_hash_share.miden"]
+    spans = [span(prof.RPO, None, 1 << 10, 90.0, 900.0), span(prof.OVERWRITE, 0, 1 << 10, 5.0, 10.0),
+             span(prof.PERMUTE, 0, 1 << 10, 30.0, 880.0), span(prof.TREE, None, 1 << 10, 50.0, 95.0),
+             span(prof.OPEN, None, 27, 10.0, 5.0)]
+    for got, want in ((spans, 90.0), (spans[3:], None), ([], None),
+                      ([dict(s, device_us=None) for s in spans], None)):
+        monkeypatch.setattr(prof, "spans", lambda got=got: [dict(s) for s in got])
         assert read(None) == (None if want is None else pytest.approx(want))
     monkeypatch.delattr(prof, "spans")
     assert read(None) is None
