@@ -455,6 +455,10 @@ def limb_products(name, cfg, words=True):
         narrow = (cfg.full_rounds + 1) * t * t * L + (cfg.partial_rounds * t * L if cfg.small_diag else 0)
         return wide + t * mm[0], narrow + p2_plan(cfg).min_folds * L
     if name == "rescue_permute":
+        if two:  # narrow rows: the two 32-bit halves times a small entry, 2 t a row (ops/bounds.py)
+            from sponge_tpu_torch.ops.bounds import check_rescue_gl_bounds
+
+            row = (2 * t, 0) if check_rescue_gl_bounds(cfg).narrow else row
         per_round = add((t, sb), (t, power(cfg.inv_alpha)), (2 * t, row))
         return add((cfg.rounds, per_round), (io, mm))
     if name == "gmimc_permute":  # the deferred adds are not products
@@ -545,15 +549,18 @@ def window_phase(cfgs, report):
     compiled registers and spills, and the blocks per SM (kernel 6 with its
     staged constants).  Fails unless the window rule picks the shipped
     windows at the compiled registers too (``_build.REGISTERS`` is the
-    rule's input).  Kernel 3 raises only x^alpha (no window, no table): its
-    line gives the body, the registers, spills and blocks per SM with its
-    staged constants."""
+    rule's input).  Kernel 5's two-word body (Goldilocks) has no window:
+    its line gives the body, the registers, spills and blocks per SM with
+    its staged word buffer.  Kernel 3 raises only x^alpha (no window, no
+    table): its line gives the body, the registers, spills and blocks per
+    SM with its staged constants."""
     import sponge_tpu_torch as st
     from sponge_tpu_torch.anemoi.config import pairwise, window
     from sponge_tpu_torch.griffin.config import window as griffin_window
     from sponge_tpu_torch.ops import _build
     from sponge_tpu_torch.ops.bounds import check_p2_bounds
     from sponge_tpu_torch.ops.montgomery import blocks_per_sm, wide_state, window_for, window_table_bytes
+    from sponge_tpu_torch.ops.rescue import body as rescue_body
     from sponge_tpu_torch.rescue.config import windows
 
     entries = ptxas_entries(report)
@@ -573,6 +580,13 @@ def window_phase(cfgs, report):
                 f"{spill_ld} B loaded; {shared:,} B of staged constants, {blocks_per_sm(regs, shared)} blocks per SM")
             continue
         want = (t, L)
+        if isinstance(cfg, st.RescueConfig) and rescue_body(cfg) == "two-word":
+            base, want, shared = census_instance("rescue_permute", cfg)
+            regs, spill_st, spill_ld = compiled(base, want)
+            say("window", f"{base} {want} {cfg.field.name} t={t}: two-word body, no window table "
+                f"({rescue_plan_text(cfg)}); ptxas {regs} registers, spills {spill_st} B stored, {spill_ld} B "
+                f"loaded; {shared:,} B of staged constants, {blocks_per_sm(regs, shared)} blocks per SM")
+            continue
         if isinstance(cfg, st.RescueConfig):  # one chain at a wide state; the round order a template flag
             symbol, kernel, chains = "sponge_rescue", "rescue_kernel", 1 if wide_state(t, L) else t
             exps, shipped, want = (cfg.alpha, cfg.inv_alpha), windows(cfg), (t, L, int(cfg.mds_first))
@@ -688,9 +702,12 @@ def census_instance(name, cfg, body=None):
         table = window_table_bytes(1, L, griffin_window(cfg))
         return "griffin_kernel", (t, L), 4 * layout_size(griffin_layout(cfg)) + table
     if name == "rescue_permute":
+        from sponge_tpu_torch.ops import rescue as rescue_ops
         from sponge_tpu_torch.ops.montgomery import wide_state
         from sponge_tpu_torch.rescue.config import windows
 
+        if rescue_ops.body(cfg) == "two-word":
+            return "rescue_kernel", (t, int(cfg.mds_first)), 4 * len(rescue_ops.word_constants(cfg))
         return ("rescue_kernel", (t, L, int(cfg.mds_first)),
                 window_table_bytes(1 if wide_state(t, L) else t, L, max(windows(cfg))))
     if name == "anemoi_permute":
@@ -762,7 +779,7 @@ def window_comparison(cfg, state, path_out, gpu):
         sched = window_schedule(cfg.inv_alpha, w)
         consts = torch.from_numpy(np.concatenate([head, np.asarray(sched, dtype=np.int32)])).to(state.device)
         args = (cfg.rounds, w_alpha, len(alpha_sched), w, len(sched), consts.data_ptr(), cfg.field.n0inv,
-                int(cfg.mds_first))
+                int(cfg.mds_first), 0, None, 0, 0, 0)  # the limb body, no word buffer
         runs[w] = (consts, args)
     best = {}
     for w in (3, 4, 4, 3):
@@ -822,6 +839,20 @@ def opt_plan_text(cfg):
     if body(cfg) == "two-word":
         return f"two-word body, largest accumulator {bounds.check_opt_gl_bounds(cfg) + 1} x 2^128"
     return "limb body, " + value_bound_text(cfg, bounds.check_kernel_bounds(cfg, True))
+
+
+def rescue_plan_text(cfg):
+    """Kernel 5's body and its replay (``ops/bounds.py``
+    ``check_rescue_gl_bounds`` or ``check_rescue_bounds``)."""
+    from sponge_tpu_torch.ops import bounds
+    from sponge_tpu_torch.ops.rescue import body
+
+    if body(cfg) == "two-word":
+        plan = bounds.check_rescue_gl_bounds(cfg)
+        acc = (f"narrow MDS rows, largest accumulator 2^{(plan.acc - 1).bit_length()}" if plan.narrow else
+               f"MDS rows by gl_row, largest row sum {plan.acc + 1} x 2^128")
+        return f"two-word body, {'alpha 7 chains' if plan.chain else 'square-and-multiply'}, {acc}"
+    return "limb body, " + value_bound_text(cfg, bounds.check_rescue_bounds(cfg))
 
 
 def dense_plan_text(cfg):
@@ -1018,7 +1049,6 @@ def main(argv):
         check_kernel_bounds,
         check_monolith_bounds,
         check_p2_bounds,
-        check_rescue_bounds,
     )
     from sponge_tpu_torch.ops.gmimc import gmimc_permute, gmimc_permute_plain
     from sponge_tpu_torch.ops.griffin import griffin_permute, griffin_permute_plain
@@ -1026,6 +1056,7 @@ def main(argv):
     from sponge_tpu_torch.ops.poseidon_dense import BODIES as dense_bodies
     from sponge_tpu_torch.ops.poseidon_dense import permute_dense, permute_dense_plain
     from sponge_tpu_torch.ops.poseidon_opt import permute_opt, permute_opt_plain
+    from sponge_tpu_torch.ops.rescue import BODIES as rescue_bodies
     from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
     from sponge_tpu_torch.family import permutation_for
 
@@ -1083,6 +1114,8 @@ def main(argv):
     r_bb = st.get_default_rescue_parameters(st.BABYBEAR_FR, 8)
     r_25 = st.generate_rescue_parameters(fr25, 2, rounds=4)
     gl = st.GOLDILOCKS_FR
+    r_gl = st.get_default_rescue_parameters(gl, 8)  # kernel 5's two-word body, (12, 3)
+    r_gl11 = st.generate_rescue_parameters(gl, 4, 4, alpha=11, rounds=3)  # its square-and-multiply chains
     m_bls = st.get_default_gmimc_parameters(st.BLS12_381_FR, 2)
     m_bn = st.get_default_gmimc_parameters(st.BN254_FR, 2)
     m_gl = st.get_default_gmimc_parameters(gl, 4)
@@ -1115,7 +1148,9 @@ def main(argv):
                                          ("poseidon2_permute", p2_bb), ("poseidon2_permute", p2_kb),
                                          ("poseidon2_permute", p2_bb_dense), ("griffin_permute", g_bls),
                                          ("griffin_permute", g_gl), ("gmimc_permute", m_bls),
-                                         ("gmimc_permute", m_gl), ("gmimc_permute", m_gl, "limb")])
+                                         ("gmimc_permute", m_gl), ("gmimc_permute", m_gl, "limb"),
+                                         ("rescue_permute", r_bls), ("rescue_permute", r_gl),
+                                         ("rescue_permute", st.get_rpo_parameters(gl))])
 
     elapsed("the golden vectors")
     # ---- 3. golden vectors through the sponge on the card ----
@@ -1191,11 +1226,14 @@ def main(argv):
             replaces="sponge_tpu/ops/pallas_p2.py:314",
         ),
         "rescue_permute": dict(
-            wrapper=rescue_permute, plain=rescue_permute_plain,
-            bound=lambda cfg: value_bound_text(cfg, check_rescue_bounds(cfg)),
-            configs=[r_bls, r_bb, r_25],
+            wrapper=rescue_permute, plain=rescue_permute_plain, words="words",
+            bound=rescue_plan_text,
+            configs=[r_bls, r_bb, r_25, r_gl, r_gl11],
             source="sponge_tpu_torch/csrc/rescue.cu",
             replaces="sponge_tpu/ops/pallas_rescue.py:438",
+            bodies={kind: {"source": "sponge_tpu_torch/csrc/" + ("rescue.cu" if kind == "limb" else
+                                                                  "rescue_words.cu"),
+                           "pairs": sorted(pairs)} for kind, pairs in rescue_bodies.items()},
         ),
         "griffin_permute": dict(
             wrapper=griffin_permute, plain=griffin_permute_plain,
@@ -1318,7 +1356,7 @@ def main(argv):
             overwrite_phase(st, dev, rng, gpu)
         if RPO_PHASE in only:
             elapsed("the RPO path")
-            rpo_phase(st, dev, rng, gpu)
+            rpo_phase(st, dev, rng, gpu, rates)
         elapsed("the end")
         return 0
 
@@ -1421,7 +1459,7 @@ def main(argv):
 
     elapsed("the RPO path")
     # ---- 6c. kernel 5's MDS-first order at the Miden cell's sizes, launches counted ----
-    launches["rescue_permute"] += rpo_phase(st, dev, rng, gpu)["rescue_permute"]
+    launches["rescue_permute"] += rpo_phase(st, dev, rng, gpu, rates)["rescue_permute"]
 
     elapsed("the GMiMC/Griffin/Anemoi path")
     # ---- 7. the GMiMC, Griffin and Anemoi path (kernels 8, 6 and 7), launches counted ----
@@ -1932,9 +1970,10 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
     for name, label, cfg in configs:
         k, fs, t, L = kernels[name], cfg.field, cfg.t, cfg.field.nlimbs
         state = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_WIDTH_HOST), rng, dev)))
-        consts = permutation_for(cfg, dev).consts
+        perm = permutation_for(cfg, dev)
+        consts = perm.consts
         before = k["wrapper"].launches
-        out_k = k["wrapper"](cfg, consts, state)
+        out_k = call_kernel(k, cfg, perm, state)
         torch.cuda.synchronize()
         check(k["wrapper"].launches == before + 1, f"{name}: the kernel was not launched at {label}")
         sample = [0, 21, 42, 63, *NEAR_BOUND_LANES] + sorted(
@@ -1980,8 +2019,8 @@ def family_widths_phase(st, dev, rng, gpu, kernels, rates, report):
         say("census", f"{name} ({t}, {L}) at {label}: {base} {want}, {regs} registers, spills {spill_st}/{spill_ld} B, "
             f"{shared:,} B of shared memory, {blocks} blocks per SM")
         big = with_maxima(fs, with_edges(fs, random_plane(fs, (t, L, B_MAIN), rng, dev)))
-        consts = permutation_for(cfg, dev).consts
-        ms, out = time_ms(lambda: k["wrapper"](cfg, consts, big))
+        perm = permutation_for(cfg, dev)
+        ms, out = time_ms(lambda: call_kernel(k, cfg, perm, big))
         check_lanes_vs_oracle(cfg, big, out, [0, 63, *NEAR_BOUND_LANES, B_MAIN - 1], f"{name} {label} B=2^20")
         bound_ms, bound_by = kernel_bound(name, cfg, B_MAIN, rates)
         wide, narrow = limb_products(name, cfg)
@@ -2160,10 +2199,10 @@ def overwrite_phase(st, dev, rng, gpu):
 
 RPO_PHASE = "rescue_rpo"  # its name for --only
 RPO_LEAVES_LOG2, RPO_ROW = 21, 71  # the gl-miden-commit-2p21 cell's row set
-RESCUE_ROW5_MS = {"bls12_381_fr": 418.012, "goldilocks_fr": 31.805}  # PERF.md's kernel table, row 5, at B = 2^20
+RESCUE_ROW5_MS = {"bls12_381_fr": 418.012, "goldilocks_fr": 10.180}  # PERF.md's kernel table, row 5, at B = 2^20
 
 
-def rpo_phase(st, dev, rng, gpu):
+def rpo_phase(st, dev, rng, gpu, rates):
     """Kernel 5's MDS-first order (Rescue Prime Optimized, ``get_rpo_parameters``,
     Goldilocks (12, 3)) at the Miden cell's sizes, launches counted: the
     permutation at B = 2^20 with 0, 1, p-1, p-2 in every element position
@@ -2174,39 +2213,43 @@ def rpo_phase(st, dev, rng, gpu):
     ``rescue_permute.launches`` zeroed just before and read just after (9
     leaf launches, 21 tree launches), the digests and every level against
     the plain backend (every lane), sampled digests against the oracle's
-    sponge; the row set and the permutation timed; then kernel 5's
-    Rescue-Prime rows (BLS12-381 t = 3, Goldilocks t = 12 at rate 8) at
-    B = 2^20 beside the kernel table's times.  Returns the commitment's
-    launches."""
+    sponge, every launch counted as the two-word body's
+    (``rescue_permute.body_launches``); the row set and the permutation
+    timed, the permutation beside its bound; then kernel 5's Rescue-Prime
+    rows (BLS12-381 t = 3, Goldilocks t = 12 at rate 8) at B = 2^20 beside
+    the kernel table's times.  Returns the commitment's launches."""
     from sponge_tpu_torch.family import permutation_for
     from sponge_tpu_torch.hash import merkle_tree_wide, rpo_hash_elements
-    from sponge_tpu_torch.ops.bounds import check_rescue_bounds
     from sponge_tpu_torch.ops.rescue import rescue_permute, rescue_permute_plain
 
     cfg = st.get_rpo_parameters(st.GOLDILOCKS_FR)
     fs, t, cap, d, n = cfg.field, cfg.t, cfg.capacity, 4, 1 << RPO_LEAVES_LOG2
-    consts = permutation_for(cfg, dev).consts
+    perm = permutation_for(cfg, dev)
+    consts = perm.consts
     state = with_maxima(fs, with_edges(fs, random_plane(fs, (t, fs.nlimbs, B_MAIN), rng, dev)))
-    out = rescue_permute(cfg, consts, state)
+    out = perm.kernel(cfg, consts, state)
     check(torch.equal(out, rescue_permute_plain(cfg, consts, state)), "RPO kernel != plain at B=2^20")
     sample = list(range(66)) + sorted(rng.choice(np.arange(66, B_MAIN), 30, replace=False).tolist())
     check_lanes_vs_oracle(cfg, state, out, sample, "RPO kernel")
     say("rpo", f"rescue_permute RPO {fs.name} t={t} (MDS first, {cfg.rounds} rounds): torch.equal(kernel, plain) "
         f"at B={B_MAIN} incl. 64 edge lanes and the near-bound lanes; {len(sample)} lanes == oracle; "
-        f"{value_bound_text(cfg, check_rescue_bounds(cfg))}")
+        f"{rescue_plan_text(cfg)}")
 
     leaves = random_plane(fs, (RPO_ROW, fs.nlimbs, n), rng, dev)
     for b, v in zip(NEAR_BOUND_LANES, (fs.modulus - 1, fs.modulus - 2)):
         leaves[:, :, b] = torch.from_numpy(fs.ints_to_mont_plane([v])[:, 0]).to(dev)[None]
     rescue_permute.launches = 0
+    rescue_permute.body_launches = dict.fromkeys(rescue_permute.body_launches, 0)
     digests = rpo_hash_elements(cfg, leaves, d)
     levels = merkle_tree_wide(cfg, digests)
     torch.cuda.synchronize()
     launches = rescue_permute.launches
     chunks = -(-RPO_ROW // cfg.rate)
     check(launches == chunks + RPO_LEAVES_LOG2, f"a commitment's row set took {launches} launches")
+    check(rescue_permute.body_launches["two-word"] == launches,
+          f"the row set's launches by body: {rescue_permute.body_launches}")
     say("launches", f"RPO commitment path (one row set: {chunks} leaf launches, {RPO_LEAVES_LOG2} tree "
-        f"launches): " + json.dumps({"rescue_permute": launches}))
+        f"launches): " + json.dumps({"rescue_permute": launches, "by body": rescue_permute.body_launches}))
     half = n // 2
     for lo in range(0, n, half):
         plain = rpo_hash_elements(cfg, leaves[..., lo : lo + half], d, "plain")
@@ -2231,17 +2274,20 @@ def rpo_phase(st, dev, rng, gpu):
         f"backend (torch.equal on the card, every lane and every level); {len(rows)} digests == the oracle's "
         f"sponge, the near-bound rows (every element p-1, every element p-2) among them")
 
-    perm_ms, _ = time_ms(lambda: rescue_permute(cfg, consts, state))
+    perm_ms, _ = time_ms(lambda: perm.kernel(cfg, consts, state))
     leaf_ms, _ = time_ms(lambda: rpo_hash_elements(cfg, leaves, d))
     tree_ms, _ = time_ms(lambda: merkle_tree_wide(cfg, digests))
+    bound_ms, bound_by = kernel_bound("rescue_permute", cfg, B_MAIN, rates)
+    wide, _ = limb_products("rescue_permute", cfg)
     say("time", f"rescue_permute RPO {fs.name} t={t} B={B_MAIN}: {perm_ms:.3f} ms "
-        f"({perm_ms / B_MAIN * 1e6:.2f} ns a permutation); the row set's leaf hash {leaf_ms:.3f} ms, its tree "
-        f"{tree_ms:.3f} ms [{gpu}]")
+        f"({perm_ms / B_MAIN * 1e6:.2f} ns a permutation); bound {bound_ms:.3f} ms ({bound_by}, "
+        f"{bound_ms / perm_ms:.1%} of it; {wide:,} wide products per permutation); the row set's leaf hash "
+        f"{leaf_ms:.3f} ms, its tree {tree_ms:.3f} ms [{gpu}]")
     for other in (st.get_default_rescue_parameters(st.BLS12_381_FR, 2),
                   st.get_default_rescue_parameters(st.GOLDILOCKS_FR, 8)):
         big = random_plane(other.field, (other.t, other.field.nlimbs, B_MAIN), rng, dev)
-        perm_consts = permutation_for(other, dev).consts
-        ms, _ = time_ms(lambda: rescue_permute(other, perm_consts, big))
+        other_perm = permutation_for(other, dev)
+        ms, _ = time_ms(lambda: other_perm.kernel(other, other_perm.consts, big))
         ref = RESCUE_ROW5_MS[other.field.name]
         say("time", f"rescue_permute {other.field.name} t={other.t} B={B_MAIN}: {ms:.3f} ms, the kernel table's "
             f"{ref:.3f} ms ({ms / ref - 1:+.1%}) [{gpu}]")

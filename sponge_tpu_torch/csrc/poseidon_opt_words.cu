@@ -57,14 +57,6 @@ __device__ __forceinline__ void gl_add_constants(uint64_t (&x)[T], const uint64_
   for (int e = 0; e < T; ++e) x[e] = gl_add(x[e], c[e]);
 }
 
-// The canonical value whose three 24-bit limbs lie at src, src + stride and
-// src + 2 stride.
-__device__ __forceinline__ uint64_t gl_from_limbs(const int32_t* __restrict__ src, long long stride) {
-  return static_cast<uint64_t>(static_cast<uint32_t>(src[0])) |
-         static_cast<uint64_t>(static_cast<uint32_t>(src[stride])) << kLimbBits |
-         static_cast<uint64_t>(static_cast<uint32_t>(src[2 * stride])) << (2 * kLimbBits);
-}
-
 // poseidon_opt.cu load_absorb for words: the state (or zero), the rate rows
 // added, each element converted x R -> x by one product by 2^-72 mod p.
 template <int T>
@@ -83,21 +75,15 @@ __device__ __forceinline__ void gl_load_absorb(uint64_t (&x)[T], const int32_t* 
   }
 }
 
-// poseidon_opt.cu store_rows for words: rows [lo, hi) converted x -> x R by
-// one product by 2^72 mod p (below 2^64 < 2p) and one conditional
-// subtraction, stored as canonical limbs into an (hi - lo, 3, B) plane.
+// poseidon_opt.cu store_rows for words: rows [lo, hi) converted back to
+// canonical limbs (gl_to_limbs) into an (hi - lo, 3, B) plane.
 template <int T>
 __device__ __forceinline__ void gl_store_rows(int32_t* __restrict__ out, const uint64_t (&x)[T], long long B,
                                               long long b, int lo, int hi, uint64_t from_word) {
 #pragma unroll
   for (int e = 0; e < T; ++e) {
     if (e < lo || e >= hi) continue;
-    uint64_t v = gl_mul(x[e], from_word);
-    if (v >= kGoldilocksP) v -= kGoldilocksP;
-    int32_t* __restrict__ dst = out + 3 * (e - lo) * B + b;
-    dst[0] = static_cast<int32_t>(v & kLimbMask);
-    dst[B] = static_cast<int32_t>((v >> kLimbBits) & kLimbMask);
-    dst[2 * B] = static_cast<int32_t>(v >> (2 * kLimbBits));
+    gl_to_limbs(out + 3 * (e - lo) * B + b, B, x[e], from_word);
   }
 }
 

@@ -12,6 +12,11 @@
 // conditional subtraction alone.  The flag is a template argument, so the
 // Rescue-Prime instantiations compile as before.
 //
+// This is the limb body, compiled at L = 11 and L = 2 in Rescue-Prime's
+// order.  Goldilocks (L = 3), the one field of Rescue Prime Optimized, runs
+// the two-word body (rescue_words.cu) in both orders, so no instantiation
+// here sets MdsFirst.
+//
 // Both exponents run through one sliding-window chain (mont.cuh
 // pow_window) with squarings by mont_sqr: the schedules
 // (ops/montgomery.py window_schedule, at the windows of rescue/config.py
@@ -138,26 +143,34 @@ int launch_rescue(const int32_t* in, int32_t* out, long long B, int rounds, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel 5's two-word body (rescue_words.cu) at Goldilocks t, reading its
+// word buffer (ops/rescue.py word_constants); -1 where it has no
+// instantiation at (t, L) and the order, or the buffer has another length.
+int launch_rescue_words(const int32_t* in, int32_t* out, long long B, int t, int L, int rounds, int mds_first,
+                        int chain, int narrow, const int32_t* words, int n_words, cudaStream_t stream);
+
 }  // namespace sponge
 
 // Plain C entry point (ctypes): returns the CUDA error of a refused shared
 // memory size or cudaGetLastError() after the launch, or -1 when (t, L) has
-// no instantiation of the round order ``mds_first`` asks for.  Rescue-Prime's
-// PAIR lines must match INSTANTIATIONS in sponge_tpu_torch/ops/_build.py,
-// Rescue Prime Optimized's MDS_FIRST lines MDS_FIRST_PAIRS in
-// sponge_tpu_torch/ops/rescue.py.
+// no instantiation of the body and round order asked for.  ``body`` 0 is
+// this file's limb body, whose PAIR lines must match ops/rescue.py
+// BODIES["limb"] (Rescue-Prime's order alone); 2 the two-word body
+// (rescue_words.cu) with its word buffer ``words`` of ``n_words`` int32,
+// its chains (``chain`` 1: alpha = 7's fixed chains) and its MDS rows
+// (``narrow`` 1: narrow rows).
 extern "C" int sponge_rescue(const int32_t* in, int32_t* out, long long B, int t, int L,
                              int rounds, int w_alpha, int n_alpha, int w_inv, int n_inv,
-                             const int32_t* consts, unsigned n0inv, int mds_first, void* stream) {
+                             const int32_t* consts, unsigned n0inv, int mds_first, int body,
+                             const int32_t* words, int n_words, int chain, int narrow, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == 2)
+    return sponge::launch_rescue_words(in, out, B, t, L, rounds, mds_first, chain, narrow, words, n_words, s);
+  if (body != 0 || mds_first) return -1;
 #define PAIR(T_, L_)                                                                              \
-  if (t == T_ && L == L_ && !mds_first)                                                           \
+  if (t == T_ && L == L_)                                                                         \
     return sponge::launch_rescue<T_, L_, false>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv, \
                                                 consts, n0inv, s);
-#define MDS_FIRST(T_, L_)                                                                         \
-  if (t == T_ && L == L_ && mds_first)                                                            \
-    return sponge::launch_rescue<T_, L_, true>(in, out, B, rounds, w_alpha, n_alpha, w_inv, n_inv, \
-                                               consts, n0inv, s);
   PAIR(2, 11)
   PAIR(3, 11)
   PAIR(4, 11)
@@ -166,14 +179,6 @@ extern "C" int sponge_rescue(const int32_t* in, int32_t* out, long long B, int t
   PAIR(7, 11)
   PAIR(8, 11)
   PAIR(9, 11)
-  PAIR(5, 3)
-  PAIR(6, 3)
-  PAIR(7, 3)
-  PAIR(8, 3)
-  PAIR(9, 3)
-  PAIR(10, 3)
-  PAIR(11, 3)
-  PAIR(12, 3)
   PAIR(9, 2)
   PAIR(10, 2)
   PAIR(11, 2)
@@ -183,8 +188,6 @@ extern "C" int sponge_rescue(const int32_t* in, int32_t* out, long long B, int t
   PAIR(15, 2)
   PAIR(16, 2)
   PAIR(3, 2)
-  MDS_FIRST(12, 3)
 #undef PAIR
-#undef MDS_FIRST
   return -1;
 }

@@ -1,7 +1,8 @@
 // Field arithmetic on one or two 32-bit words per element, shared by the
 // port's word bodies: kernel 3's one-word body (poseidon2.cu), kernel 8's
-// two-word body (gmimc.cu), kernel 2's two (poseidon_dense_words.cu) and
-// kernel 1's two-word body (poseidon_opt_words.cu).
+// two-word body (gmimc.cu), kernel 2's two (poseidon_dense_words.cu),
+// kernel 1's two-word body (poseidon_opt_words.cu) and kernel 5's
+// (rescue_words.cu).
 //
 // One word (fields below 2^31): an element is one 32-bit word in Montgomery
 // form with R' = 2^32 (WordField, word_mul, word_sub, reduce_wide,
@@ -10,13 +11,16 @@
 // reduce with 2^64 = 2^32 - 1 and 2^96 = -1 mod p by shifts and adds
 // (GL_REDUCE_N, gl_mul, gl_sqr, gl_pow, gl_sbox); a sum of such products
 // is held in five 32-bit words and reduced once (gl_mac, gl_reduce5,
-// gl_row).  The replays in ops/bounds.py (_P2WordSim,
-// _GmimcWordSim, _DenseWordSim, _DenseGLSim, _OptGLSim) prove each
-// kernel's words in range.
+// gl_row).  The two-word bodies read and write the port's planes of
+// canonical 24-bit Montgomery limbs (gl_from_limbs, gl_to_limbs).  The
+// replays in ops/bounds.py (_P2WordSim, _GmimcWordSim, _DenseWordSim,
+// _DenseGLSim, _OptGLSim, _RescueGLSim) prove each kernel's words in range.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "mont.cuh"
 
 namespace sponge {
 
@@ -247,6 +251,26 @@ __device__ __forceinline__ uint64_t gl_row(const uint64_t (&x)[T], const volatil
 #pragma unroll
   for (int j = 0; j < T; ++j) gl_mac(n, x[j], m[j]);
   return gl_reduce5(n);
+}
+
+// The canonical value whose three 24-bit limbs lie at src, src + stride and
+// src + 2 stride.
+__device__ __forceinline__ uint64_t gl_from_limbs(const int32_t* __restrict__ src, long long stride) {
+  return static_cast<uint64_t>(static_cast<uint32_t>(src[0])) |
+         static_cast<uint64_t>(static_cast<uint32_t>(src[stride])) << kLimbBits |
+         static_cast<uint64_t>(static_cast<uint32_t>(src[2 * stride])) << (2 * kLimbBits);
+}
+
+// A word x below 2^64 converted x -> x R by one product by from_word =
+// 2^72 mod p (below 2^64 < 2p) and one conditional subtraction, stored as
+// three canonical 24-bit limbs at dst, dst + stride and dst + 2 stride.
+__device__ __forceinline__ void gl_to_limbs(int32_t* __restrict__ dst, long long stride, uint64_t x,
+                                            uint64_t from_word) {
+  uint64_t v = gl_mul(x, from_word);
+  if (v >= kGoldilocksP) v -= kGoldilocksP;
+  dst[0] = static_cast<int32_t>(v & kLimbMask);
+  dst[stride] = static_cast<int32_t>((v >> kLimbBits) & kLimbMask);
+  dst[2 * stride] = static_cast<int32_t>(v >> (2 * kLimbBits));
 }
 
 }  // namespace sponge

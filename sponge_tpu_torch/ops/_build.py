@@ -51,9 +51,10 @@ NVCC_FLAGS = (
 # 2-8 (t = 3..9, L = 11; Poseidon2 rates 2, 3 and 7), Goldilocks at rates 4
 # and 8 (8, 3), (12, 3), the 31-bit fields at capacity 8, rate 8 (16, 2).
 # Kernel 5 (Rescue-Prime, capacity 1 at L = 11, 4 at Goldilocks, 8 at the
-# 31-bit fields): t = 2..9 at L = 11, 5..12 at L = 3, 9..16 at L = 2; its
-# MDS-first order (Rescue Prime Optimized) at (12, 3) alone
-# (ops/rescue.py MDS_FIRST_PAIRS).
+# 31-bit fields; its bodies: ops/rescue.py BODIES): t = 2..9 at L = 11,
+# 5..12 at L = 3 (the two-word body), 9..16 at L = 2; its MDS-first order
+# (Rescue Prime Optimized) at (12, 3) alone (ops/rescue.py
+# MDS_FIRST_PAIRS).
 # Kernel 8 (GMiMC-erf; ops/gmimc.py BODIES): its limb body t = 2..9 at
 # L = 11, its two-word body Goldilocks t = 5..12.  Kernel 6 (Griffin-pi,
 # t = 3, 4, 8 and Goldilocks 8, 12) and kernel 7 (Anemoi, t = 2, 4, 6, 8 at
@@ -88,7 +89,6 @@ INSTANTIATIONS = {
 # every config the same window.
 REGISTERS = {
     **{("sponge_rescue", t, 11): r for t, r in zip(range(2, 10), (128, 128, 164, 220, 240, 242, 255, 255))},
-    **{("sponge_rescue", t, 3): r for t, r in zip(range(5, 13), (120, 126, 128, 128, 128, 128, 128, 128))},
     **{("sponge_rescue", t, 2): 128 for t in range(9, 17)},
     ("sponge_rescue", 3, 2): 56,
     ("sponge_anemoi", 2, 11): 74,
@@ -137,9 +137,13 @@ SIGNATURES = {
     "sponge_poseidon2": [c_int, c_int, c_int, c_uint, c_int, c_void_p, c_int, c_void_p, c_uint, c_void_p,
                          c_int, c_int, *[c_longlong] * 6, c_int, c_int],
     # rounds, alpha window and schedule length, inverse-alpha window and
-    # schedule length, constants, n0inv, the round order (1: the MDS first,
-    # Rescue Prime Optimized; ops/rescue.py MDS_FIRST_PAIRS)
-    "sponge_rescue": [c_int, c_int, c_int, c_int, c_int, c_void_p, c_uint, c_int],
+    # schedule length, constants, n0inv (the limb body's), the round order
+    # (1: the MDS first, Rescue Prime Optimized; ops/rescue.py
+    # MDS_FIRST_PAIRS), the body (ops/rescue.py), the two-word body's
+    # constants and their length, its chains (1: alpha = 7's) and its MDS
+    # rows (1: narrow)
+    "sponge_rescue": [c_int, c_int, c_int, c_int, c_int, c_void_p, c_uint, c_int, c_int, c_void_p, c_int, c_int,
+                      c_int],
     # body (ops/gmimc.py), rounds, alpha, front reduction (limb body), the
     # body's constants and their length, n0inv
     "sponge_gmimc": [c_int, c_int, c_uint, c_int, c_void_p, c_int, c_uint],

@@ -962,6 +962,152 @@ def check_opt_gl_bounds(cfg: PoseidonConfig) -> int:
     sim.run()
     return sim.tmax
 
+# ---------------------------------------------------------------------------
+# Kernel 5's two-word body (csrc/rescue_words.cu)
+# ---------------------------------------------------------------------------
+
+# The inverse S-box at alpha = 7 (Miden's chain, csrc/rescue_words.cu
+# gl_pow_inv7): after x^2, x^4 and x^7 = x^2 x^4 x, runs of squarings of
+# the running power, each followed by a product by the named power.
+INV7_RUNS = ((3, "x4"), (6, "t3"), (12, "t4"), (6, "t3"), (31, "t6"), (1, "t6"), (2, "x7"))
+
+
+@dataclass(frozen=True)
+class RescueGLPlan:
+    """Kernel 5's two-word body for one config (``check_rescue_gl_bounds``):
+    ``chain``, alpha = 7's fixed chains (else square-and-multiply over the
+    exponents); ``narrow``, the MDS rows' two 64-bit accumulators (else
+    ``gl_row``); ``acc``, the largest accumulator bound: a narrow row's
+    (exclusive, at most 2^64) or ``gl_row``'s top word n4."""
+
+    chain: bool
+    narrow: bool
+    acc: int
+
+
+class _RescueGLSim(_DenseGLSim):
+    """Exclusive bounds through kernel 5's two-word body
+    (``csrc/rescue_words.cu``, Goldilocks only): the entry (a canonical
+    value times 2^-72 mod p), in the config's round order each half-round's
+    S-boxes (x^7 and Miden's inverse chain where alpha is 7, else
+    square-and-multiply over the exponent's bits), its MDS rows (narrow:
+    the elements' low and high 32-bit halves times the entries summed in
+    two 64-bit accumulators and reduced once, ``gl_narrow``; else
+    ``gl_row``) and its constant adds (``gl_add``), then the exit's one
+    conditional subtraction.  Every element takes the same steps, so the
+    state is one bound and a replay costs the same at any t.  ``amax`` is
+    the largest accumulator bound."""
+
+    def __init__(self, cfg, narrow: bool):
+        super().__init__(cfg)
+        self.narrow_rows, self.chain = narrow, cfg.alpha == 7
+        self.amax = 0
+        if narrow:
+            entries = [v % self.p for row in cfg.mds for v in row]
+            if max(entries) >= _W32:
+                self._fail("an MDS entry is no 32-bit word (narrow rows)")
+            self.row_sum = max(sum(v % self.p for v in row) for row in cfg.mds)
+
+    def _fail(self, msg):
+        cfg = self.cfg
+        raise ValueError(f"Rescue two-word kernel, {cfg.field.name} t={cfg.t}: {msg}")
+
+    def pow_bits(self, x, e):
+        """``gl_pow64``: MSB-first square-and-multiply over the bits of e."""
+        acc = x
+        for bit in range(e.bit_length() - 2, -1, -1):
+            acc = self.sqr(acc)
+            if (e >> bit) & 1:
+                acc = self.mul(acc, x)
+        return acc
+
+    def pow7(self, x):
+        """``gl_pow7``: x^7 = (x^2)^2 (x^2 x)."""
+        x2 = self.sqr(x)
+        return self.mul(self.sqr(x2), self.mul(x2, x))
+
+    def pow_inv7(self, x):
+        """``gl_pow_inv7``: Miden's chain, ``INV7_RUNS``."""
+        x2 = self.sqr(x)
+        power = {"x4": self.sqr(x2)}
+        power["x7"] = self.mul(self.mul(x2, power["x4"]), x)
+        acc = power["x4"]
+        for (squarings, by), name in zip(INV7_RUNS, ("t3", "t4", "t5", "t6", "t7", "a", "out")):
+            for _ in range(squarings):
+                acc = self.sqr(acc)
+            acc = power[name] = self.mul(acc, power[by])
+        return acc
+
+    def sbox(self, x, inverse: bool):
+        if self.chain:
+            return self.pow_inv7(x) if inverse else self.pow7(x)
+        return self.pow_bits(x, self.cfg.inv_alpha if inverse else self.cfg.alpha)
+
+    def narrow(self, x):
+        """``gl_narrow`` of a row whose elements lie below ``x``: each
+        accumulator (low halves, high halves, times entries summing to
+        ``row_sum``) below 2^64, k = hi / 2^32 plus a carry below 2^32
+        (k (2^32 - 1) < p, ``gl_add``'s constant), and ``gl_add``'s
+        fix-up."""
+        self._halves(x)  # the halves of a word with no excess
+        lo = min(x[0] - 1, _EPS) * self.row_sum + 1
+        hi = ((x[0] - 1) >> 32) * self.row_sum + 1
+        self.amax = max(self.amax, lo, hi)
+        if max(lo, hi) > _W64:
+            self._fail("a narrow row's accumulator can reach 2^64")
+        k = ((hi - 1) >> 32) + 1  # inclusive
+        if k >= _W32:
+            self._fail("a narrow row's 2^64s can reach 2^32")
+        v = _W64 - 1 + k * _EPS  # inclusive
+        if v >= _W64 and v - _W64 + _EPS >= _W64:
+            self._fail("a narrow row's fix-up can wrap")
+        return _W64, 1
+
+    def row(self, x):
+        if self.narrow_rows:
+            return self.narrow(x)
+        self._halves(x)
+        out = self.reduce5(self.cfg.t * (x[0] - 1) * (self.p - 1) + 1)
+        self.amax = max(self.amax, self.tmax)
+        return out
+
+    def run(self):
+        cfg, p = self.cfg, self.p
+        mds_first = getattr(cfg, "mds_first", False)
+        x = self.mul((p, 1), (p, 1))  # the entry's product by 2^-72 mod p
+        for h in range(2 * cfg.rounds):
+            if mds_first:
+                x = self.add_const(self.row(x))
+            x = self.sbox(x, inverse=bool(h % 2))
+            if not mds_first:
+                x = self.add_const(self.row(x))
+        if self.mul(x, (p, 1))[0] > 2 * p:  # the exit: the product by 2^72 mod p, one subtraction
+            self._fail("the exit's conditional subtraction takes an input of 2p or more")
+
+
+@functools.lru_cache(maxsize=None)
+def check_rescue_gl_bounds(cfg) -> RescueGLPlan:
+    """Replay kernel 5's two-word body (Goldilocks) on exclusive bounds:
+    every product input a word below 2^64 with no excess, every partial
+    product, middle column and reduction fix-up in range, every constant
+    add's fix-up unable to wrap, the exit's subtraction input below 2p; the
+    MDS rows narrow where every entry is a 32-bit word and the narrow
+    accumulators stay below 2^64, else ``gl_row``'s, whose sums stay below
+    2^160.  Raises ValueError if the body could fail (or the field is not
+    Goldilocks); returns the plan it replayed."""
+    narrow = True
+    try:
+        sim = _RescueGLSim(cfg, narrow=True)
+        sim.run()
+    except ValueError:
+        if not word_body(cfg.field):
+            raise
+        narrow = False
+        sim = _RescueGLSim(cfg, narrow=False)
+        sim.run()
+    return RescueGLPlan(chain=sim.chain, narrow=narrow, acc=sim.amax)
+
+
 def _griffin_replay(cfg, reduce_linear: bool) -> KernelPlan:
     fs, t = cfg.field, cfg.t
     sim = _Replay(f"Griffin kernel, {fs.name} t={t}", fs)

@@ -57,6 +57,7 @@ from sponge_tpu_torch.ops.bounds import (
     check_gmimc_word_bounds,
     check_griffin_bounds,
     check_rescue_bounds,
+    check_rescue_gl_bounds,
 )
 from sponge_tpu_torch.ops.montgomery import WIDE_WORDS, wide_state
 
@@ -110,10 +111,11 @@ def first_of_each_pair(family):
 def test_every_default_family_config_is_instantiated(family):
     """All 115 default configs (56 Rescue-Prime, 32 GMiMC, 11 Griffin, 16
     Anemoi) pass their kernel's instantiation check and their wrapper's
-    launch arguments, which run the bound replay (GMiMC: the two-word
-    replay at Goldilocks, whose widths the two-word body holds, and the limb
-    replay elsewhere, with the front reduction at BLS12-381 t >= 4); the
-    compiled pairs are the defaults' and the test fields'."""
+    launch arguments, which run the bound replay (GMiMC and Rescue-Prime:
+    the two-word replay at Goldilocks, whose widths the two-word body holds,
+    and the limb replay elsewhere, GMiMC's with the front reduction at
+    BLS12-381 t >= 4); the compiled pairs are the defaults' and the test
+    fields'."""
     _, perm, symbol, ops, count = FAMILIES[family]
     cfgs = default_configs(family)
     assert len(cfgs) == count
@@ -122,7 +124,8 @@ def test_every_default_family_config_is_instantiated(family):
         t, L = cfg.t, cfg.field.nlimbs
         pairs.add((t, L))
         _build.check_instantiated(symbol, t, L)
-        args = ops._launch_args(cfg, perm(cfg, "cpu").consts)
+        module = perm(cfg, "cpu")
+        args = ops._launch_args(cfg, module.consts, *((module.words,) if family == "rescue" else ()))
         if family == "gmimc":
             word = cfg.field.name == "goldilocks_fr"
             assert args[0] == int(word) and (t, L) in gmimc_ops.BODIES["word" if word else "limb"], label
@@ -130,7 +133,12 @@ def test_every_default_family_config_is_instantiated(family):
                 check_gmimc_word_bounds(cfg)
             assert args[3] == int(cfg.field.name == "bls12_381_fr" and t >= 4), label
         elif family == "rescue":
-            assert 2 * cfg.field.modulus <= check_rescue_bounds(cfg) < 3 * cfg.field.modulus, label
+            kind = rescue_ops.body(cfg)
+            assert args[8] == rescue_ops.BODY_CODES[kind] and (t, L) in rescue_ops.BODIES[kind], label
+            if kind == "two-word":
+                assert args[-2:] == (1, int(check_rescue_gl_bounds(cfg).narrow)), label
+            else:
+                assert 2 * cfg.field.modulus <= check_rescue_bounds(cfg) < 3 * cfg.field.modulus, label
         else:
             plan = (check_griffin_bounds if family == "griffin" else check_anemoi_bounds)(cfg)
             assert plan.vmax < cfg.field.r and plan.wmax <= 1 << 32, label
@@ -138,6 +146,8 @@ def test_every_default_family_config_is_instantiated(family):
     assert _build.INSTANTIATIONS[symbol] - pairs <= FIRST_PAIRS[family]
     if family == "gmimc":
         assert gmimc_ops.BODIES["limb"] | gmimc_ops.BODIES["word"] == _build.INSTANTIATIONS[symbol]
+    if family == "rescue":
+        assert rescue_ops.BODIES["limb"] | rescue_ops.BODIES["two-word"] == _build.INSTANTIATIONS[symbol]
 
 
 def _uncompiled(family):

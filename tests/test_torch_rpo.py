@@ -98,17 +98,22 @@ def test_permutation_equals_the_oracle_and_the_reference(lanes):
 
 
 def test_kernel_entry_guards_the_order(monkeypatch):
-    """The MDS-first order is compiled at Goldilocks (12, 3) alone (the
-    ``MDS_FIRST`` lines of ``csrc/rescue.cu``); there the launch passes
+    """The MDS-first order is compiled at Goldilocks (12, 3) alone, in the
+    two-word body (the ``GL_MDS_FIRST`` lines of ``csrc/rescue_words.cu``;
+    the limb body of ``csrc/rescue.cu`` has none); there the launch passes
     the order to the kernel; at any other pair an MDS-first config raises
     ``NotImplementedError`` for a CUDA tensor before anything runs."""
-    text = (_build.CSRC / "rescue.cu").read_text()
-    lines = {(int(t), int(L)) for t, L in re.findall(r"^\s*MDS_FIRST\((\d+), (\d+)\)$", text, re.M)}
-    assert lines == MDS_FIRST_PAIRS == {(12, 3)} and MDS_FIRST_PAIRS <= _build.INSTANTIATIONS["sponge_rescue"]
+    text = (_build.CSRC / "rescue_words.cu").read_text()
+    lines = {(int(t), 3) for t in re.findall(r"^\s*GL_MDS_FIRST\((\d+)\)$", text, re.M)}
+    assert lines == MDS_FIRST_PAIRS == {(12, 3)} and MDS_FIRST_PAIRS <= rescue_ops.BODIES["two-word"]
+    assert not re.search(r"^\s*MDS_FIRST\(", (_build.CSRC / "rescue.cu").read_text(), re.M)
     consts = types.SimpleNamespace(data_ptr=lambda: 0)
-    assert rescue_ops._launch_args(CFG, consts)[-1] == 1
+    words = st.RescuePermutation(CFG, "cpu").words
+    consts.device = words.device
+    order = 7  # the round order's place among the C arguments (_build.SIGNATURES)
+    assert rescue_ops._launch_args(CFG, consts, words)[order] == 1
     rp = st.get_default_rescue_parameters(FS, 8)
-    assert rescue_ops._launch_args(rp, consts)[-1] == 0
+    assert rescue_ops._launch_args(rp, consts, st.RescuePermutation(rp, "cpu").words)[order] == 0
     narrow = dataclasses.replace(st.get_default_rescue_parameters(FS, 4), mds_first=True)  # (8, 3)
     cuda_state = types.SimpleNamespace(device=torch.device("cuda", 0), shape=(narrow.t, FS.nlimbs, 8))
 
@@ -367,13 +372,15 @@ def cuda():
 
 @pytest.mark.card
 def test_kernel_and_leaf_hash_equal_their_plain_versions_on_the_card(cuda):
-    """Kernel 5's MDS-first order at 1,000 lanes (not a multiple of a block)
-    and a 71-element leaf hash through it, against the plain versions on
-    the same card."""
-    consts = st.RescuePermutation(CFG, cuda).consts
+    """Kernel 5's MDS-first order (its two-word body, with the module's
+    word buffer) at 1,000 lanes (not a multiple of a block) and a
+    71-element leaf hash through it, against the plain versions on the same
+    card."""
+    perm = st.RescuePermutation(CFG, cuda)
+    consts = perm.consts
     state = plane(random_rows(20, 12, 1000)).to(cuda)
     before = rescue_permute.launches
-    out = rescue_permute(CFG, consts, state)
+    out = rescue_permute(CFG, consts, state, perm.words)
     assert rescue_permute.launches == before + 1
     assert torch.equal(out, rescue_permute_plain(CFG, consts, state))
     leaves = plane(random_rows(21, 71, 1000)).to(cuda)

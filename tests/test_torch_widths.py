@@ -47,6 +47,7 @@ from sponge_tpu_torch.ops import _build
 from sponge_tpu_torch.ops import gmimc as gmimc_ops
 from sponge_tpu_torch.ops import poseidon2 as p2_ops
 from sponge_tpu_torch.ops import poseidon_dense, poseidon_opt
+from sponge_tpu_torch.ops import rescue as rescue_ops
 from sponge_tpu_torch.ops.bounds import P2_FOLD_CAPS
 from sponge_tpu_torch.ops.poseidon2 import BODIES, permute_p2_plain
 from sponge_tpu_torch.poseidon.params import PoseidonGrainLFSR
@@ -161,6 +162,7 @@ def test_uncompiled_pair_raises_on_a_cuda_tensor_with_no_fallback(index, monkeyp
                                            ("poseidon_dense.cu", "sponge_poseidon_dense"),
                                            ("poseidon2.cu", "limb"),
                                            ("rescue.cu", "sponge_rescue"),
+                                           ("rescue_words.cu", "rescue-two-word"),
                                            ("griffin.cu", "sponge_griffin"),
                                            ("anemoi.cu", "sponge_anemoi"),
                                            ("gmimc.cu", "gmimc-limb"),
@@ -175,13 +177,15 @@ def test_c_entry_points_dispatch_the_listed_pairs(source, symbol):
     and its word bodies' ``WORD(t)`` lines at L = 2 and ``GL(t)`` lines at
     L = 3; kernel 3: its limb body's, ``BODIES``; kernel 8: its limb body's
     ``PAIR`` lines and its two-word body's ``WORD(t)`` lines at L = 3,
-    ``ops/gmimc.py`` ``BODIES``), so no listed pair returns -1 on the card
-    and none is compiled unlisted."""
+    ``ops/gmimc.py`` ``BODIES``; kernel 5: its limb body's, and its
+    two-word body's ``GL(t)`` lines at L = 3, ``ops/rescue.py``
+    ``BODIES``), so no listed pair returns -1 on the card and none is
+    compiled unlisted."""
     text = (CSRC / source).read_text()
     if symbol in ("gmimc-word", "dense-one-word"):
         L = 2 if symbol == "dense-one-word" else 3
         pairs = [(int(t), L) for t in re.findall(r"^\s*WORD\((\d+)\)$", text, re.M)]
-    elif symbol in ("dense-two-word", "opt-two-word"):
+    elif symbol in ("dense-two-word", "opt-two-word", "rescue-two-word"):
         pairs = [(int(t), 3) for t in re.findall(r"^\s*GL\((\d+)\)$", text, re.M)]
     else:
         pairs = [(int(t), int(L)) for t, L in re.findall(r"^\s*PAIR\((\d+), (\d+)\)$", text, re.M)]
@@ -191,7 +195,9 @@ def test_c_entry_points_dispatch_the_listed_pairs(source, symbol):
             "dense-one-word": poseidon_dense.BODIES["one-word"],
             "dense-two-word": poseidon_dense.BODIES["two-word"],
             "sponge_poseidon_opt": poseidon_opt.BODIES["limb"],
-            "opt-two-word": poseidon_opt.BODIES["two-word"]}.get(symbol) or _build.INSTANTIATIONS[symbol]
+            "opt-two-word": poseidon_opt.BODIES["two-word"],
+            "sponge_rescue": rescue_ops.BODIES["limb"],
+            "rescue-two-word": rescue_ops.BODIES["two-word"]}.get(symbol) or _build.INSTANTIATIONS[symbol]
     assert set(pairs) == want
     if symbol == "limb":
         caps = tuple(int(v) for v in re.findall(r"constexpr int kMax(?:Sbox)?Folds = (\d+);", text))
