@@ -43,6 +43,12 @@ commitment's row set (2^21 rows of 71 through ``rpo_hash_elements``, 9
 launches, its merge tree a launch a level) against the plain backend on
 every lane and the oracle's sponge, and kernel 5's Rescue-Prime rows timed
 beside the kernel table (``--only rescue_rpo`` runs this phase alone);
+kernel 1's tagged step at the Filecoin cell's size: an arity-8 tree with
+neptune's tag 255 over 2^27 BLS12-381 leaves in 9 launches, sampled nodes
+of every level (children all p-1 and all p-2 among them) against the plain
+backend, the benchmark's reference and the oracle, the tree and a tagged
+step timed, and the cell's control reading ``correct`` false
+(``--only poseidon_octtree`` runs this phase alone);
 GMiMC, Griffin and Anemoi: the BLS12-381 and Goldilocks permutations at
 B = 2^20 (kernel 8's limb body at BLS12-381, its two-word
 body at Goldilocks, each with near-bound lanes of p-1 and p-2 in every
@@ -1357,6 +1363,9 @@ def main(argv):
         if RPO_PHASE in only:
             elapsed("the RPO path")
             rpo_phase(st, dev, rng, gpu, rates)
+        if OCTTREE_PHASE in only:
+            elapsed("the Filecoin tree")
+            octtree_phase(st, dev, rng, gpu, rates)
         elapsed("the end")
         return 0
 
@@ -1460,6 +1469,10 @@ def main(argv):
     elapsed("the RPO path")
     # ---- 6c. kernel 5's MDS-first order at the Miden cell's sizes, launches counted ----
     launches["rescue_permute"] += rpo_phase(st, dev, rng, gpu, rates)["rescue_permute"]
+
+    elapsed("the Filecoin tree")
+    # ---- 6d. kernel 1's tagged step at the Filecoin cell's sizes, launches counted ----
+    launches["poseidon_permute_opt"] += octtree_phase(st, dev, rng, gpu, rates)["poseidon_permute_opt"]
 
     elapsed("the GMiMC/Griffin/Anemoi path")
     # ---- 7. the GMiMC, Griffin and Anemoi path (kernels 8, 6 and 7), launches counted ----
@@ -2292,6 +2305,99 @@ def rpo_phase(st, dev, rng, gpu, rates):
         say("time", f"rescue_permute {other.field.name} t={other.t} B={B_MAIN}: {ms:.3f} ms, the kernel table's "
             f"{ref:.3f} ms ({ms / ref - 1:+.1%}) [{gpu}]")
     return {"rescue_permute": launches}
+
+
+OCTTREE_PHASE = "poseidon_octtree"  # its name for --only
+OCTTREE_CELL = "bls381-fil-tree-r-2p27"
+OCTTREE_LEAVES_LOG2, OCTTREE_ARITY, OCTTREE_TAG = 27, 8, 255  # the cell's tree: 8^9 leaves, neptune's tag
+OPT_ROW_9_MS = 64.952  # PERF.md's kernel table: kernel 1 at (9, 11), B = 2^20
+
+
+def octtree_phase(st, dev, rng, gpu, rates):
+    """Kernel 1's tagged step at (9, 11) at the Filecoin cell's size
+    (``bls381-fil-tree-r-2p27``: an arity-8 tree over 2^27 BLS12-381
+    leaves, neptune's tag 255 in the capacity), launches counted: one tree
+    (``merkle_tree_arity``) with ``permute_opt.launches`` zeroed just before
+    and read just after (9 launches, all the limb body's); at every level
+    both ends and 64 drawn nodes (the leaf level's first node, whose 8
+    children are all p-1, and its last, all p-2, among them) against the
+    plain backend's ``compress_children`` over the same children on the
+    card, the benchmark's reference (``spongebench/reference/octtree.py``)
+    and the oracle's permutation of [255, c_0, ..., c_7]; the tree and a
+    2^20-lane tagged step timed, the step beside its bound and kernel 1's
+    untagged permutation at 2^20; then the cell's control, a harness run
+    with the family's control config, which must read ``correct`` false.
+    Returns the tree's launches."""
+    from spongebench import harness
+    from spongebench.reference.octtree import tagged_hash
+    from spongebench.reference.poseidon import Poseidon
+    from sponge_tpu_torch.family import permutation_for
+    from sponge_tpu_torch.hash import compress_children, merkle_tree_arity
+    from sponge_tpu_torch.ops.poseidon_opt import permute_opt
+
+    cfg = st.get_default_poseidon_parameters(st.BLS12_381_FR, 8)
+    fs, k, tag, n = cfg.field, OCTTREE_ARITY, OCTTREE_TAG, 1 << OCTTREE_LEAVES_LOG2
+    L, p = fs.nlimbs, fs.modulus
+    ref = Poseidon.generate(p, cfg.rate, cfg.capacity, cfg.alpha, cfg.full_rounds, cfg.partial_rounds)
+    leaves = random_plane(fs, (L, n), rng, dev)
+    for lo, v in ((0, p - 1), (n - k, p - 2)):
+        leaves[:, lo : lo + k] = torch.from_numpy(fs.ints_to_mont_plane([v])).to(dev)
+    permute_opt.launches = 0
+    permute_opt.body_launches = dict.fromkeys(permute_opt.body_launches, 0)
+    levels = merkle_tree_arity(cfg, leaves, k, tag)
+    torch.cuda.synchronize()
+    launches = permute_opt.launches
+    depth = OCTTREE_LEAVES_LOG2 // 3
+    check(launches == depth and permute_opt.body_launches["limb"] == depth,
+          f"the tree took {launches} launches, by body {permute_opt.body_launches}")
+    say("launches", f"Filecoin tree_r_last base tree (2^{OCTTREE_LEAVES_LOG2} leaves, arity {k}, {depth} levels): "
+        + json.dumps({"poseidon_permute_opt": launches, "by body": permute_opt.body_launches}))
+    checked = 0
+    for i in range(1, len(levels)):
+        m = levels[i].shape[-1]
+        drawn = rng.choice(m, min(64, m), replace=False).tolist()
+        idx = torch.tensor(sorted({0, m - 1, *drawn}), device=dev)
+        kids = levels[i - 1].index_select(-1, (idx[:, None] * k + torch.arange(k, device=dev)).reshape(-1))
+        kids = kids.reshape(L, -1, k).permute(2, 0, 1)
+        got = levels[i].index_select(-1, idx)
+        check(torch.equal(got, compress_children(cfg, kids, tag, "plain")),
+              f"level {i}: the kernel's nodes != the plain backend's")
+        for j in range(idx.numel()):
+            children = lane_ints(fs, kids, j)
+            node = lane_ints(fs, got[None], j)[0]
+            check(node == tagged_hash(ref, tag, children) == oracle_permute(cfg, [tag] + children)[1],
+                  f"level {i} node {int(idx[j])} differs from the reference or the oracle")
+        checked += idx.numel()
+    check(lane_ints(fs, leaves[None], 0)[0] == p - 1 and lane_ints(fs, leaves[None], n - 1)[0] == p - 2,
+          "the near-bound leaves")
+    say("octtree", f"merkle_tree_arity over 2^{OCTTREE_LEAVES_LOG2} leaves (tag {tag}): {checked} nodes of all "
+        f"{depth} levels == the plain backend on the card, the reference's tagged hash and the oracle, the "
+        f"leaf level's all-(p-1) and all-(p-2) nodes among them")
+
+    tree_ms, _ = time_ms(lambda: merkle_tree_arity(cfg, leaves, k, tag))
+    lanes = min(B_MAIN, n // k)
+    step = leaves[:, : k * lanes].reshape(L, lanes, k).permute(2, 0, 1)
+    step_ms, _ = time_ms(lambda: compress_children(cfg, step, tag))
+    perm = permutation_for(cfg, dev)
+    state = random_plane(fs, (cfg.t, L, lanes), rng, dev)
+    perm_ms, _ = time_ms(lambda: perm.kernel(cfg, perm.consts, state))
+    bound_ms, bound_by = kernel_bound("poseidon_permute_opt", cfg, lanes, rates)
+    say("time", f"Filecoin tree over 2^{OCTTREE_LEAVES_LOG2} leaves: {tree_ms:.3f} ms "
+        f"({n / tree_ms * 1e3 / 1e6:.2f} M leaves/s, {tree_ms / ((n - 1) // (k - 1)) * 1e6:.2f} ns a node); "
+        f"the tagged step over {lanes} lanes of 8 strided children {step_ms:.3f} ms, kernel 1's permutation "
+        f"at (9, 11) B={lanes} {perm_ms:.3f} ms (the kernel table's {OPT_ROW_9_MS:.3f} ms at 2^20, "
+        f"{perm_ms / OPT_ROW_9_MS - 1:+.1%}); bound {bound_ms:.3f} ms ({bound_by}; the step at "
+        f"{bound_ms / step_ms:.1%} of it) [{gpu}]")
+    del levels, leaves, step, state
+    torch.cuda.empty_cache()
+
+    cell = harness.resolve(OCTTREE_CELL)
+    out = harness.run(cell, SEED, 0, False, "cuda", time.perf_counter(), control=True)
+    bad = out["checks"]["node_mismatches"]["value"]
+    check(out["correct"] is False and bad > 0, f"the cell's control read correct {out['correct']}")
+    say("octtree", f"{OCTTREE_CELL}'s control (R_P - 1): correct false, {bad} node mismatches")
+    torch.cuda.empty_cache()
+    return {"poseidon_permute_opt": launches}
 
 
 def check_merkle(cfg, leaves, root, family):

@@ -5,15 +5,17 @@ Counterpart of ``sponge_tpu/hash.py:23-506``: batched 2-to-1 compression
 Merkle root and tree with batched opening and verification, the same over
 wide digests (d-element nodes, for small fields), Jive-mode trees
 (``sponge_tpu/hash.py:509-619``), Plonky3's padding-free sponge and
-truncated-permutation trees, and Miden's length-tagged overwrite sponge
-(``rpo_hash_elements``).  Every config of the port drives them.
+truncated-permutation trees, Miden's length-tagged overwrite sponge
+(``rpo_hash_elements``), and arity-k trees whose node hash starts from a
+domain tag in the capacity (Filecoin's, over neptune's Poseidon:
+``merkle_tree_arity``).  Every config of the port drives them.
 The kernels take any batch width, so levels are neither chunked nor padded
 (the JAX package pads to reuse XLA compilations).  A tree, each of its
 levels, a batch of openings, a ``hash_elements``, a ``padding_free_hash``
-and an ``rpo_hash_elements`` call and each truncated compression are spans
-(``utils.profiling``: ``merkle.tree``, ``merkle.level``, ``merkle.open``,
-``hash.elements``, ``hash.padding_free``, ``hash.rpo``,
-``merkle.truncate``).
+and an ``rpo_hash_elements`` call and each truncated or tagged compression
+are spans (``utils.profiling``: ``merkle.tree``, ``merkle.level``,
+``merkle.open``, ``hash.elements``, ``hash.padding_free``, ``hash.rpo``,
+``merkle.truncate``, ``merkle.tagged``).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .poseidon.permutation import (
     overwrite_rows,
     zero_state,
 )
-from .utils.profiling import ELEMENTS, LEVEL, OPEN, PADDING_FREE, RPO, TREE, TRUNCATE, annotate
+from .utils.profiling import ELEMENTS, LEVEL, OPEN, PADDING_FREE, RPO, TAGGED, TREE, TRUNCATE, annotate
 
 
 def hash_elements(
@@ -405,3 +407,122 @@ def rpo_hash_elements(
                 chunk = torch.cat([chunk, chunk.new_zeros((rate - chunk.shape[0], L, B))])
             state = batched_permute(cfg, overwrite_rows(cfg, state, chunk, cap), backend)
         return state[cap : cap + num_outputs].clone()
+
+
+# ---- arity-k trees with a domain-tagged node hash: Filecoin's ----
+#
+# Filecoin's sealing trees (rust-fil-proofs ``PoseidonHasher`` over
+# neptune's Poseidon) hash k children into their parent with one
+# permutation at t = k + 1: the state is [tag, c_0, ..., c_{k-1}], the tag
+# in the capacity, and the parent is element 1.  Neptune's tag for a Merkle
+# tree of arity k is 2^k - 1 (``HashType::MerkleTree``).  Adding the
+# children into a fresh state's rate is writing them there, so the node
+# hash is one sponge step that starts from the tag (``absorb_permute``'s
+# ``tag``), kept rows (capacity, capacity + 1).
+
+
+def neptune_merkle_tag(arity: int) -> int:
+    """Neptune's domain tag of an arity-k Merkle tree's node hash
+    (``HashType::MerkleTree``): 2^arity - 1, 255 at arity 8."""
+    if arity < 2:
+        raise ValueError(f"a tree's arity is at least 2; got {arity}")
+    return (1 << arity) - 1
+
+
+def compress_children(cfg: SpongeConfig, children: torch.Tensor, tag=None, backend: str = "auto") -> torch.Tensor:
+    """(k, L, B) view of any strides -> (L, B), 2 <= k <= rate: for each
+    lane a fresh sponge whose capacity element 0 is ``tag`` (the rest of the
+    capacity zero; all of it zero for None) absorbs the k children and gives
+    state row ``capacity``.  One sponge step (``absorb_permute``; on kernel
+    1 the tag folded into the first round's constants), which reads the
+    children where they lie.  A ``merkle.tagged`` span, its count the
+    nodes."""
+    k, _, B = children.shape
+    if not 2 <= k <= cfg.rate:
+        raise ValueError(f"a node hashes 2 to rate = {cfg.rate} children; got {k}")
+    cap = None if tag is None else (tag,) + (0,) * (cfg.capacity - 1)
+    with annotate(TAGGED, B):
+        return absorb_permute(cfg, None, 0, children, None, (cfg.capacity, cfg.capacity + 1), backend, cap)[0]
+
+
+def _arity_depth(n: int, arity: int) -> int:
+    """Levels above n leaves of an arity-k tree; n must be a power of k."""
+    if arity < 2:
+        raise ValueError(f"a tree's arity is at least 2; got {arity}")
+    depth, m = 0, n
+    while m > 1 and m % arity == 0:
+        m, depth = m // arity, depth + 1
+    if n < 1 or m != 1:
+        raise ValueError(f"leaf count must be a power of the arity {arity}; got {n}")
+    return depth
+
+
+def merkle_tree_arity(cfg: SpongeConfig, leaves: torch.Tensor, arity: int, tag=None,
+                      backend: str = "auto") -> list:
+    """All levels of an arity-k tree, leaves first: [(L, N), (L, N/k), ...,
+    (L, 1)], N a power of k.  level i+1[j] = compress_children(level
+    i[kj .. kj + k - 1], tag); each level is one call over the (k, L, N/k)
+    view of the level below (``reshape(L, N/k, k).permute(2, 0, 1)``, lane
+    stride k), with no copy.  Spans ``merkle.tree`` (the leaves) and
+    ``merkle.level`` (the nodes) around each ``merkle.tagged``."""
+    L, n = leaves.shape
+    depth = _arity_depth(n, arity)
+    levels = [leaves]
+    with annotate(TREE, n):
+        for _ in range(depth):
+            m = levels[-1].shape[-1] // arity
+            with annotate(LEVEL, m):
+                children = levels[-1].reshape(L, m, arity).permute(2, 0, 1)
+                levels.append(compress_children(cfg, children, tag, backend))
+    return levels
+
+
+def merkle_root_arity(cfg: SpongeConfig, leaves: torch.Tensor, arity: int, tag=None,
+                      backend: str = "auto") -> torch.Tensor:
+    """(L, N) Montgomery leaf plane -> (L,) root of the arity-k tree."""
+    return merkle_tree_arity(cfg, leaves, arity, tag, backend)[-1][:, 0]
+
+
+def merkle_open_batch_arity(levels: list, indices, arity: int) -> torch.Tensor:
+    """Authentication paths of K leaves of an arity-k tree as one
+    (depth, k - 1, L, K) gather: path [d][j][:, i] is the j-th of the k - 1
+    siblings, in their order, of leaf i's ancestor a at depth d
+    (a = index // k^d), the node itself left out."""
+    L, n = levels[0].shape
+    count = indices.numel() if isinstance(indices, torch.Tensor) else int(np.size(indices))
+    with annotate(OPEN, count):
+        idx = _indices(indices, n, f"{n} leaves", levels[0].device)
+        K = idx.shape[0]
+        j = torch.arange(arity - 1, device=idx.device)[:, None]
+        paths = []
+        for level in levels[:-1]:
+            slot = idx % arity
+            sib = idx - slot + j + (j >= slot).long()  # (k - 1, K)
+            paths.append(level.index_select(-1, sib.reshape(-1)).reshape(L, arity - 1, K).transpose(0, 1))
+            idx = idx // arity
+        if not paths:
+            return levels[0].new_empty((0, arity - 1, L, K))
+        return torch.stack(paths)
+
+
+def merkle_verify_batch_arity(
+    cfg: SpongeConfig, root: torch.Tensor, leaves: torch.Tensor, paths: torch.Tensor, indices, arity: int,
+    tag=None, backend: str = "auto",
+) -> torch.Tensor:
+    """Verify K proofs of an arity-k tree: ``root`` (L,), ``leaves`` (L, K),
+    ``paths`` (depth, k - 1, L, K) from ``merkle_open_batch_arity``,
+    ``indices`` K ints -> (K,) bool: K roots recomputed, each level one
+    ``compress_children`` over the lane's node put back among its
+    siblings at its slot."""
+    depth, _, L, K = paths.shape
+    idx = _indices(indices, arity**depth, f"path depth {depth} of arity {arity}", leaves.device)
+    slots = torch.arange(arity, device=idx.device)[:, None]
+    cur = leaves
+    for d in range(depth):
+        slot = idx % arity
+        j = (slots - (slots > slot).long()).clamp(max=arity - 2)  # the sibling each slot reads
+        sibs = paths[d].gather(0, j[:, None, :].expand(arity, L, K))
+        children = torch.where((slots == slot)[:, None, :], cur[None], sibs)
+        cur = compress_children(cfg, children, tag, backend)
+        idx = idx // arity
+    return (cur == root[:, None]).all(0)

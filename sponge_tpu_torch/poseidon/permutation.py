@@ -17,15 +17,19 @@ version is the dense plain permutation.  Backends are ``family``'s.
 
 ``batched_permute`` runs any config of the port through
 ``family.permutation_for``.  ``absorb_permute`` is one sponge step: rate
-rows added into a state (or a fresh zero sponge), the permutation, the rows
-the caller keeps; one launch where the module has a step, elsewhere
-``add_rows``, the permutation and a slice.  ``overwrite_rows`` is the
-overwrite mode's write of a chunk into a state; ``overwrite_permute`` the
-whole overwrite sponge in one launch, where the module has it.
+rows added into a state (or a fresh sponge, zero or with its capacity set
+from a domain tag), the permutation, the rows the caller keeps; one launch
+where the module has a step (a tag folded into the first round's
+constants, ``PoseidonPermutation.tagged``), elsewhere ``add_rows``, the
+permutation and a slice.  ``overwrite_rows`` is the overwrite mode's write
+of a chunk into a state; ``overwrite_permute`` the whole overwrite sponge
+in one launch, where the module has it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Protocol
 
 import torch
@@ -64,15 +68,36 @@ class PoseidonPermutation(FamilyPermutation, config=PoseidonConfig):
     def __init__(self, cfg: PoseidonConfig, device):
         super().__init__(cfg, device)
         self.fused = cfg.partial_rounds >= 2
+        self._tagged = {}
 
     def kernel(self, cfg: PoseidonConfig, consts: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
         if self.fused:
             return permute_opt(cfg, consts, state, self.opt_words)
         return permute_dense(cfg, consts, state, self.words)
 
-    def step(self, state, lo: int, rows: tuple, out_rows: tuple) -> torch.Tensor:
-        """Kernel 1's sponge step (``absorb_permute_opt``)."""
-        return absorb_permute_opt(self.cfg, self.consts, state, lo, rows, out_rows, self.opt_words)
+    def step(self, state, lo: int, rows: tuple, out_rows: tuple, tag: tuple | None = None) -> torch.Tensor:
+        """Kernel 1's sponge step (``absorb_permute_opt``); a fresh state
+        whose capacity starts from ``tag`` runs on ``tagged(tag)``'s
+        constants."""
+        perm = self if tag is None else self.tagged(tag)
+        return absorb_permute_opt(perm.cfg, perm.consts, state, lo, rows, out_rows, perm.opt_words)
+
+    def tagged(self, tag: tuple) -> "PoseidonPermutation":
+        """The permutation with the canonical capacity values ``tag`` folded
+        into its first round's constants: a fresh state's first operation
+        is that round's ARK, so P(x + tag) = P'(x), and a state whose
+        capacity is zero (kernel 1's fresh load) gives on P' what the
+        tagged state gives on P, with no change to the kernel or its
+        launch.  Only ARK row 0's first ``len(tag)`` entries differ from
+        this module's constants.  Built once per tag, on this module's
+        device."""
+        perm = self._tagged.get(tag)
+        if perm is None:
+            cfg, p = self.cfg, self.cfg.field.modulus
+            first = tuple((c + v) % p for c, v in zip(cfg.ark[0], tag + (0,) * (cfg.t - len(tag))))
+            tagged = dataclasses.replace(cfg, ark=(first, *cfg.ark[1:]))
+            perm = self._tagged[tag] = PoseidonPermutation(tagged, self.consts.device)
+        return perm
 
 
 def batched_permute(cfg: SpongeConfig, state: torch.Tensor, backend: str = "auto") -> torch.Tensor:
@@ -132,32 +157,44 @@ def overwrite_permute(cfg: SpongeConfig, views: tuple, width: int, out_rows: int
 
 
 def absorb_permute(
-    cfg: SpongeConfig, state, start: int, rows: torch.Tensor, rows2=None, out_rows=None, backend: str = "auto"
+    cfg: SpongeConfig, state, start: int, rows: torch.Tensor, rows2=None, out_rows=None, backend: str = "auto",
+    tag=None,
 ) -> torch.Tensor:
     """One sponge step: the canonical (k, L, B) planes ``rows`` and then
     ``rows2`` (views of any strides) added into the rate of ``state`` from
-    rate position ``start`` (``state`` None: a fresh zero sponge), the
-    permutation, and the permuted state's rows ``out_rows`` = (lo, hi) as a
-    new (hi - lo, L, B) plane (all t rows by default).  Where the config's
-    module has a one-launch step (``fused``: Poseidon at R_P >= 2) and the
-    backend is not "plain", the step is that launch, or its plain version
-    on the CPU under "auto" ("kernel" refuses a CPU tensor): a
-    ``sponge.absorb_fused`` span around a ``sponge.permute`` span, both
-    counting the lanes.  Every other config or backend runs ``add_rows``
-    (of the two planes' ``cat``), the permutation (a ``sponge.permute``
-    span) and a copy of the rows kept, as a sponge does."""
+    rate position ``start`` (``state`` None: a fresh sponge, whose capacity
+    rows are zero, or the canonical values ``tag`` where given: a domain
+    tag), the permutation, and the permuted state's rows ``out_rows`` =
+    (lo, hi) as a new (hi - lo, L, B) plane (all t rows by default).
+    Where the config's module has a one-launch step (``fused``: Poseidon at
+    R_P >= 2) and the backend is not "plain", the step is that launch, or
+    its plain version on the CPU under "auto" ("kernel" refuses a CPU
+    tensor): a ``sponge.absorb_fused`` span around a ``sponge.permute``
+    span, both counting the lanes; a tag is folded into the first round's
+    constants (``PoseidonPermutation.tagged``), so the launch is the same.
+    Every other config or backend runs ``add_rows`` (of the two planes'
+    ``cat``) on the state, or on a zero state with the tag's capacity rows
+    (``tag_plane``), the permutation (a ``sponge.permute`` span) and a copy
+    of the rows kept, as a sponge does."""
     views = (rows,) if rows2 is None else (rows, rows2)
     k = sum(v.shape[0] for v in views)
     if start < 0 or start + k > cfg.rate:
         raise ValueError(f"{k} rows from rate position {start} pass the rate {cfg.rate}")
+    if tag is not None:
+        if state is not None:
+            raise ValueError("a tag sets a fresh sponge's capacity; this step absorbs into a state")
+        tag = capacity_tag(cfg, tag)
     lanes = rows.shape[-1]
     perm = permutation_for(cfg, rows.device)
     if perm.fused and backend != "plain":
         check_backend(backend, rows.device)
         with annotate(ABSORB_FUSED, lanes), annotate(PERMUTE, lanes):
-            return perm.step(state, cfg.capacity + start, views, (0, cfg.t) if out_rows is None else out_rows)
+            kept = (0, cfg.t) if out_rows is None else out_rows
+            return perm.step(state, cfg.capacity + start, views, kept, tag)
     if state is None:
         state = zero_state(cfg, lanes, rows.device)
+        if tag is not None:
+            state[: cfg.capacity] = tag_plane(cfg, tag, rows.device)[..., None]
     if k:
         state = add_rows(cfg, state, start, rows if rows2 is None else torch.cat(views))
     with annotate(PERMUTE, lanes):
@@ -173,3 +210,30 @@ def permute(cfg: SpongeConfig, state: torch.Tensor) -> torch.Tensor:
 def zero_state(cfg: SpongeConfig, batch: int, device) -> torch.Tensor:
     """Zero-initialized sponge states; zero is 0 in Montgomery form."""
     return torch.zeros((cfg.t, cfg.field.nlimbs, batch), dtype=torch.int32, device=device)
+
+
+def capacity_tag(cfg: SpongeConfig, tag) -> tuple:
+    """``tag`` as the tuple of the ``capacity`` canonical field values a
+    fresh sponge's capacity starts from (a domain tag); anything else
+    raises."""
+    tag = tuple(int(v) for v in tag)
+    if len(tag) != cfg.capacity:
+        raise ValueError(f"a tag gives the {cfg.capacity} capacity rows; got {len(tag)} values")
+    if not all(0 <= v < cfg.field.modulus for v in tag):
+        raise ValueError("a tag's values must be canonical field elements, in [0, p)")
+    return tag
+
+
+def tag_plane(cfg: SpongeConfig, tag, device) -> torch.Tensor:
+    """The capacity of a fresh sponge that starts from ``tag``
+    (``capacity_tag``) as the (capacity, L) int32 plane of its Montgomery
+    limbs on ``device``, which ``absorb_permute`` writes into a zero state
+    where it adds the rows apart.  Built and copied to the device once per
+    field, tag and device."""
+    return _tag_plane(cfg.field, capacity_tag(cfg, tag), torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _tag_plane(fs: FieldSpec, tag: tuple, device: torch.device) -> torch.Tensor:
+    limbs = [fs.int_to_limbs(fs.to_mont(v)).tolist() for v in tag]
+    return torch.tensor(limbs, dtype=torch.int32).to(device)

@@ -32,7 +32,11 @@ The port opens these spans, each with the count named beside it:
   chunks (lanes times chunks a lane); the ``sponge.permute`` span inside
   counts the same, its permutations;
 * ``merkle.truncate``: ``hash.truncated_compress_pairs``, the nodes;
-* ``hash.rpo``: ``hash.rpo_hash_elements``, the lanes.
+* ``hash.rpo``: ``hash.rpo_hash_elements``, the lanes;
+* ``merkle.tagged``: ``hash.compress_children``, an arity-k tree's
+  domain-tagged k-to-1 compression, the nodes it produces; inside it the
+  ``sponge.absorb_fused`` and ``sponge.permute`` spans of its one sponge
+  step (``sponge.absorb`` on the plain path).
 
     with profiling.trace("run"):
         hash.merkle_tree(cfg, leaves)
@@ -65,6 +69,7 @@ OVERWRITE = "sponge.overwrite"
 OVERWRITE_FUSED = "sponge.overwrite_fused"
 TRUNCATE = "merkle.truncate"
 RPO = "hash.rpo"
+TAGGED = "merkle.tagged"
 
 
 class _Recorder:
